@@ -1,27 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (any
-card with ``nvcc`` for ``sm_90a``).  It builds the flow-hash kernel from
-``src/repro_torch/kernels/flowhash/csrc/flowhash.cu`` and then:
+card with ``nvcc`` for ``sm_90a``).  It builds both kernel libraries
+from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu``
+and ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``,
+two ``nvcc`` processes at once) and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds every kernel wrapper against its plain PyTorch version on the
-   card, bit for bit, at the main path's shapes, checks the JAX
-   package's pinned flow-hash values, and times kernel and plain
-   version with CUDA events;
-3. anchors the port on the paper testbed (256 flows x 1,024 seeds):
-   aggregate FIM mean and mean max-min rate under both hash backends
-   must match the JAX package's numpy-engine values to 1e-9 relative;
-4. drives the main path at full scale — the default multipod fabric
-   (144 devices, 1,024 links) with 102,400 bipartite pod-to-pod flows:
-   ``monte_carlo_fim`` over 10,240 seeds, ``monte_carlo_throughput``
-   over 1,024 seeds and the paper's four-stage ``simulate_paper_paths``
-   — with every kernel's launch count set to 0 just before and read
-   just after — and checks its first two seeds against the CPU path;
-5. prints the ``kernels`` record and, last, the one-line result.
+   card at the main paths' shapes — the flow hash bit for bit (and the
+   JAX package's pinned values), flash attention in bf16 and f32 to the
+   JAX package's Pallas tolerances (2e-2, 2e-6) and to a per-row
+   relative limit (2e-2, 1e-4) at 32 query heads over 8 kv heads, hd 64,
+   S 4,096 causal and not, a ragged S 1,000, and S 32,768 (every row,
+   and the last 256 rows against a plain computation of those rows
+   alone; a planted skipped key tile must fail the row limit) — and
+   times kernel, plain version and (for attention) SDPA with CUDA
+   events;
+3. anchors the simulator on the paper testbed (256 flows x 1,024
+   seeds): aggregate FIM mean and mean max-min rate under both hash
+   backends must match the JAX package's numpy-engine values to 1e-9;
+4. drives the simulator's path at full scale — the default multipod
+   fabric (144 devices, 1,024 links) with 102,400 bipartite pod-to-pod
+   flows: ``monte_carlo_fim`` over 10,240 seeds,
+   ``monte_carlo_throughput`` over 1,024 seeds and the paper's
+   four-stage ``simulate_paper_paths`` — and checks its first two seeds
+   against the CPU path;
+5. drives the serving path: granite-3-2b at full width and depth
+   (40 layers, bf16, weights from a seeded generator on the card):
+   ``prefill_logits`` on 2 x 32,768 tokens (40 flash-attention
+   launches), ``generate`` for 4 x 2,304-token prompts and 16 greedy
+   tokens with the decode logits checked against the prefill's, and a
+   2-layer f32 prefill on the card against the CPU;
+6. prints the ``kernels`` record and, last, the one-line result.
+
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after; a kernel that its path never launched fails the
+run.
 
 Every check raises, so any failure exits non-zero before the result
 line.  Without a CUDA card, or without the repository around it, the
@@ -30,10 +48,12 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -41,6 +61,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit ALU peak outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # f32 FMA peak outside the tensor cores
 #: integer operations of the murmur chain: per field fold, and fmix
 FOLD_OPS, FMIX_OPS = 9, 8
 
@@ -59,6 +81,29 @@ PINNED_SUM = 8712584361707
 GRID_FLOWS, GRID_SEEDS, N_FIELDS = 102_400, 2_560, 5
 FIM_SEEDS, TP_SEEDS = 10_240, 1_024
 FLOWS_PER_PAIR = 800           # 128 directed host pairs -> 102,400 flows
+
+# flash attention: the JAX package's tolerances for its Pallas kernel
+# (tests/test_kernels.py), as |got - want| <= tol + tol * |want|, and the
+# tolerance that scales with the output: each query row's error relative
+# to that row's size (ref.row_errors, ref.ROW_RTOL: bf16 2e-2, f32 1e-4)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-6}
+FLASH_HEADS, FLASH_KV_HEADS, FLASH_HD = 32, 8, 64
+BAND = 256                     # query rows held at S = 32,768
+# serving: granite-3-2b; the repo's prefill_32k length with the global
+# batch of 32 cut to 2 for one card
+PREFILL_BATCH, PREFILL_LEN = 2, 32_768
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 2_304, 16
+SERVE_SEED = 0
+PROFILE_STEPS = 20             # decode steps traced for the device's busy share
+# decode (plain attention, bf16 scores) against prefill (the flash
+# kernel, f32 scores) at the last prompt position, 40 layers in bf16:
+# max |logit difference| (0.09 measured on an H100 with these seeds;
+# the logits have std ~1); also the top-2 gap above which the first
+# generated token must be the prefill's argmax
+DECODE_TOL = 0.2
+# the card against the CPU, 2 layers in f32 with TF32 off: max |logit
+# difference| relative to the largest |logit|
+F32_RTOL = 1e-4
 
 
 class CheckFailed(RuntimeError):
@@ -92,22 +137,40 @@ def cuda_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: int,
+          ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def timed(fn):
+    """(result, host seconds, peak device bytes) of ``fn`` run alone."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+
 def phase_build():
-    from repro_torch.kernels.flowhash import build
+    """Build both kernel libraries with two ``nvcc`` processes at once."""
+    from repro_torch.kernels.flash_attention import build as fa_build
+    from repro_torch.kernels.flowhash import build as fh_build
     t0 = time.perf_counter()
-    lib = build.build()
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
-    build.load()
-    emit({"phase": "build", "library": lib.name,
-          "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda b: b.build(), (fh_build, fa_build)))
+    fh_build.load()
+    fa_build.load()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": {lib.name: [
+              ln.strip() for ln in lib.with_suffix(".log").read_text()
+              .splitlines() if any(w in ln for w in (
+                  "entry function", "registers", "spill"))]
+              for lib in libs}})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -239,14 +302,6 @@ def phase_full_scale(np, torch):
     hops = simulate_paths(comp, flows, np.arange(4),
                           field_matrix=fm).link_ids.shape[0]
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t, torch.cuda.max_memory_allocated()
-
     ops.reset_launches()
     fim, fim_s, fim_peak = timed(lambda: monte_carlo_fim(
         comp, flows, np.arange(FIM_SEEDS), field_matrix=fm))
@@ -323,6 +378,289 @@ def phase_full_scale(np, torch):
     return launches
 
 
+def phase_flash(np, torch):
+    """The flash-attention kernel against its plain version on the card
+    in bf16 and f32; returns its record at the serving path's shape
+    (launch count filled in later)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def qkv(B, S, dtype):
+        return [torch.randn((B, h, S, FLASH_HD), generator=gen,
+                            device="cuda").to(dtype)
+                for h in (FLASH_HEADS, FLASH_KV_HEADS, FLASH_KV_HEADS)]
+
+    def cost(q, k, causal):
+        """(bytes of q, k, v and o, flops of the unmasked q-k pairs)."""
+        B, H, S, hd = q.shape
+        pairs = S * (S + 1) // 2 if causal else S * S
+        return ((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                4 * hd * pairs * B * H)
+
+    failures = []
+
+    def errs_of(got, want, what):
+        """(max |got - want|, max row error); a miss of either tolerance
+        is a failure."""
+        tol, row_tol = FLASH_TOL[str(got.dtype)[6:]], ref.ROW_RTOL[got.dtype]
+        row = float(ref.row_errors(got, want).max())
+        got, want = got.float(), want.float()
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            failures.append(f"flash attention ({what}) != plain version "
+                            f"beyond {tol} + {tol} |want|")
+        if not row <= row_tol:
+            failures.append(f"flash attention ({what}): a row differs from "
+                            f"the plain version's by {row} > {row_tol}")
+        return float((got - want).abs().max()), row
+
+    def check_shape(dtype, S, causal):
+        q, k, v = qkv(1, S, getattr(torch, dtype))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+        b_ms, b_by = bound(*cost(q, k, causal), peak)
+        err, row = errs_of(got, want, f"{dtype}, S {S}, causal {causal}")
+        return {
+            "dtype": dtype, "S": S, "causal": causal,
+            "max_abs_err": err, "max_row_err": row,
+            "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                          10),
+            "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal), 3),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), 10),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+    checks = [check_shape(dtype, S, causal)
+              for dtype in ("bfloat16", "float32")
+              for S, causal in ((4096, True), (4096, False), (1000, True))]
+
+    # the serving path's shape: 2 x 32 heads over 8 kv heads, S 32,768,
+    # causal bf16; every row held against the plain version, and the
+    # last BAND rows also against a plain computation of those rows alone
+    S, off = PREFILL_LEN, PREFILL_LEN - BAND
+    q, k, v = qkv(PREFILL_BATCH, S, torch.bfloat16)
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    full_err, full_row = errs_of(got, want, f"bfloat16, S {S}, causal")
+    del want
+    got = got[:, :, off:]
+    want = ref.flash_attention_ref(q[:, :, off:], k, v, q_offset=off)
+    band_err, band_row = errs_of(got, want, f"bfloat16, S {S}, band")
+    # a planted fault: the band's output with the middle key tile (64
+    # keys, as the kernel stages them) skipped must fail the row check
+    k0, tile = S // 2, 64
+    kd, vd = (torch.cat([t[:, :, :k0], t[:, :, k0 + tile:]], 2)
+              for t in (k, v))
+    bad = ref.flash_attention_ref(q[:, :, off:], kd, vd, q_offset=off - tile)
+    bad_row = float(ref.row_errors(bad, want).max())
+    bad_abs = float((bad.float() - want.float()).abs().max())
+    if not bad_row > ref.ROW_RTOL[torch.bfloat16]:
+        failures.append(f"the row check passes a skipped key tile "
+                        f"({bad_row})")
+    del got, want, kd, vd, bad
+    b_ms, b_by = bound(*cost(q, k, True), BF16_FLOPS_PER_S)
+    record = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
+        "shape": [PREFILL_BATCH, FLASH_HEADS, FLASH_KV_HEADS, PREFILL_LEN,
+                  FLASH_HD],
+        "dtype": "bfloat16", "causal": True, "max_abs_err": full_err,
+        "max_row_err": full_row,
+        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v), 5),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5)}
+    emit({"phase": "kernels", "kernel": "flash_attention", "tol": FLASH_TOL,
+          "row_tol": {str(d)[6:]: t for d, t in ref.ROW_RTOL.items()},
+          "heads": [FLASH_HEADS, FLASH_KV_HEADS], "hd": FLASH_HD,
+          "checks": checks,
+          "full": {"S": S, "batch": PREFILL_BATCH, "max_abs_err": full_err,
+                   "max_row_err": full_row},
+          "band": {"S": S, "rows": BAND, "max_abs_err": band_err,
+                   "max_row_err": band_row},
+          "planted_skipped_tile": {"key_tile": [k0, k0 + tile],
+                                   "max_abs_err": bad_abs,
+                                   "max_row_err": bad_row}})
+    check(not failures, "; ".join(failures))
+    return record
+
+
+def device_profile(fn, top: int = 6) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: host seconds, summed
+    device-kernel seconds, the device's busy share of the host time, and
+    the ``top`` kernels by device time.  The profiler adds host time, so
+    the busy share is a lower bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    return {"host_s": wall, "device_s": device_s,
+            "busy_share": device_s / wall,
+            "top": [[e.key[:60], e.self_device_time_total / 1e6, e.count]
+                    for e in kernels[:top]]}
+
+
+def _to(tree, device):
+    """A nested dict / list of tensors moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_serve(np, torch):
+    """granite-3-2b serving at full width and depth; returns the flash
+    launches of the 32,768-token prefill.  The phase's record is printed
+    before its checks run, so a failed check still shows the numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_arch("granite-3-2b")
+    model = Model(cfg)
+    params, init_s, _ = timed(lambda: model.init(SERVE_SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
+    weights = list(_leaves(params))
+    checks = []
+
+    # 1. prefill_logits on 2 x 32,768 tokens: the counted run
+    toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN),
+                         generator=gen, device="cuda")
+    eng = ServeEngine(model, PREFILL_BATCH, PREFILL_LEN)
+    eng.prefill_logits(params, {"tokens": toks[:1, :GEN_PROMPT]})  # warm-up
+    ops.reset_launches()
+    logits, prefill_s, prefill_peak = timed(
+        lambda: eng.prefill_logits(params, {"tokens": toks}))
+    launches = dict(ops.LAUNCHES)
+    checks += [
+        (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab),
+         f"prefill logits {tuple(logits.shape)}"),
+        (bool(torch.isfinite(logits).all()), "prefill logits not finite"),
+        (launches["flash_attention"] == cfg.num_layers,
+         f"{launches['flash_attention']} flash launches in a "
+         f"{cfg.num_layers}-layer prefill")]
+    del logits
+    # where the time goes: one more prefill under the profiler
+    prefill_prof = device_profile(
+        lambda: eng.prefill_logits(params, {"tokens": toks}))
+    del toks
+
+    # 2. generate: prompts fed token by token through decode, then 16
+    # greedy tokens; the decode logits at the last prompt position
+    # (cache path) against prefill_logits (kernel path)
+    prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT),
+                            generator=gen, device="cuda")
+    eng = ServeEngine(model, GEN_BATCH, GEN_PROMPT + GEN_STEPS)
+    (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
+        params, prompts, GEN_STEPS, return_logits=True))
+    decode_steps = GEN_PROMPT + GEN_STEPS - 1
+    cache = eng.init_cache()
+
+    def decode_some():
+        for i in range(PROFILE_STEPS):
+            model.decode_step(params, cache, {"tokens": prompts[:, i:i + 1]}, i)
+
+    decode_prof = device_profile(decode_some)
+    del cache
+    ops.reset_launches()
+    last = eng.prefill_logits(params, {"tokens": prompts})[:, -1].float()
+    dec = chosen_from[:, 0].float()
+    dec_err = float((dec - last).abs().max())
+    top2 = last.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > DECODE_TOL
+    checks += [
+        (tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS),
+         f"generated {tuple(out.shape)}"),
+        (torch.equal(out[:, :GEN_PROMPT], prompts), "prompt not kept"),
+        (ops.LAUNCHES["flash_attention"] == cfg.num_layers,
+         "the 2,304-token prefill did not take the kernel"),
+        (dec_err <= DECODE_TOL,
+         f"decode logits differ from prefill's by {dec_err} > {DECODE_TOL}"),
+        (bool((out[:, GEN_PROMPT] == last.argmax(-1))[clear].all()),
+         "first generated token != prefill argmax where the gap is clear")]
+    del params, chosen_from, last, dec
+
+    # 3. the card against the CPU: full width, 2 layers, f32, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    m_gpu, m_cpu = Model(cfg32), Model(cfg32, device="cpu")
+    p_gpu = m_gpu.init(SERVE_SEED)
+    t32 = torch.randint(0, cfg.vocab, (1, GEN_PROMPT), generator=gen,
+                        device="cuda")
+    ops.reset_launches()
+    on_card = m_gpu.prefill(p_gpu, {"tokens": t32}).cpu()
+    f32_launches = ops.LAUNCHES["flash_attention"]
+    t = time.perf_counter()
+    on_cpu = m_cpu.prefill(_to(p_gpu, "cpu"), {"tokens": t32.cpu()})
+    cpu_s = time.perf_counter() - t
+    f32_err = float((on_card - on_cpu).abs().max())
+    f32_scale = float(on_cpu.abs().max())
+    checks += [
+        (f32_launches == cfg32.num_layers,
+         "the f32 prefill did not take the kernel"),
+        (f32_err <= F32_RTOL * f32_scale,
+         f"f32 logits: card != CPU by {f32_err} (max |logit| {f32_scale})")]
+
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "params": sum(t.numel() for t in weights),
+          "weight_bytes": sum(t.numel() * t.element_size() for t in weights),
+          "init_s": init_s,
+          "prefill": {"batch": PREFILL_BATCH, "seq": PREFILL_LEN,
+                      "cut": "global batch 32 -> 2 (one card)",
+                      "wall_s": prefill_s,
+                      "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+                      "peak_bytes": prefill_peak,
+                      "flash_launches": launches["flash_attention"],
+                      "profiled": prefill_prof},
+          "generate": {"batch": GEN_BATCH, "prompt": GEN_PROMPT,
+                       "new_tokens": GEN_STEPS, "decode_steps": decode_steps,
+                       "wall_s": gen_s,
+                       "ms_per_decode_step": gen_s / decode_steps * 1e3,
+                       "peak_bytes": gen_peak,
+                       "profiled_steps": PROFILE_STEPS,
+                       "profiled": decode_prof,
+                       "decode_vs_prefill_max_abs": dec_err,
+                       "tol": DECODE_TOL,
+                       "clear_argmax_rows": int(clear.sum())},
+          "card_vs_cpu_f32": {"layers": 2, "batch": 1, "seq": GEN_PROMPT,
+                              "tf32": False, "max_abs": f32_err,
+                              "max_abs_logit": f32_scale, "rtol": F32_RTOL,
+                              "flash_launches": f32_launches,
+                              "cpu_s": cpu_s}})
+    for ok, msg in checks:
+        check(ok, msg)
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     try:
         import torch
@@ -341,12 +679,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     card = phase_build()
-    records = phase_kernels(np, torch)
+    records = phase_kernels(np, torch) + [phase_flash(np, torch)]
     phase_anchor(np)
     launches = phase_full_scale(np, torch)
+    launches.update(phase_serve(np, torch))
     for r in records:
         r["launches"] = launches[r["name"]]
-        check(r["launches"] > 0, f"main path never launched {r['name']}")
+        check(r["launches"] > 0, f"its path never launched {r['name']}")
     emit({"kernels": records})
     emit({"phase": "done", "card": card,
           "seconds": time.perf_counter() - t0})

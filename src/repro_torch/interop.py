@@ -1,10 +1,10 @@
-"""Carry simulator state into the port from plain data.
+"""Carry state into the port from plain data.
 
-The system has no weights; its state is the compiled fabric tables and
-the flow table.  These helpers build the port's own types from numpy
-arrays and plain tuples, so another implementation's compiled fabric
-(for instance the JAX package's ``CompiledFabric``, field by field) and
-flows can be handed to the port exactly.
+The simulator's state is the compiled fabric tables and the flow table;
+the model stack's is its weights.  These helpers build the port's own
+types from numpy arrays and plain tuples, so another implementation's
+compiled fabric (for instance the JAX package's ``CompiledFabric``, field
+by field), flows and LM parameters can be handed to the port exactly.
 """
 
 from __future__ import annotations
@@ -12,10 +12,14 @@ from __future__ import annotations
 from collections.abc import Iterable
 
 import numpy as np
+import torch
 
+from .configs.base import ArchConfig
 from .core.compile_fabric import CompiledFabric
 from .core.fabric import Fabric
 from .core.flows import FiveTuple, Flow
+from .device import resolve_device
+from .models.lm import check_supported
 
 #: the array fields of a ``CompiledFabric`` and their dtypes
 ARRAY_FIELDS = {
@@ -74,3 +78,45 @@ def flows_from_records(
                                          int(proto)),
                         bytes=int(nbytes)))
     return out
+
+
+def _tensor(a: np.ndarray, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor of ``dtype``; a bfloat16 array (numpy's
+    ``ml_dtypes`` extension type) crosses bit for bit as its 16-bit
+    pattern."""
+    a = np.array(a, order="C")            # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
+                         device=None) -> dict:
+    """The port's LM weights from the JAX package's parameter pytree as
+    numpy arrays: ``{"embed", "final_norm", "layers": {...}}`` with every
+    layer leaf stacked on a leading (num_layers,) axis.  Each leaf keeps
+    its (in, out) layout and becomes ``cfg.param_dtype()`` on ``device``
+    (the card unless ``"cpu"``); the stack becomes one dict per layer."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = cfg.param_dtype()
+    L = cfg.num_layers
+
+    def layer(sub: dict, i: int) -> dict:
+        out = {}
+        for k, v in sub.items():
+            if isinstance(v, dict):
+                out[k] = layer(v, i)
+            elif np.shape(v)[0] != L:
+                raise ValueError(f"layer leaf {k!r} stacks {np.shape(v)[0]} "
+                                 f"layers, {cfg.name} has {L}")
+            else:
+                out[k] = _tensor(np.asarray(v)[i], dt, dev)
+        return out
+
+    return {"embed": _tensor(tree["embed"], dt, dev),
+            "final_norm": _tensor(tree["final_norm"], dt, dev),
+            "layers": [layer(tree["layers"], i) for i in range(L)]}

@@ -1,0 +1,30 @@
+"""Build ``csrc/flash_attention.cu`` (``kernels/nvcc.py``) and load it
+with ``ctypes``."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+from .. import nvcc
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+
+def build() -> Path:
+    """Compile the library unless this source's build already exists."""
+    return nvcc.build(SOURCE)
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The built library with its one entry point typed (pointers and
+    the stream as ``c_void_p``, strides as ``c_longlong``)."""
+    lib = ctypes.CDLL(str(build()))
+    fn = lib.flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib

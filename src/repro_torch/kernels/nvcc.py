@@ -1,0 +1,60 @@
+"""Build a kernel family's CUDA source with ``nvcc`` into a plain C
+shared library, for ``ctypes``.
+
+The libraries have plain C interfaces (no PyTorch headers), so each
+builds in seconds.  A library is built at first use from the checkout's
+own source into ``_build/`` beside its family's package, under a name
+keyed by a hash of the source and the flags, so an edited source is never
+served a stale library.  The compiler's register and spill report
+(``-Xptxas -v``) is kept beside the library as ``<name>.log``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin, default "
+        "/usr/local/cuda/bin); the port's kernels are built from source at "
+        "first use on the card")
+
+
+def library_path(source: Path) -> Path:
+    """Where the library for ``source`` (``<family>/csrc/<name>.cu``) and
+    the current flags lives: ``<family>/_build/<name>-<hash>.so``."""
+    key = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return source.parent.parent / "_build" / f"{source.stem}-{key}.so"
+
+
+def build(source: Path) -> Path:
+    """Compile ``source`` unless its build already exists."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {source}:\n"
+            f"{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)                  # atomic: readers never see half
+    return out

@@ -29,19 +29,29 @@ def test_forbidden_matches_whole_names_only():
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
+    """Every module imports with no ``nvcc`` to be found (an empty PATH
+    and a CUDA_HOME that does not exist) and loads no ``triton``: the
+    kernels are built at first launch, never at import."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "print('\\n'.join(sorted(sys.modules)))\n")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PATH": "",
+           "CUDA_HOME": str(ROOT / "no-cuda-here")}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, check=True,
                          timeout=120).stdout.split()
-    assert "repro_torch.core.vector_throughput" in out
-    assert "repro_torch.kernels.flowhash.build" in out
+    for module in ("repro_torch.core.vector_throughput",
+                   "repro_torch.kernels.flowhash.build",
+                   "repro_torch.kernels.flash_attention.build",
+                   "repro_torch.kernels.flash_attention.ops",
+                   "repro_torch.models.model", "repro_torch.serve.engine",
+                   "repro_torch.interop"):
+        assert module in out
     assert [m for m in out if _forbidden(m)] == []
+    assert [m for m in out if m == "triton" or m.startswith("triton.")] == []
 
 
 def _imports(path: Path) -> list[str]:
