@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (any
-card with ``nvcc`` for ``sm_90a``).  It builds both kernel libraries
-from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu``
-and ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``,
-two ``nvcc`` processes at once) and then:
+card with ``nvcc`` for ``sm_90a``).  It builds the three kernel
+libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu``,
+``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`` and
+``src/repro_torch/kernels/ssd/csrc/ssd.cu``, three ``nvcc`` processes at
+once) and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds every kernel wrapper against its plain PyTorch version on the
@@ -17,9 +18,14 @@ two ``nvcc`` processes at once) and then:
    relative limit (2e-2, 1e-4) at 32 query heads over 8 kv heads, hd 64,
    S 4,096 causal and not, a ragged S 1,000, and S 32,768 (every row,
    and the last 256 rows against a plain computation of those rows
-   alone; a planted skipped key tile must fail the row limit) — and
-   times kernel, plain version and (for attention) SDPA with CUDA
-   events;
+   alone; a planted skipped key tile must fail the row limit), the SSD
+   intra-chunk kernel in bf16 and f32 to the JAX package's tolerances
+   (5e-2, 1e-5) and a per-row limit (y 2e-2, 1e-5; states 1e-4, 1e-5)
+   at mamba2-1.3b's shape (B 2, S 32,768, 64 heads, N 128, hd 64, Q 256)
+   and through the whole scan at S 32,768 and a ragged S 1,000, with dt
+   from Mamba-2's init so the chunk decays carry signal (two planted
+   faults must fail the limits) — and times kernel, plain version and
+   (for attention) SDPA with CUDA events;
 3. anchors the simulator on the paper testbed (256 flows x 1,024
    seeds): aggregate FIM mean and mean max-min rate under both hash
    backends must match the JAX package's numpy-engine values to 1e-9;
@@ -29,13 +35,18 @@ two ``nvcc`` processes at once) and then:
    ``monte_carlo_throughput`` over 1,024 seeds and the paper's
    four-stage ``simulate_paper_paths`` — and checks its first two seeds
    against the CPU path;
-5. drives the serving path: granite-3-2b at full width and depth
-   (40 layers, bf16, weights from a seeded generator on the card):
-   ``prefill_logits`` on 2 x 32,768 tokens (40 flash-attention
-   launches), ``generate`` for 4 x 2,304-token prompts and 16 greedy
+5. drives granite-3-2b serving at full width and depth (40 layers,
+   bf16, weights from a seeded generator on the card): ``prefill_logits``
+   on 2 x 32,768 tokens (40 flash-attention launches), ``generate`` for
+   4 x 2,304-token prompts and 16 greedy tokens with the decode logits
+   checked against the prefill's, and a 2-layer f32 prefill on the card
+   against the CPU;
+6. drives mamba2-1.3b serving at full width and depth (48 layers, bf16,
+   Mamba-2's dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (48
+   SSD launches), ``generate`` for 4 x 520-token prompts and 16 greedy
    tokens with the decode logits checked against the prefill's, and a
    2-layer f32 prefill on the card against the CPU;
-6. prints the ``kernels`` record and, last, the one-line result.
+7. prints the ``kernels`` record and, last, the one-line result.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel that its path never launched fails the
@@ -105,6 +116,26 @@ DECODE_TOL = 0.2
 # difference| relative to the largest |logit|
 F32_RTOL = 1e-4
 
+# SSD: the JAX package's tolerances for its Pallas kernel
+# (tests/test_kernels.py), as |got - want| <= tol + tol * |want|, and the
+# per-row relative limits (ssd ref.row_errors; ref.ROW_RTOL for y: bf16
+# 2e-2, f32 1e-5; ref.STATE_ROW_RTOL for S_loc and states: 1e-4, 1e-5);
+# dt from Mamba-2's init (arXiv:2405.21060), where the largest chunk
+# decay must exceed DECAY_MIN
+SSD_TOL = {"bfloat16": 5e-2, "float32": 1e-5}
+SSD_HEADS, SSD_HD, SSD_STATE, SSD_CHUNK = 64, 64, 128, 256
+DT_RANGE = (1e-3, 1e-1)
+DECAY_MIN = 1e-2
+RAGGED_S = 1_000
+# serving: mamba2-1.3b at full depth; prompts of two whole chunks and a
+# ragged third
+M2_GEN_PROMPT = 520
+# decode (conv einsum, f32 state) against prefill (the kernel, bf16 w) at
+# the last prompt position, 48 layers in bf16: max |logit difference|, and
+# the top-2 gap above which the first generated token must be the
+# prefill's argmax
+M2_DECODE_TOL = 0.5
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -157,14 +188,17 @@ def timed(fn):
 
 
 def phase_build():
-    """Build both kernel libraries with two ``nvcc`` processes at once."""
+    """Build the kernel libraries with one ``nvcc`` process each, all at
+    once."""
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.flowhash import build as fh_build
+    from repro_torch.kernels.ssd import build as ssd_build
+    builds = (fh_build, fa_build, ssd_build)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda b: b.build(), (fh_build, fa_build)))
-    fh_build.load()
-    fa_build.load()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda b: b.build(), builds))
+    for b in builds:
+        b.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {lib.name: [
               ln.strip() for ln in lib.with_suffix(".log").read_text()
@@ -491,11 +525,173 @@ def phase_flash(np, torch):
     return record
 
 
-def device_profile(fn, top: int = 6) -> dict:
+def ssd_inputs(torch, B, S, dtype, seed):
+    """x (B, S, H, hd) N(0, 1) * 0.5 and Bm, Cm (B, S, N) N(0, 1) * 0.3 in
+    ``dtype``; in f32, dt (B, S, H) as the model makes it with Mamba-2's
+    init, softplus(z + dt_bias) with z ~ N(0, 1) and each head's dt_bias
+    softplus^-1 of a log-uniform draw in DT_RANGE, and A =
+    -exp(log(linspace(1, 16, H))) (mamba2's A_log)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H, hd, N = SSD_HEADS, SSD_HD, SSD_STATE
+    x = (torch.randn((B, S, H, hd), generator=gen, device="cuda") * 0.5
+         ).to(dtype)
+    lo, hi = (float(v) for v in torch.log(torch.tensor(DT_RANGE)))
+    u = torch.exp(torch.empty(H, device="cuda").uniform_(lo, hi, generator=gen))
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda")
+        + torch.log(torch.expm1(u)))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device="cuda")))
+    Bm, Cm = ((torch.randn((B, S, N), generator=gen, device="cuda") * 0.3)
+              .to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_chunks(x, dt, A, Bm, Cm):
+    """The intra-chunk contract as views of the sequence-major tensors
+    (what ``ops.ssd_scan`` hands the kernel)."""
+    B, S, H, hd = x.shape
+    Q, N = SSD_CHUNK, Bm.shape[-1]
+    nc = S // Q
+    a = (dt * A).view(B, nc, Q, H).permute(0, 3, 1, 2)[..., None]
+    return (a, dt.view(B, nc, Q, H).permute(0, 3, 1, 2)[..., None],
+            Bm.view(B, nc, Q, N), Cm.view(B, nc, Q, N),
+            x.view(B, nc, Q, H, hd).permute(0, 3, 1, 2, 4))
+
+
+def phase_ssd(np, torch):
+    """The SSD intra-chunk kernel against its plain version on the card
+    in bf16 and f32, alone and inside the whole scan; returns its record
+    at the serving path's shape (launch count filled in later)."""
+    from repro_torch.kernels.ssd import ops, ref
+    failures = []
+
+    def errs_of(got, want, dtype, row_tol, what):
+        """(max |got - want|, max row error or None); a miss of either
+        tolerance is a failure."""
+        tol = SSD_TOL[dtype]
+        row = None if row_tol is None else float(ref.row_errors(got, want).max())
+        got, want = got.float(), want.float()
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            failures.append(f"ssd {what} != plain version beyond {tol} + "
+                            f"{tol} |want|")
+        if row is not None and not row <= row_tol:
+            failures.append(f"ssd {what}: a row differs from the plain "
+                            f"version's by {row} > {row_tol}")
+        return float((got - want).abs().max()), row
+
+    def cost(B, S, dtype):
+        """(bytes of x, y, S_loc, a, dt, Bm, Cm and dec; flops of C B^T
+        and w @ x over the causal pairs, and of S_loc)."""
+        H, hd, N, Q = SSD_HEADS, SSD_HD, SSD_STATE, SSD_CHUNK
+        nc, el = S // Q, torch.tensor([], dtype=dtype).element_size()
+        pairs = Q * (Q + 1) // 2
+        return (2 * B * S * H * hd * el + B * H * nc * N * hd * 4
+                + 2 * B * S * H * 4 + 2 * B * S * N * el + B * H * nc * 4,
+                B * H * nc * (2 * pairs * (N + hd) + 2 * Q * N * hd))
+
+    def plain_scan(x, dt, A, Bm, Cm):
+        """ops.ssd_scan's glue around the plain intra-chunk version."""
+        real = ops.ssd_intra_chunk
+        ops.ssd_intra_chunk = ref.ssd_intra_chunk_ref
+        try:
+            return ops.ssd_scan(x, dt, A, Bm, Cm, chunk=SSD_CHUNK)
+        finally:
+            ops.ssd_intra_chunk = real
+
+    checks, record = [], None
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        B, S = PREFILL_BATCH, PREFILL_LEN
+        x, dt, A, Bm, Cm = ssd_inputs(torch, B, S, tdt, 21)
+        args = ssd_chunks(x, dt, A, Bm, Cm)
+        got = ops.ssd_intra_chunk(*args)
+        torch.cuda.synchronize()
+        want = ref.ssd_intra_chunk_ref(*args)
+        errs = {name: errs_of(g, w, dtype, rt, f"{name} ({dtype}, S {S})")
+                for name, g, w, rt in zip(
+                    ("y", "s_loc", "dec"), got, want,
+                    (ref.ROW_RTOL[tdt], ref.STATE_ROW_RTOL[tdt], None))}
+        max_decay = float(want[2].max())
+        if not max_decay > DECAY_MIN:
+            failures.append(f"largest chunk decay {max_decay} <= {DECAY_MIN}")
+        peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+        b_ms, b_by = bound(*cost(B, S, tdt), peak)
+        rec = {"dtype": dtype, "B": B, "S": S, "max_chunk_decay": max_decay,
+               "max_abs_err": {k: v[0] for k, v in errs.items()},
+               "max_row_err": {k: v[1] for k, v in errs.items()},
+               "ms": cuda_ms(lambda: ops.ssd_intra_chunk(*args), 10),
+               "plain_ms": cuda_ms(lambda: ref.ssd_intra_chunk_ref(*args), 3),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if dtype == "bfloat16":
+            # planted faults, each must break the row limit: the causal
+            # mask moved by one (y without its diagonal term), and chunk
+            # 1's S_loc without its decay to the chunk's end
+            a, dtk, Bk, Ck, xk = args
+            eye = torch.eye(SSD_CHUNK, dtype=tdt, device="cuda")
+            w_ii = torch.diagonal(ref.ssd_intra_chunk_ref(
+                a[:, :, :2], dtk[:, :, :2], Bk[:, :2], Ck[:, :2],
+                eye.expand(*xk.shape[:2], 2, SSD_CHUNK, SSD_CHUNK))[0].float(),
+                dim1=-2, dim2=-1)[..., None]
+            y_bad = (want[0][:, :, :2].float() - w_ii * xk[:, :, :2].float()
+                     ).to(tdt)
+            s_bad = torch.einsum("bjn,bhjd->bhnd", Bk[:, 1].float(),
+                                 xk[:, :, 1].float() * dtk[:, :, 1].float())
+            faults = {
+                "mask_moved_by_one": float(ref.row_errors(
+                    y_bad, want[0][:, :, :2]).max()),
+                "s_loc_without_decay": float(ref.row_errors(
+                    s_bad, want[1][:, :, 1]).max())}
+            limits = {"mask_moved_by_one": ref.ROW_RTOL[tdt],
+                      "s_loc_without_decay": ref.STATE_ROW_RTOL[tdt]}
+            for k, v in faults.items():
+                if not v > limits[k]:
+                    failures.append(f"the row check passes the planted "
+                                    f"fault {k} ({v})")
+            rec["planted_faults_max_row_err"] = faults
+            record = {
+                "name": "ssd_intra_chunk", "route": "cuda",
+                "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                "replaces": "src/repro/kernels/ssd/kernel.py:61",
+                "shape": [B, SSD_HEADS, S // SSD_CHUNK, SSD_CHUNK, SSD_STATE,
+                          SSD_HD],
+                "dtype": dtype, "max_abs_err": errs["y"][0],
+                "max_row_err": errs["y"][1], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+        del got, want, args
+        # the whole scan: y and the final state, at S 32,768 and ragged
+        for S_scan in (S, RAGGED_S):
+            if S_scan != S:
+                x, dt, A, Bm, Cm = ssd_inputs(torch, B, S_scan, tdt, 22)
+            y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=SSD_CHUNK)
+            y_p, st_p = plain_scan(x, dt, A, Bm, Cm)
+            tag = f"({dtype}, S {S_scan})"
+            rec[f"scan_S{S_scan}"] = {
+                "y": errs_of(y, y_p, dtype, ref.ROW_RTOL[tdt], f"scan y {tag}"),
+                "state": errs_of(st, st_p, dtype, ref.STATE_ROW_RTOL[tdt],
+                                 f"scan state {tag}")}
+            del y, st, y_p, st_p
+        checks.append(rec)
+        del x, dt, Bm, Cm
+
+    emit({"phase": "kernels", "kernel": "ssd_intra_chunk", "tol": SSD_TOL,
+          "row_tol": {str(d)[6:]: t for d, t in ref.ROW_RTOL.items()},
+          "state_row_tol": {str(d)[6:]: t
+                            for d, t in ref.STATE_ROW_RTOL.items()},
+          "dt_range": DT_RANGE, "heads": SSD_HEADS, "hd": SSD_HD,
+          "d_state": SSD_STATE, "chunk": SSD_CHUNK, "checks": checks})
+    check(not failures, "; ".join(failures))
+    return record
+
+
+def device_profile(fn, top: int = 6, groups: dict | None = None) -> dict:
     """Run ``fn`` once under ``torch.profiler``: host seconds, summed
-    device-kernel seconds, the device's busy share of the host time, and
-    the ``top`` kernels by device time.  The profiler adds host time, so
-    the busy share is a lower bound."""
+    device-kernel seconds, the device's busy share of the host time, the
+    ``top`` kernels by device time and, with ``groups`` ({name: words}),
+    device seconds and launches summed over the kernels whose name holds
+    one of a group's words (the first group that matches; the rest under
+    "other").  The profiler adds host time, so the busy share is a lower
+    bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -509,10 +705,20 @@ def device_profile(fn, top: int = 6) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    return {"host_s": wall, "device_s": device_s,
-            "busy_share": device_s / wall,
-            "top": [[e.key[:60], e.self_device_time_total / 1e6, e.count]
-                    for e in kernels[:top]]}
+    out = {"host_s": wall, "device_s": device_s,
+           "busy_share": device_s / wall,
+           "top": [[e.key[:60], e.self_device_time_total / 1e6, e.count]
+                   for e in kernels[:top]]}
+    if groups:
+        sums = {g: [0.0, 0] for g in (*groups, "other")}
+        for e in kernels:
+            key = e.key.lower()
+            g = next((g for g, words in groups.items()
+                      if any(w in key for w in words)), "other")
+            sums[g][0] += e.self_device_time_total / 1e6
+            sums[g][1] += e.count
+        out["groups"] = sums
+    return out
 
 
 def _to(tree, device):
@@ -650,6 +856,156 @@ def phase_serve(np, torch):
     return launches
 
 
+def mamba2_dt_bias(torch, params, seed):
+    """Mamba-2's own dt init (arXiv:2405.21060, state-spaces/mamba's
+    dt_min/dt_max): each layer's dt_bias is softplus^-1 of a log-uniform
+    draw in DT_RANGE, in place of the reference init's zeros.  A choice
+    of weights, like the seed."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    lo, hi = (float(v) for v in torch.log(torch.tensor(DT_RANGE)))
+    for lp in params["layers"]:
+        bias = lp["mixer"]["dt_bias"]
+        u = torch.exp(torch.empty(bias.shape).uniform_(lo, hi, generator=gen))
+        lp["mixer"]["dt_bias"] = torch.log(torch.expm1(u)).to(bias.device)
+
+
+def phase_serve_mamba2(np, torch):
+    """mamba2-1.3b serving at full width and depth; returns the SSD
+    launches of the 32,768-token prefill.  The phase's record is printed
+    before its checks run, so a failed check still shows the numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd import ops
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_arch("mamba2-1.3b")
+    model = Model(cfg)
+    params, init_s, _ = timed(lambda: model.init(SERVE_SEED))
+    mamba2_dt_bias(torch, params, SERVE_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
+    weights = list(_leaves(params))
+    checks = []
+    groups = {"ssd_kernel": ("ssd_chunk",),
+              "inter_chunk_loop": ("addcmul",),
+              "y_inter_f32_gemm": ("gemm_f32f32",),
+              "bf16_gemm": ("nvjet", "gemm", "cutlass", "xmma")}
+
+    # 1. prefill_logits on 2 x 32,768 tokens: the counted run
+    toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN),
+                         generator=gen, device="cuda")
+    eng = ServeEngine(model, PREFILL_BATCH, PREFILL_LEN)
+    eng.prefill_logits(params, {"tokens": toks[:1, :M2_GEN_PROMPT]})  # warm-up
+    ops.reset_launches()
+    logits, prefill_s, prefill_peak = timed(
+        lambda: eng.prefill_logits(params, {"tokens": toks}))
+    launches = dict(ops.LAUNCHES)
+    checks += [
+        (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab),
+         f"prefill logits {tuple(logits.shape)}"),
+        (bool(torch.isfinite(logits).all()), "prefill logits not finite"),
+        (launches["ssd_intra_chunk"] == cfg.num_layers,
+         f"{launches['ssd_intra_chunk']} SSD launches in a "
+         f"{cfg.num_layers}-layer prefill")]
+    del logits
+    prefill_prof = device_profile(
+        lambda: eng.prefill_logits(params, {"tokens": toks}), top=10,
+        groups=groups)
+    del toks
+
+    # 2. generate: prompts fed token by token through decode (conv and
+    # state caches), then 16 greedy tokens; the decode logits at the last
+    # prompt position against prefill_logits (the kernel, 48 launches)
+    prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, M2_GEN_PROMPT),
+                            generator=gen, device="cuda")
+    eng = ServeEngine(model, GEN_BATCH, M2_GEN_PROMPT + GEN_STEPS)
+    (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
+        params, prompts, GEN_STEPS, return_logits=True))
+    decode_steps = M2_GEN_PROMPT + GEN_STEPS - 1
+    cache = eng.init_cache()
+
+    def decode_some():
+        for i in range(PROFILE_STEPS):
+            model.decode_step(params, cache, {"tokens": prompts[:, i:i + 1]}, i)
+
+    decode_prof = device_profile(decode_some)
+    del cache
+    ops.reset_launches()
+    last = eng.prefill_logits(params, {"tokens": prompts})[:, -1].float()
+    gen_launches = ops.LAUNCHES["ssd_intra_chunk"]
+    dec = chosen_from[:, 0].float()
+    dec_err = float((dec - last).abs().max())
+    top2 = last.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > M2_DECODE_TOL
+    checks += [
+        (tuple(out.shape) == (GEN_BATCH, M2_GEN_PROMPT + GEN_STEPS),
+         f"generated {tuple(out.shape)}"),
+        (torch.equal(out[:, :M2_GEN_PROMPT], prompts), "prompt not kept"),
+        (bool(torch.isfinite(chosen_from).all()), "decode logits not finite"),
+        (gen_launches == cfg.num_layers,
+         "the 520-token prefill did not take the kernel"),
+        (dec_err <= M2_DECODE_TOL,
+         f"decode logits differ from prefill's by {dec_err} > {M2_DECODE_TOL}"),
+        (bool((out[:, M2_GEN_PROMPT] == last.argmax(-1))[clear].all()),
+         "first generated token != prefill argmax where the gap is clear")]
+    logit_std = float(last.std())
+    del params, chosen_from, last, dec
+
+    # 3. the card against the CPU: full width, 2 layers, f32, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    m_gpu, m_cpu = Model(cfg32), Model(cfg32, device="cpu")
+    p_gpu = m_gpu.init(SERVE_SEED)
+    mamba2_dt_bias(torch, p_gpu, SERVE_SEED)
+    t32 = torch.randint(0, cfg.vocab, (1, M2_GEN_PROMPT), generator=gen,
+                        device="cuda")
+    ops.reset_launches()
+    on_card = m_gpu.prefill(p_gpu, {"tokens": t32}).cpu()
+    f32_launches = ops.LAUNCHES["ssd_intra_chunk"]
+    t = time.perf_counter()
+    on_cpu = m_cpu.prefill(_to(p_gpu, "cpu"), {"tokens": t32.cpu()})
+    cpu_s = time.perf_counter() - t
+    f32_err = float((on_card - on_cpu).abs().max())
+    f32_scale = float(on_cpu.abs().max())
+    checks += [
+        (f32_launches == cfg32.num_layers,
+         "the f32 prefill did not take the kernel"),
+        (f32_err <= F32_RTOL * f32_scale,
+         f"f32 logits: card != CPU by {f32_err} (max |logit| {f32_scale})")]
+
+    emit({"phase": "serve_mamba2", "arch": cfg.name,
+          "layers": cfg.num_layers,
+          "params": sum(t.numel() for t in weights),
+          "weight_bytes": sum(t.numel() * t.element_size() for t in weights),
+          "init_s": init_s, "dt_bias": f"softplus^-1(log-uniform {DT_RANGE})",
+          "prefill": {"batch": PREFILL_BATCH, "seq": PREFILL_LEN,
+                      "cut": "global batch 32 -> 2 (one card)",
+                      "wall_s": prefill_s,
+                      "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+                      "peak_bytes": prefill_peak,
+                      "ssd_launches": launches["ssd_intra_chunk"],
+                      "profiled": prefill_prof},
+          "generate": {"batch": GEN_BATCH, "prompt": M2_GEN_PROMPT,
+                       "new_tokens": GEN_STEPS, "decode_steps": decode_steps,
+                       "wall_s": gen_s,
+                       "ms_per_decode_step": gen_s / decode_steps * 1e3,
+                       "peak_bytes": gen_peak,
+                       "profiled_steps": PROFILE_STEPS,
+                       "profiled": decode_prof,
+                       "decode_vs_prefill_max_abs": dec_err,
+                       "prefill_logit_std": logit_std,
+                       "tol": M2_DECODE_TOL,
+                       "clear_argmax_rows": int(clear.sum())},
+          "card_vs_cpu_f32": {"layers": 2, "batch": 1, "seq": M2_GEN_PROMPT,
+                              "tf32": False, "max_abs": f32_err,
+                              "max_abs_logit": f32_scale, "rtol": F32_RTOL,
+                              "ssd_launches": f32_launches,
+                              "cpu_s": cpu_s}})
+    for ok, msg in checks:
+        check(ok, msg)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -679,10 +1035,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     card = phase_build()
-    records = phase_kernels(np, torch) + [phase_flash(np, torch)]
+    records = phase_kernels(np, torch) + [phase_flash(np, torch),
+                                          phase_ssd(np, torch)]
     phase_anchor(np)
     launches = phase_full_scale(np, torch)
     launches.update(phase_serve(np, torch))
+    launches.update(phase_serve_mamba2(np, torch))
     for r in records:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"its path never launched {r['name']}")

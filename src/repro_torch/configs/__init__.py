@@ -7,8 +7,10 @@ from .base import (
     MoEConfig, PREFILL_32K, SHAPES, SSMConfig, ShapeConfig, TRAIN_4K,
 )
 from .granite_3_2b import CONFIG as GRANITE_3_2B
+from .mamba2_13b import CONFIG as MAMBA2_13B
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in (GRANITE_3_2B,)}
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in (GRANITE_3_2B,
+                                                      MAMBA2_13B)}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -22,5 +24,5 @@ __all__ = [
     "ArchConfig", "ShapeConfig", "MoEConfig", "MLAConfig", "SSMConfig",
     "HybridConfig", "EncDecConfig", "SHAPES", "TRAIN_4K", "PREFILL_32K",
     "DECODE_32K", "LONG_500K", "ARCHS", "get_arch",
-    "GRANITE_3_2B",
+    "GRANITE_3_2B", "MAMBA2_13B",
 ]

@@ -93,13 +93,20 @@ def _tensor(a: np.ndarray, dtype: torch.dtype,
     return t.to(device=device, dtype=dtype)
 
 
+#: leaves the reference makes as f32 constants (``InitCtx.const``): they
+#: stay f32 whatever the parameter dtype
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
+
+
 def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
                          device=None) -> dict:
     """The port's LM weights from the JAX package's parameter pytree as
-    numpy arrays: ``{"embed", "final_norm", "layers": {...}}`` with every
-    layer leaf stacked on a leading (num_layers,) axis.  Each leaf keeps
-    its (in, out) layout and becomes ``cfg.param_dtype()`` on ``device``
-    (the card unless ``"cpu"``); the stack becomes one dict per layer."""
+    numpy arrays: ``{"embed", "final_norm", "lm_head" (untied configs),
+    "layers": {...}}`` with every layer leaf stacked on a leading
+    (num_layers,) axis.  Each leaf keeps its (in, out) layout and becomes
+    ``cfg.param_dtype()`` on ``device`` (the card unless ``"cpu"``),
+    except the f32 constants of ``F32_LEAVES``, which stay f32; the
+    stack becomes one dict per layer."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype()
@@ -114,9 +121,13 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
                 raise ValueError(f"layer leaf {k!r} stacks {np.shape(v)[0]} "
                                  f"layers, {cfg.name} has {L}")
             else:
-                out[k] = _tensor(np.asarray(v)[i], dt, dev)
+                out[k] = _tensor(np.asarray(v)[i],
+                                 torch.float32 if k in F32_LEAVES else dt, dev)
         return out
 
-    return {"embed": _tensor(tree["embed"], dt, dev),
-            "final_norm": _tensor(tree["final_norm"], dt, dev),
-            "layers": [layer(tree["layers"], i) for i in range(L)]}
+    params = {"embed": _tensor(tree["embed"], dt, dev),
+              "final_norm": _tensor(tree["final_norm"], dt, dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _tensor(tree["lm_head"], dt, dev)
+    params["layers"] = [layer(tree["layers"], i) for i in range(L)]
+    return params

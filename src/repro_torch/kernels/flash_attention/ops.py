@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from ..layout import check_rows
 from . import build
 from .ref import flash_attention_ref
 
@@ -49,19 +50,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _check_layout(name: str, t: torch.Tensor) -> None:
-    """The kernel reads rows through strides but needs a unit last-dim
-    stride and, for bf16, 16-byte aligned rows (it loads 8 values at a
-    time)."""
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name} needs a unit stride on its last dim, "
-                         f"got strides {t.stride()}")
-    if t.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-        raise ValueError(f"bf16 {name} needs a 16-byte aligned start and "
-                         f"strides divisible by 8, got strides {t.stride()}")
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, Hkv, S, hd) with Hkv dividing H ->
@@ -75,9 +63,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_layout(name, t)
+        check_rows(name, t)
     out = torch.empty_like(q)
-    _check_layout("out", out)
+    check_rows("out", out)
     if S == 0:
         return out
     scale = 1.0 / math.sqrt(hd)

@@ -1,0 +1,29 @@
+"""Build ``csrc/ssd.cu`` (``kernels/nvcc.py``) and load it with
+``ctypes``."""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+from .. import nvcc
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+
+
+def build() -> Path:
+    """Compile the library unless this source's build already exists."""
+    return nvcc.build(SOURCE)
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The built library with its one entry point typed (pointers and
+    the stream as ``c_void_p``, strides as ``c_longlong``)."""
+    lib = ctypes.CDLL(str(build()))
+    fn = lib.ssd_intra_chunk
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 22 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib

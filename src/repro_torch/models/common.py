@@ -1,6 +1,7 @@
 """Shared model components: RMSNorm, the SwiGLU MLP, rotary embeddings
-and the initializer.  The port of ``repro/models/common.py`` (M-RoPE,
-layer norm and the GELU MLP wait for the families that use them).
+and the initializer (random, zero and constant parameters).  The port of
+``repro/models/common.py`` (M-RoPE, layer norm and the GELU MLP wait for
+the families that use them).
 
 Rounding follows the reference: ``rms_norm`` takes f32 statistics but
 normalises in x's type, and ``apply_rope`` rotates in f32 and casts back.
@@ -69,7 +70,10 @@ class InitCtx:
     dtype: torch.dtype = torch.bfloat16
 
     def make(self, shape: tuple[int, ...], *,
-             scale: str | float = "fan_in") -> torch.Tensor:
+             scale: str | float = "fan_in", zero: bool = False) -> torch.Tensor:
+        if zero:
+            return torch.zeros(shape, dtype=self.dtype,
+                               device=self.generator.device)
         if scale == "fan_in":
             std = 1.0 / math.sqrt(shape[0] if len(shape) >= 2 else shape[-1])
         elif scale == "embed":
@@ -79,3 +83,10 @@ class InitCtx:
         w = torch.randn(shape, generator=self.generator,
                         device=self.generator.device, dtype=torch.float32)
         return (w * std).to(self.dtype)
+
+    def const(self, value: torch.Tensor) -> torch.Tensor:
+        """A parameter with a fixed initial value (an SSM's ``A_log``,
+        ``D``, ``dt_bias``), on the generator's device.  It keeps its own
+        dtype (f32 for those three), not the parameter dtype, as in the
+        reference."""
+        return value.to(self.generator.device)

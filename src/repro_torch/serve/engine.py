@@ -1,5 +1,6 @@
-"""Batched serving: prefill and a token-by-token decode loop over a
-step-indexed KV cache.  The port of ``repro/serve/engine.py``.
+"""Batched serving: prefill and a token-by-token decode loop over the
+model's decode cache (a step-indexed KV cache for attention, the conv
+and state caches for Mamba-2).  The port of ``repro/serve/engine.py``.
 
 The cache is written in place, as the reference's jitted step donates
 it.  Sampling draws from an explicit ``torch.Generator`` where the

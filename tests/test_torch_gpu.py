@@ -12,8 +12,12 @@ for bit, counts and FIM to 1e-12 and rates to 1e-9 relative (float
 atomics on the card sum in another order).  The flash-attention kernel
 must match its plain version to 2e-6 in f32 and 2e-2 in bf16 (the JAX
 package's tolerances for its Pallas kernel) and, row by row, to the
-relative limits of ``ref.ROW_RTOL`` (1e-4 f32, 2e-2 bf16); the reduced
-granite model on the card must match the CPU in f32 with TF32 off.
+relative limits of ``ref.ROW_RTOL`` (1e-4 f32, 2e-2 bf16); the SSD
+kernel to 1e-5 in f32 and 5e-2 in bf16 (the JAX package's tolerances for
+its SSD kernel) and to its own row limits (``ref.ROW_RTOL`` and
+``ref.STATE_ROW_RTOL``);
+the reduced granite and mamba2 models on the card must match the CPU in
+f32 with TF32 off.
 """
 
 import numpy as np
@@ -27,6 +31,8 @@ from repro_torch.core import vector_throughput as TT  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flowhash import ops, ref  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -199,6 +205,130 @@ def test_model_and_serving_on_card_equal_cpu(card):
     fa_ops.reset_launches()
     got = gpu.prefill(params_gpu, {"tokens": toks.to(card)})
     assert fa_ops.LAUNCHES == {"flash_attention": cfg.num_layers}
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    prompt = toks[:, :5]
+    want = ServeEngine(cpu, 2, 12).generate(params, prompt, steps=7)
+    got = ServeEngine(gpu, 2, 12).generate(params_gpu, prompt, steps=7)
+    assert torch.equal(got.cpu(), want)
+
+
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _ssd_inputs(card, B, S, H, hd, N, dtype, seed):
+    """x (B, S, H, hd); dt (B, S, H) as the model makes it with Mamba-2's
+    init, softplus(z + dt_bias) with z ~ N(0, 1) and each head's dt_bias
+    softplus^-1 of a log-uniform draw in [1e-3, 1e-1] (the chunk decays
+    then carry signal); A from mamba2's linspace(1, 16, H); Bm, Cm (B, S,
+    N)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, hd)) * 0.5
+    u = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), H))
+    dt = np.logaddexp(0, rng.standard_normal((B, S, H)) + np.log(np.expm1(u)))
+    A = -np.linspace(1.0, 16.0, H)
+    Bm, Cm = (rng.standard_normal((B, S, N)) * 0.3 for _ in range(2))
+    f32 = (torch.float32,) * 2
+    return [torch.from_numpy(a.astype(np.float32)).to(card, d) for a, d in
+            zip((x, dt, A, Bm, Cm), (dtype, *f32, dtype, dtype))]
+
+
+def _chunks(x, dt, A, Bm, Cm, Q):
+    """The intra-chunk contract as views of sequence-major tensors."""
+    B, S, H, hd = x.shape
+    nc, N = S // Q, Bm.shape[-1]
+    a = (dt * A).view(B, nc, Q, H).permute(0, 3, 1, 2)[..., None]
+    return (a, dt.view(B, nc, Q, H).permute(0, 3, 1, 2)[..., None],
+            Bm.view(B, nc, Q, N), Cm.view(B, nc, Q, N),
+            x.view(B, nc, Q, H, hd).permute(0, 3, 1, 2, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,N,Q", [(2, 128, 16, 16, 16, 32),
+                                          (1, 1024, 64, 64, 128, 256)])
+def test_ssd_kernel_matches_plain_version(card, dtype, B, S, H, hd, N, Q):
+    x, dt, A, Bm, Cm = _ssd_inputs(card, B, S, H, hd, N, dtype, S + hd)
+    args = _chunks(x, dt, A, Bm, Cm, Q)
+    ssd_ops.reset_launches()
+    got = ssd_ops.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == {"ssd_intra_chunk": 1}
+    assert got[0].permute(0, 2, 3, 1, 4).is_contiguous()     # sequence-major
+    want = ssd_ref.ssd_intra_chunk_ref(*args)
+    assert float(want[2].max()) > 1e-2                       # decays carry
+    tol = SSD_TOL[dtype]
+    for g, w, row_tol in zip(got, want, (ssd_ref.ROW_RTOL[dtype],
+                                         ssd_ref.STATE_ROW_RTOL[dtype], 0)):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        if row_tol:
+            assert float(ssd_ref.row_errors(g, w).max()) <= row_tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,N,Q", [(2, 100, 16, 16, 16, 32),
+                                          (1, 1000, 64, 64, 128, 256)])
+def test_ssd_scan_with_kernel_equals_plain_version(card, monkeypatch, dtype,
+                                                   B, S, H, hd, N, Q):
+    """The whole scan, ragged S, on the card: around the kernel and around
+    the plain intra-chunk version (the same glue), y and the final state.
+    Both sum the chunk decays in the same order; the CPU's cumsum sums in
+    f64, which moves the steepest heads (|cum| ~ 10^3) by ~1e-5 in f32."""
+    args = _ssd_inputs(card, B, S, H, hd, N, dtype, S)
+    ssd_ops.reset_launches()
+    y, s = ssd_ops.ssd_scan(*args, chunk=Q)
+    assert ssd_ops.LAUNCHES == {"ssd_intra_chunk": 1}
+    monkeypatch.setattr(ssd_ops, "ssd_intra_chunk",
+                        ssd_ref.ssd_intra_chunk_ref)
+    yp, sp = ssd_ops.ssd_scan(*args, chunk=Q)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(s, sp, atol=tol, rtol=tol)
+    assert float(ssd_ref.row_errors(y, yp).max()) <= ssd_ref.ROW_RTOL[dtype]
+    assert float(ssd_ref.row_errors(s, sp).max()) <= \
+        ssd_ref.STATE_ROW_RTOL[dtype]
+
+
+def test_ssd_wrapper_raises_instead_of_falling_back(card):
+    """Sizes, types and layouts the kernel was not built for raise on the
+    card, with no fallback and no launch counted."""
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 1, 64, 4, 32, 16, torch.bfloat16, 0)
+    ssd_ops.reset_launches()
+    with pytest.raises(ValueError, match="kernel takes"):
+        ssd_ops.ssd_intra_chunk(*_chunks(x, dt, A, Bm, Cm, 32))   # hd 32
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 1, 64, 4, 16, 16, torch.bfloat16, 0)
+    a, d, b, c, xk = _chunks(x, dt, A, Bm, Cm, 32)
+    with pytest.raises(ValueError, match="unit stride"):
+        ssd_ops.ssd_intra_chunk(a, d, b, c, torch.empty(
+            xk.shape[:3] + (16, 32), dtype=xk.dtype,
+            device=card).transpose(-1, -2))
+    shifted = torch.empty(xk.numel() + 1, dtype=xk.dtype, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        ssd_ops.ssd_intra_chunk(a, d, b, c, shifted[1:].view(xk.shape))
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_intra_chunk(a, d, b.half(), c.half(), xk.half())
+    with pytest.raises(ValueError, match="one device"):
+        ssd_ops.ssd_intra_chunk(a, d, b, c, xk.cpu())
+    assert ssd_ops.LAUNCHES == {"ssd_intra_chunk": 0}
+
+
+def test_mamba2_on_card_equals_cpu(card):
+    """Reduced mamba2 in f32: a 100-token prefill (the kernel, f32 route,
+    a ragged last chunk) and greedy generation (the cached decode) on the
+    card against the CPU."""
+    import dataclasses
+    cfg = dataclasses.replace(ARCHS["mamba2-1.3b"].reduced(), dtype="float32")
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    params = cpu.init(0)
+    for lp in params["layers"]:          # Mamba-2's dt range: decays carry
+        u = torch.exp(torch.empty_like(lp["mixer"]["dt_bias"]).uniform_(
+            np.log(1e-3), np.log(1e-1), generator=torch.Generator().manual_seed(1)))
+        lp["mixer"]["dt_bias"] = torch.log(torch.expm1(u))
+    params_gpu = _to(params, card)
+    toks = torch.from_numpy(np.arange(2 * 100).reshape(2, 100) * 7 % cfg.vocab)
+    want = cpu.prefill(params, {"tokens": toks})
+    ssd_ops.reset_launches()
+    got = gpu.prefill(params_gpu, {"tokens": toks.to(card)})
+    assert ssd_ops.LAUNCHES == {"ssd_intra_chunk": cfg.num_layers}
     err = float((got.cpu() - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max()), err
     prompt = toks[:, :5]

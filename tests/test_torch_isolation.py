@@ -47,6 +47,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                    "repro_torch.kernels.flowhash.build",
                    "repro_torch.kernels.flash_attention.build",
                    "repro_torch.kernels.flash_attention.ops",
+                   "repro_torch.kernels.ssd.build",
+                   "repro_torch.kernels.ssd.ops", "repro_torch.models.ssm",
                    "repro_torch.models.model", "repro_torch.serve.engine",
                    "repro_torch.interop"):
         assert module in out

@@ -108,11 +108,12 @@ def test_config_fields_equal_the_jax_config():
 
 
 def test_registry_holds_only_what_the_port_runs():
-    assert sorted(ARCHS) == ["granite-3-2b"]
+    assert sorted(ARCHS) == ["granite-3-2b", "mamba2-1.3b"]
+    assert sorted(ARCHS) == sorted({get_arch(n).name for n in ARCHS})
     with pytest.raises(KeyError):
-        get_arch("mamba2-1.3b")
+        get_arch("jamba-1.5-large-398b")        # family "hybrid", unported
     with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(ARCHS["granite-3-2b"], family="ssm"),
+        Model(dataclasses.replace(ARCHS["granite-3-2b"], family="hybrid"),
               device="cpu")
 
 
