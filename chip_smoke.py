@@ -18,14 +18,18 @@ once) and then:
    relative limit (2e-2, 1e-4) at 32 query heads over 8 kv heads, hd 64,
    S 4,096 causal and not, a ragged S 1,000, and S 32,768 (every row,
    and the last 256 rows against a plain computation of those rows
-   alone; a planted skipped key tile must fail the row limit), the SSD
+   alone; a planted skipped key tile of the bf16 kernel's width must
+   fail the row limit; the ``-Xptxas -v`` report must show one bf16
+   instance a head dim, with the tiles ``ops.BF16_TILES`` names, no
+   spills and no serialised ``wgmma``), the SSD
    intra-chunk kernel in bf16 and f32 to the JAX package's tolerances
    (5e-2, 1e-5) and a per-row limit (y 2e-2, 1e-5; states 1e-4, 1e-5)
    at mamba2-1.3b's shape (B 2, S 32,768, 64 heads, N 128, hd 64, Q 256)
    and through the whole scan at S 32,768 and a ragged S 1,000, with dt
    from Mamba-2's init so the chunk decays carry signal (two planted
    faults must fail the limits) — and times kernel, plain version and
-   (for attention) SDPA with CUDA events;
+   (for attention, in alternating rounds with the kernel) SDPA with CUDA
+   events;
 3. anchors the simulator on the paper testbed (256 flows x 1,024
    seeds): aggregate FIM mean and mean max-min rate under both hash
    backends must match the JAX package's numpy-engine values to 1e-9;
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +79,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit ALU peak outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 FMA peak outside the tensor cores
+# exponentials of the special-function units: 16 per SM per clock, 132
+# SMs at 1.83 GHz
+EXP_PER_S = 3.9e12
 #: integer operations of the murmur chain: per field fold, and fmix
 FOLD_OPS, FMIX_OPS = 9, 8
 
@@ -166,6 +174,17 @@ def cuda_ms(fn, reps: int) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def paired_ms(fn_a, fn_b, rounds: int = 4, reps: int = 3) -> tuple:
+    """Medians in ms of ``fn_a`` and ``fn_b`` timed in alternating
+    rounds (a b, b a, ...) of ``reps`` runs each, so that a drift of the
+    card's clock reaches both alike."""
+    a, b = [], []
+    for r in range(rounds):
+        for fn, out in ((fn_a, a), (fn_b, b))[::1 if r % 2 == 0 else -1]:
+            out.append(cuda_ms(fn, reps))
+    return sorted(a)[rounds // 2], sorted(b)[rounds // 2]
 
 
 def bound(bytes_moved: int, ops: int,
@@ -412,13 +431,58 @@ def phase_full_scale(np, torch):
     return launches
 
 
+def ptxas_report(log: str, kernel: str) -> tuple[dict, list]:
+    """Registers and spill bytes of each instance of ``kernel`` in an
+    ``nvcc -Xptxas -v`` log, keyed by its template arguments ("64 128 3
+    3": the bf16 kernel's head dim, keys, stages and consumer
+    warpgroups), and the log's warnings."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            name = None
+            if kernel in m.group(1):
+                name = " ".join(re.findall(r"Li(\d+)E", m.group(1)
+                                           .split(kernel, 1)[1]))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out, [ln.strip() for ln in log.splitlines()
+                 if "arning" in ln or "Performance Loss" in ln]
+
+
 def phase_flash(np, torch):
     """The flash-attention kernel against its plain version on the card
     in bf16 and f32; returns its record at the serving path's shape
     (launch count filled in later)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import build, ops, ref
+
+    # the bf16 instances as the compiler built them (head dim, keys,
+    # stages, consumers): one a head dim, with the tiles the wrapper's
+    # constants name, no spills and no serialised wgmma
+    report, warnings = ptxas_report(
+        build.build().with_suffix(".log").read_text(), "flash_fwd_bf16")
+    emit({"phase": "ptxas", "kernel": "flash_fwd_bf16", "instances": report,
+          "warnings": warnings})
+    check(sorted(report) == sorted(
+        f"{hd} {bk} {stages} {bq // 64}"
+        for hd, (bq, bk, stages) in ops.BF16_TILES.items()),
+          f"bf16 instances {sorted(report)} are not ops.BF16_TILES "
+          f"{ops.BF16_TILES}")
+    for inst, r in report.items():
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"flash_fwd_bf16<{inst}> spills: {r}")
+    check(not [w for w in warnings if "flash_fwd_bf16" in w],
+          f"ptxas warns on the bf16 kernel: {warnings}")
     gen = torch.Generator(device="cuda").manual_seed(11)
 
     def qkv(B, S, dtype):
@@ -483,9 +547,11 @@ def phase_flash(np, torch):
     got = got[:, :, off:]
     want = ref.flash_attention_ref(q[:, :, off:], k, v, q_offset=off)
     band_err, band_row = errs_of(got, want, f"bfloat16, S {S}, band")
-    # a planted fault: the band's output with the middle key tile (64
-    # keys, as the kernel stages them) skipped must fail the row check
-    k0, tile = S // 2, 64
+    # a planted fault: the band's output with the middle key tile (as
+    # many keys as the bf16 kernel stages at a time) skipped must fail the
+    # row check
+    bq, tile, stages = ops.BF16_TILES[FLASH_HD]
+    k0 = S // 2
     kd, vd = (torch.cat([t[:, :, :k0], t[:, :, k0 + tile:]], 2)
               for t in (k, v))
     bad = ref.flash_attention_ref(q[:, :, off:], kd, vd, q_offset=off - tile)
@@ -496,6 +562,12 @@ def phase_flash(np, torch):
                         f"({bad_row})")
     del got, want, kd, vd, bad
     b_ms, b_by = bound(*cost(q, k, True), BF16_FLOPS_PER_S)
+    # one exponential a query-key pair the causal mask keeps
+    exps = PREFILL_BATCH * FLASH_HEADS * S * (S + 1) // 2
+    ms, library_ms = paired_ms(
+        lambda: ops.flash_attention(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True))
     record = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -505,14 +577,15 @@ def phase_flash(np, torch):
                   FLASH_HD],
         "dtype": "bfloat16", "causal": True, "max_abs_err": full_err,
         "max_row_err": full_row,
-        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v), 5),
+        "ms": ms,
         "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 5)}
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "ms_over_library": ms / library_ms}
     emit({"phase": "kernels", "kernel": "flash_attention", "tol": FLASH_TOL,
           "row_tol": {str(d)[6:]: t for d, t in ref.ROW_RTOL.items()},
           "heads": [FLASH_HEADS, FLASH_KV_HEADS], "hd": FLASH_HD,
+          "tiles": {"query_rows": bq, "keys": tile, "stages": stages},
+          "exponentials": exps, "exp_bound_ms": exps / EXP_PER_S * 1e3,
           "checks": checks,
           "full": {"S": S, "batch": PREFILL_BATCH, "max_abs_err": full_err,
                    "max_row_err": full_row},

@@ -13,40 +13,69 @@
 // masks a ragged tail itself (keys >= S masked, no stores past S) where
 // the TPU kernel asserted S % 128 == 0.
 //
-// Bound: operations.  A (BQ x BK) tile pair does 4 * hd * BQ * BK flops
-// against (BQ + 2 BK) * hd input elements; at S = 32,768 the causal
-// forward does ~8.8 TFLOP per 64 heads against ~0.4 GB of q, k, v and o,
-// some 20,000 flops per byte, far above the card's ~295 bf16 flops per
-// byte.  So the design spends its effort on the tensor cores:
-//   * bf16: one block of 4 warps per (b*h, 64-query tile); each warp owns
-//     16 query rows, keeps its q fragments in registers for the whole
-//     key loop and issues mma.sync m16n8k16 (bf16 in, f32 accumulate) for
-//     both q k^T and p v.  K and V tiles of 64 keys are staged through
-//     shared memory (V transposed, rows padded so that fragment loads hit
-//     32 distinct banks); the score tile never leaves registers, and the
-//     score accumulator is reused in place as the A operand of p v.
-//   * f32 (the checking path; no tensor core takes f32 at full
-//     precision): one block of 256 threads per (b*h, 64-query tile), q,
-//     k, v and the 64 x 64 score tile in shared memory, 4 x 4 register
-//     micro-tiles, f32 FMAs throughout.
-// A simple first design: no cp.async / TMA pipelining, no wgmma, no warp
-// specialisation (later work, see PERF.md).
+// Bound: operations, of two kinds.  A query-key pair costs 4 * hd
+// tensor-core flops (q k^T and p v) and one exponential.  At the serving
+// shape (B 2, 32 heads, S 32,768, hd 64, causal) that is 8.8 TFLOP, 8.9 ms
+// at the H100's 989 TFLOP/s, beside 3.4e10 exponentials, 8.8 ms at the
+// special-function units' ~3.9e12 a second (16 per SM per clock); q, k, v
+// and o are 0.4 GB, 0.1 ms of memory traffic.  Done one after the other
+// the two would take ~17.7 ms, so the bf16 design keeps the tensor cores
+// and the exponential units busy at the same time:
+//   * warp specialisation: one block per (b*h, query tile), longest tiles
+//     first, with a producer warpgroup (one thread issues every load; the
+//     warpgroup gives up registers with setmaxnreg.dec) and 2 or 3
+//     consumer warpgroups of 64 query rows each (setmaxnreg.inc);
+//   * TMA (cp.async.bulk.tensor) brings the block's q tile once and K, V
+//     tiles of 128 keys into a ring of shared-memory stages, each with
+//     full and empty mbarriers for K and for V (a stage's K is refilled as
+//     soon as q k^T has read it).  The 4-D tensor maps carry the tensors'
+//     strides, so transposed (B, S, H, hd) views go in as they are, and
+//     rows past S arrive as zeros;
+//   * wgmma for both products: s = q k^T with both operands in shared
+//     memory (K-major), o += p v with p in registers (the f32 score
+//     fragment packed in pairs to bf16 is the A fragment) and V read
+//     MN-major from the tile TMA wrote: nothing is transposed or written
+//     back to shared memory.  TMA's swizzle and the wgmma descriptors
+//     agree: 128B for hd 64, 64B for hd 32, two 64-column panels of 128B
+//     for hd 128;
+//   * softmax in registers: p = exp2(s * c - m * c) with c = log2(e) /
+//     sqrt(hd) (one FFMA an element), the row max and sum in four chains
+//     each, over the 4 threads of a row (the sum once, at the end), and
+//     the mask only on the tiles that cross the diagonal or S;
+//   * overlap between warpgroups: while one consumer waits on its wgmma,
+//     the others run their exponentials.  Three consumers (192 query rows)
+//     where their registers suffice (hd 32, 64: 128 a thread at launch);
+//     two for hd 128, whose 64 output registers need the 168 that two
+//     allow.  Issuing the next tile's q k^T before this tile's softmax, and
+//     ordering the consumers' issues with named barriers, were measured
+//     slower (PERF.md): they hold scores, p and the output at once, which
+//     the compiler fits only with two consumers, and two consumers
+//     overlap less than three.
+// The f32 path (the checking path: no tensor core takes f32 at full
+// precision) is one block of 256 threads per (b*h, 64-query tile), q, k,
+// v and the 64 x 64 score tile in shared memory, 4 x 4 register
+// micro-tiles, f32 FMAs throughout.
 //
 // Plain C interface for ctypes: the launch goes on the caller's stream,
 // allocates nothing, does not synchronise, and returns cudaGetLastError()
-// (or cudaErrorInvalidValue for a head dim it was not built for).  The
-// grid is (query tiles, B*H): more than 65,535 (batch, head) pairs is a
-// launch the card refuses, and the error comes back to the caller.
+// (or cudaErrorInvalidValue for a head dim it was not built for or a
+// layout TMA refuses, and cudaErrorInvalidDeviceFunction for a bf16 build
+// with fewer registers than setmaxnreg.inc counts on).  The grid is (query tiles, B*H): more than 65,535
+// (batch, head) pairs is a launch the card refuses, and the error comes
+// back to the caller.  The driver's cuTensorMapEncodeTiled is reached
+// through the runtime (cudaGetDriverEntryPoint), so the library links no
+// libcuda.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
-constexpr int BQ = 64;             // query rows per block
-constexpr int BK = 64;             // keys per staged tile
+constexpr int BQ = 64;             // f32 path: query rows per block
+constexpr int BK = 64;             // f32 path: keys per staged tile
 
 struct Params {
   const void* q;
@@ -75,17 +104,138 @@ __device__ __forceinline__ bool masked(const Params& p, int row, int col) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, f32 accumulators
+// bf16: TMA, mbarriers, wgmma, warp specialisation
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+constexpr int PRODUCER_REGS = 24;
+
+// Tile sizes and the shared-memory plan of one bf16 kernel instance.  A
+// tile of R rows is stored as HD / PANEL panels of R rows x ROW_BYTES,
+// each in TMA's (and wgmma's) swizzled layout.
+template <int HD_, int BK_, int STAGES_, int CONSUMERS_>
+struct Tiles {
+  static constexpr int HD = HD_;
+  static constexpr int CONSUMERS = CONSUMERS_;  // warpgroups of 64 query rows
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  // registers a thread at launch (one block an SM takes the whole file;
+  // the compiler must allocate exactly this, or setmaxnreg.inc would wait
+  // for registers that never come, so launch_bf16 checks it), and what
+  // the producer's 24 leave each consumer thread of the block's pool
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int CONSUMER_REGS =
+      (THREADS * LAUNCH_REGS - 128 * PRODUCER_REGS) / (128 * CONSUMERS) / 8 * 8;
+  static constexpr int BQ = 64 * CONSUMERS;   // query rows per block
+  static constexpr int BK = BK_;              // keys per stage
+  static constexpr int STAGES = STAGES_;
+  static constexpr int PANEL = HD < 64 ? HD : 64;
+  static constexpr int ROW_BYTES = PANEL * 2;            // the swizzle span
+  static constexpr uint32_t LAYOUT = ROW_BYTES == 128 ? 1 : 2;  // 128B / 64B
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // q full; K full, V full, K empty and V empty for each stage
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
+  static_assert(HD % PANEL == 0 && PANEL % 16 == 0, "head dim");
+};
+
+struct TmaParams {
+  void* o;
+  int H, Hkv, S;
+  long long o_sb, o_sh, o_ss;
+  int causal;
+  float scale_log2;  // log2(e) / sqrt(hd)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also announces ``bytes`` of TMA traffic.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed (a fresh
+// barrier has completed the phase of parity 1).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A box of the 4-D map (hd, S, heads, B) at (c0, c1, c2, c3) into shared
+// memory at ``dst``; completion is reported to ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle layout.  K-major
+// operands (q, K) use only the stride offset, 8 rows apart; the MN-major
+// V uses the leading offset to step from one 64-column panel to the next.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fence, commit and wait above.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -93,160 +243,331 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* base,
-                                            long long row_stride, int row,
-                                            int col, int S) {
-  if (row >= S) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + row * row_stride + col);
+// wgmma m64nNk16, f32 += bf16 x bf16.  ``ss`` (N = 128 keys): A and B
+// from shared memory, both K-major, d overwritten where scale_d is 0.
+// ``rs`` (N = hd): A from registers (the m16n8k16 A fragment of each
+// warp's 16 rows), B MN-major from shared memory, d accumulated.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16 x 16, row): a0 = A[g][2t:2t+2], a1 = A[g+8][2t:2t+2],
-//                     a2 = A[g][2t+8:2t+10], a3 = A[g+8][2t+8:2t+10]
-//   B (16 x 8, col):  b0 = B[2t:2t+2][g],  b1 = B[2t+8:2t+10][g]
-//   C (16 x 8):       c0,c1 = C[g][2t:2t+2], c2,c3 = C[g+8][2t:2t+2]
-template <int HD>
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16(const Params p) {
-  constexpr int KSTR = HD + 8;  // K row stride in smem (bank padding)
-  constexpr int VSTR = BK + 8;  // V^T row stride in smem
-  constexpr int KD = HD / 16;   // k-steps of q k^T
-  constexpr int ND = HD / 8;    // n-tiles of the output
-  constexpr int NK = BK / 8;    // n-tiles of the score tile
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK * KSTR];
-  __shared__ __align__(16) __nv_bfloat16 Vt[HD * VSTR];
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// s = q k^T for one consumer's 64 rows and a stage's BK keys.
+template <class T>
+__device__ __forceinline__ void issue_qk(float (&s)[T::BK / 2], uint32_t q_s,
+                                         uint32_t k_s) {
+#pragma unroll
+  for (int kk = 0; kk < T::HD / 16; ++kk) {
+    // 16 columns of hd: panel pn, a 32-byte step inside its swizzled rows
+    const uint32_t pn = kk * 16 / T::PANEL, off = (kk * 16 % T::PANEL) * 2;
+    wgmma_ss(s,
+             smem_desc(q_s + pn * T::BQ * T::ROW_BYTES + off, 16,
+                       8 * T::ROW_BYTES, T::LAYOUT),
+             smem_desc(k_s + pn * T::BK * T::ROW_BYTES + off, 16,
+                       8 * T::ROW_BYTES, T::LAYOUT),
+             kk);
+  }
+}
+
+// o += p v for one consumer's 64 rows and a stage's BK keys.
+template <class T>
+__device__ __forceinline__ void issue_pv(float (&o)[T::HD / 2],
+                                         const uint32_t (&pa)[T::BK / 16][4],
+                                         uint32_t v_s) {
+#pragma unroll
+  for (int kc = 0; kc < T::BK / 16; ++kc)
+    wgmma_rs(o, pa[kc],
+             smem_desc(v_s + kc * 16 * T::ROW_BYTES, T::BK * T::ROW_BYTES,
+                       8 * T::ROW_BYTES, T::LAYOUT));
+}
+
+// The online softmax of one score tile in place: s becomes p (f32), m the
+// new row max, l the thread's part of the row sum, alpha the factor the
+// accumulator is rescaled by.  Element i of a thread's fragment lies in
+// row row0 + 8 * ((i >> 1) & 1) and key k0 + 8 * (i >> 2) + 2 * (lane %
+// 4) + (i & 1); the 4 threads of a quad share a row.
+template <bool MASK, int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2],
+                                               float c, int row0, int k0,
+                                               int S, int causal) {
+  if (MASK) {
+    const int col0 = k0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      const int col = col0 + 8 * (i >> 2) + (i & 1);
+      if (col >= S || (causal && col > row)) s[i] = NEG_INF;
+    }
+  }
+  // four chains a row for the max and the sum, not one
+  float mq[2][4], sq[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      mq[j][g] = m[j];
+      sq[j][g] = 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    mq[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mq[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+  float mx[2], mc[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    mx[j] = fmaxf(fmaxf(mq[j][0], mq[j][1]), fmaxf(mq[j][2], mq[j][3]));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+    alpha[j] = ex2((m[j] - mx[j]) * c);
+    m[j] = mx[j];
+    mc[j] = mx[j] * c;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
+    sq[(i >> 1) & 1][(i >> 2) & 3] += s[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    l[j] = l[j] * alpha[j] + ((sq[j][0] + sq[j][1]) + (sq[j][2] + sq[j][3]));
+}
+
+// p rounded to bf16, in the A fragment of k-step kc (keys 16 kc ..).
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 8][4],
+                                       const float (&s)[N]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 8; ++kc)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      pa[kc][j] = pack_bf16(s[8 * kc + 2 * j], s[8 * kc + 2 * j + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const TmaParams p) {
+  constexpr int HD = T::HD;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + T::BAR_OFF;
+  auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
+  auto v_full = [&](int st) { return q_full + 8 * (1 + T::STAGES + st); };
+  auto k_empty = [&](int st) { return q_full + 8 * (1 + 2 * T::STAGES + st); };
+  auto v_empty = [&](int st) { return q_full + 8 * (1 + 3 * T::STAGES + st); };
+  auto k_smem = [&](int st) { return base + T::K_OFF + st * T::KV_BYTES; };
+  auto v_smem = [&](int st) { return base + T::V_OFF + st * T::KV_BYTES; };
+
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
-  const auto* qp = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const auto* kp = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const auto* vp = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  auto* op = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * T::BQ;  // longest tiles first
+  int n_tiles = (p.S + T::BK - 1) / T::BK;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + T::BQ - 1) / T::BK + 1);
 
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = ld_pair(qp, p.q_ss, r0, c, p.S);
-    qf[kk][1] = ld_pair(qp, p.q_ss, r1, c, p.S);
-    qf[kk][2] = ld_pair(qp, p.q_ss, r0, c + 8, p.S);
-    qf[kk][3] = ld_pair(qp, p.q_ss, r1, c + 8, p.S);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < T::STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 4 * T::CONSUMERS);  // lane 0 of each consumer warp
+      mbar_init(v_empty(st), 4 * T::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-
-  const int n_tiles = key_tiles(p, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int c = tid; c < BK * HD / 8; c += 128) {
-      const int r = c / (HD / 8), d = (c % (HD / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < p.S) {
-        kv = *reinterpret_cast<const uint4*>(kp + (k0 + r) * p.k_ss + d);
-        vv = *reinterpret_cast<const uint4*>(vp + (k0 + r) * p.v_ss + d);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * KSTR + d]) = kv;
-      const auto* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(d + i) * VSTR + r] = ve[i];
-    }
-    __syncthreads();
-
-    // s = q k^T for this warp's 16 rows x 64 keys
-    float s[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = &Ks[(n * 8 + g) * KSTR + 2 * t];
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16(s[n], qf[kk], b0, b1);
+  if (threadIdx.x < 128) {
+    // producer: one thread keeps the ring of K, V stages full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int pn = 0; pn < HD / T::PANEL; ++pn)
+        tma_load(base + pn * T::BQ * T::ROW_BYTES, &tq, q_full,
+                 pn * T::PANEL, q0, h, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % T::STAGES;
+        const uint32_t ph = ((n / T::STAGES) & 1) ^ 1;
+        mbar_wait(k_empty(st), ph);
+        mbar_expect_tx(k_full(st), T::KV_BYTES);
+        for (int pn = 0; pn < HD / T::PANEL; ++pn)
+          tma_load(k_smem(st) + pn * T::BK * T::ROW_BYTES, &tk, k_full(st),
+                   pn * T::PANEL, n * T::BK, hk, b);
+        mbar_wait(v_empty(st), ph);
+        mbar_expect_tx(v_full(st), T::KV_BYTES);
+        for (int pn = 0; pn < HD / T::PANEL; ++pn)
+          tma_load(v_smem(st) + pn * T::BK * T::ROW_BYTES, &tv, v_full(st),
+                   pn * T::PANEL, n * T::BK, hk, b);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(T::CONSUMER_REGS));
+    const int c = threadIdx.x / 128 - 1;  // rows q0 + 64 c .. q0 + 64 c + 63
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row0 = q0 + 64 * c + 16 * warp + lane / 4;  // and row0 + 8
+    const uint32_t q_s = base + 64 * c * T::ROW_BYTES;
+    float o[HD / 2], s[T::BK / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < T::BK / 2; ++i) s[i] = 0.f;
+    uint32_t pa[T::BK / 16][4];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
 
-    // scale, mask, and the online softmax; row j (0: r0, 1: r1) of a
-    // score tile is spread over the 4 lanes of a quad
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + n * 8 + 2 * t + (i & 1);
-        const float x = masked(p, i < 2 ? r0 : r1, col) ? NEG_INF : s[n][i] * p.scale;
-        s[n][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
-      }
+    mbar_wait(q_full, 0);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % T::STAGES, k0 = n * T::BK;
+      const uint32_t ph = (n / T::STAGES) & 1;
+      mbar_wait(k_full(st), ph);
+      hold(s);
+      wg_fence();
+      issue_qk<T>(s, q_s, k_smem(st));
+      wg_commit();
+      wg_wait<0>();
+      hold(s);
+      // a stage's K is free once q k^T has read it, its V once p v has
+      if (lane == 0) mbar_arrive(k_empty(st));
+      // the mask only where the tile crosses S or, causal, this
+      // consumer's first row; interior tiles take no compare
+      if (k0 + T::BK > p.S || (p.causal && k0 + T::BK - 1 > q0 + 64 * c))
+        online_softmax<true>(s, m, l, alpha, p.scale_log2, row0, k0, p.S,
+                             p.causal);
+      else
+        online_softmax<false>(s, m, l, alpha, p.scale_log2, row0, k0, p.S,
+                              p.causal);
+      rescale(o, alpha);
+      pack_p(pa, s);
+      mbar_wait(v_full(st), ph);
+      hold(o);
+      wg_fence();
+      issue_pv<T>(o, pa, v_smem(st));
+      wg_commit();
+      wg_wait<0>();
+      hold(o);
+      hold(pa);
+      if (lane == 0) mbar_arrive(v_empty(st));
     }
-    float alpha[2], sum[2] = {0.f, 0.f};
+
+    // out = acc / max(l, 1e-30), the row sum taken over the quad now
+    auto* op = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-      const float m_new = fmaxf(m[j], mx[j]);
-      alpha[j] = __expf(m[j] - m_new);
-      m[j] = m_new;
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+      l[j] = fmaxf(l[j], 1e-30f);
     }
 #pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[n][i] = __expf(s[n][i] - m[i >> 1]);
-        sum[i >> 1] += s[n][i];
-      }
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = n * 8 + 2 * (lane & 3);
+      if (row0 < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(op + row0 * p.o_ss + col) =
+            __floats2bfloat162_rn(o[4 * n] / l[0], o[4 * n + 1] / l[0]);
+      if (row0 + 8 < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(op + (row0 + 8) * p.o_ss + col) =
+            __floats2bfloat162_rn(o[4 * n + 2] / l[1], o[4 * n + 3] / l[1]);
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], 1);
-      sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], 2);
-      l[j] = l[j] * alpha[j] + sum[j];
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // o += p v: the C fragments of score n-tiles 2c, 2c+1 are the A
-    // fragment of keys 16c .. 16c+15, rounded to bf16 as the TPU kernel
-    // rounds p to v's type
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      const uint32_t a[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
-                             pack_bf16(s[2 * c][2], s[2 * c][3]),
-                             pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
-                             pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* vrow = &Vt[(n * 8 + g) * VSTR + c * 16 + 2 * t];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vrow);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vrow + 8);
-        mma_bf16(o[n], a, b0, b1);
-      }
-    }
-  }
-
-  const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(op + r0 * p.o_ss + c) =
-          __floats2bfloat162_rn(o[n][0] / l0, o[n][1] / l0);
-    if (r1 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(op + r1 * p.o_ss + c) =
-          __floats2bfloat162_rn(o[n][2] / l1, o[n][3] / l1);
   }
 }
 
@@ -397,19 +718,120 @@ flash_fwd_f32(const Params p) {
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime; null if the
+// driver has none.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (hd, S, heads, B) of a bf16 tensor with strides in
+// elements, boxes of one panel x ``rows`` rows, rows past S read as zeros.
+template <class T>
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int S,
+                int heads, int B, long long ss, long long sh, long long sb,
+                int rows) {
+  const cuuint64_t dims[4] = {T::HD, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {T::PANEL, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                T::ROW_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class T>
+cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<T>(encode, &tq, p.q, p.S, p.H, p.B, p.q_ss, p.q_sh, p.q_sb,
+                     T::BQ) ||
+      !tensor_map<T>(encode, &tk, p.k, p.S, p.Hkv, p.B, p.k_ss, p.k_sh,
+                     p.k_sb, T::BK) ||
+      !tensor_map<T>(encode, &tv, p.v, p.S, p.Hkv, p.B, p.v_ss, p.v_sh,
+                     p.v_sb, T::BK))
+    return cudaErrorInvalidValue;
+  const TmaParams tp{p.o,    p.H,    p.Hkv,    p.S,
+                     p.o_sb, p.o_sh, p.o_ss,   p.causal,
+                     p.scale * 1.4426950408889634f};
+  // setmaxnreg.inc takes its registers from those the block was launched
+  // with, so a build that gave the kernel fewer than LAUNCH_REGS a thread
+  // (another compiler, an edited kernel) would leave the consumers waiting
+  // forever: such a build refuses to launch.
+  static const cudaError_t regs = [] {
+    cudaFuncAttributes a{};
+    const cudaError_t e = cudaFuncGetAttributes(&a, flash_fwd_bf16<T>);
+    if (e != cudaSuccess) return e;
+    return a.numRegs == T::LAUNCH_REGS ? cudaSuccess
+                                       : cudaErrorInvalidDeviceFunction;
+  }();
+  if (regs != cudaSuccess) return regs;
+  const dim3 grid((p.S + T::BQ - 1) / T::BQ, p.B * p.H);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  flash_fwd_bf16<T><<<grid, T::THREADS, T::SMEM, stream>>>(tq, tk, tv, tp);
+  return cudaGetLastError();
+}
+
+// The bf16 instance for each head dim, as Tiles<HD, keys, stages,
+// consumers> (PERF.md has the shapes tried).  ops.BF16_TILES names the
+// same (query rows, keys, stages); the tests and chip_smoke.py hold the
+// two against each other.
+template <int HD>
+struct Bf16Tiles;
+template <>
+struct Bf16Tiles<32> {
+  using T = Tiles<32, 128, 2, 3>;
+};
+template <>
+struct Bf16Tiles<64> {
+  using T = Tiles<64, 128, 3, 3>;
+};
+template <>
+struct Bf16Tiles<128> {
+  using T = Tiles<128, 128, 2, 2>;
+};
+
 template <int HD>
 cudaError_t launch(const Params& p, int bf16, cudaStream_t stream) {
+  if (bf16) return launch_bf16<typename Bf16Tiles<HD>::T>(p, stream);
   const dim3 grid((p.S + BQ - 1) / BQ, p.B * p.H);
-  if (bf16) {
-    flash_fwd_bf16<HD><<<grid, 128, 0, stream>>>(p);
-  } else {
-    constexpr size_t smem = f32_smem_bytes<HD>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    flash_fwd_f32<HD><<<grid, F32_THREADS, smem, stream>>>(p);
-  }
+  constexpr size_t smem = f32_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_fwd_f32<HD><<<grid, F32_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

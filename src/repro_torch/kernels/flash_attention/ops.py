@@ -1,10 +1,11 @@
 """Flash-attention forward: the port of
 ``repro/kernels/flash_attention/ops.py::flash_attention``.
 
-One CUDA kernel (``csrc/flash_attention.cu``, bf16 on the tensor cores,
-f32 in FMAs) computes softmax(q kᵀ / √hd) v, causal or not, over
-grouped-query layouts given by strides.  A CUDA tensor launches the
-kernel or raises; a CPU tensor takes the plain version in ``ref.py``.
+One CUDA kernel (``csrc/flash_attention.cu``: bf16 with TMA and
+``wgmma`` on the tensor cores, f32 in FMAs) computes softmax(q kᵀ / √hd)
+v, causal or not, over grouped-query layouts given by strides.  A CUDA
+tensor launches the kernel or raises; a CPU tensor takes the plain
+version in ``ref.py``.
 ``LAUNCHES`` counts kernel launches (CPU calls never count), so a run can
 show that it went through the kernel.
 """
@@ -23,6 +24,10 @@ from .ref import flash_attention_ref
 LAUNCHES = {"flash_attention": 0}
 #: head dims the kernel is built for (template instances)
 HEAD_DIMS = (32, 64, 128)
+#: the bf16 kernel's blocks for each head dim: (query rows, keys per
+#: stage, stages), as ``Bf16Tiles`` in ``csrc/flash_attention.cu`` builds
+#: them (the tests and ``chip_smoke.py`` check that the two agree)
+BF16_TILES = {32: (192, 128, 2), 64: (192, 128, 3), 128: (128, 128, 2)}
 _DTYPES = (torch.bfloat16, torch.float32)
 
 

@@ -11,6 +11,9 @@ does not.  Inputs are drawn with numpy from fixed seeds and handed to
 both packages.
 """
 
+import math
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +23,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.flash_attention.kernel import flash_attention_fwd  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro.models import attention as JAtt  # noqa: E402
-from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import build, ops, ref  # noqa: E402
 from repro_torch.models import attention as TAtt  # noqa: E402
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
@@ -144,6 +147,96 @@ def test_ragged_gqa_matches_chunked_attention(S, causal, dtype):
                               tv.transpose(1, 2), causal=causal)
     _close(got.transpose(1, 2).float().numpy(), want.astype(jnp.float32),
            dtype)
+
+
+def _kernel_model(q, k, v, *, causal):
+    """The bf16 CUDA kernel's arithmetic in plain torch, in its order:
+    blocks of BQ query rows, each BQ / 64 consumers of 64 rows (3 at hd
+    32 and 64, 2 at hd 128); key tiles of
+    BK keys (zero past S, as TMA fills them), causal tiles wholly above
+    a block's last row skipped; f32 scores; the mask only on tiles that
+    cross S or, causal, the consumer's first row; p = exp2(s c - m c)
+    with c = log2(e) / sqrt(hd); p rounded to v's type before p v; the
+    row sum in four per-thread parts of BK / 8 keys each, summed at the
+    end; out = acc / max(l, 1e-30) in q's type."""
+    B, H, S, hd = q.shape
+    BQ, BK, _ = ops.BF16_TILES[hd]
+    c = math.log2(math.e) / math.sqrt(hd)
+    kv_head = torch.arange(H) // (H // k.shape[1])
+    n_all = -(-S // BK)
+    pad = n_all * BK - S
+    kf, vf = (torch.nn.functional.pad(t[:, kv_head].float(), (0, 0, 0, pad))
+              for t in (k, v))
+    cols = torch.arange(n_all * BK)
+    out = torch.empty(B, H, S, hd)
+    for r0 in range(0, S, 64):            # one consumer's rows
+        q0 = r0 - r0 % BQ
+        rows = torch.arange(r0, r0 + 64)
+        qr = torch.nn.functional.pad(q[:, :, r0:r0 + 64].float(),
+                                     (0, 0, 0, 64 - min(64, S - r0)))
+        n_tiles = n_all
+        if causal:
+            n_tiles = min(n_tiles, (q0 + BQ - 1) // BK + 1)
+        m = torch.full((B, H, 64), ref.NEG_INF)
+        l_parts = torch.zeros(B, H, 64, 4)
+        o = torch.zeros(B, H, 64, hd)
+        for n in range(n_tiles):
+            k0 = n * BK
+            s = qr @ kf[:, :, k0:k0 + BK].transpose(-1, -2)
+            if k0 + BK > S or (causal and k0 + BK - 1 > r0):
+                col = cols[k0:k0 + BK]
+                mask = col[None, :] >= S
+                if causal:
+                    mask = mask | (col[None, :] > rows[:, None])
+                s = s.masked_fill(mask, ref.NEG_INF)
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2((m - mx) * c)
+            m = mx
+            p = torch.exp2(s * c - (mx * c)[..., None])
+            # a thread holds keys 8j + 2t, 8j + 2t + 1 of its rows
+            parts = p.reshape(B, H, 64, BK // 8, 4, 2).sum((-3, -1))
+            l_parts = l_parts * alpha[..., None] + parts
+            o = o * alpha[..., None] + p.to(v.dtype).float() @ vf[:, :, k0:k0 + BK]
+        l = l_parts.sum(-1).clamp_min(1e-30)
+        out[:, :, r0:r0 + 64] = (o / l[..., None])[:, :, :min(64, S - r0)]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("S", [1, 127, 129, 333, 515])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_tiling_keeps_the_reference_numbers(S, hd, causal, dtype):
+    """The bf16 kernel's tiles, masks, exp2 with the folded scale and
+    reordered accumulation agree with the plain version and with the
+    Pallas kernel (interpret mode, one block of S rows, heads repeated
+    as the CUDA kernel's head map reads them) at the JAX package's
+    tolerances and the per-row limit; S is ragged against BQ and BK, and
+    2 query heads share one kv head."""
+    q, k, v = _draw(S * hd, (1, 2, S, hd), (1, 1, S, hd), (1, 1, S, hd))
+    tq, tk, tv = (_torch(a, dtype) for a in (q, k, v))
+    got = _kernel_model(tq, tk, tv, causal=causal)
+    want = ref.flash_attention_ref(tq, tk, tv, causal=causal)
+    _close(got.float().numpy(), want.float().numpy(), dtype)
+    assert float(ref.row_errors(got, want).max()) <= ref.ROW_RTOL[got.dtype]
+    pallas = flash_attention_fwd(
+        _jax(q[0], dtype), *(_jax(np.repeat(a[0], 2, axis=0), dtype)
+                             for a in (k, v)),
+        causal=causal, block_q=S, block_k=S, interpret=True)
+    _close(got[0].float().numpy(), pallas.astype(jnp.float32), dtype)
+
+
+def test_bf16_tiles_are_the_kernels():
+    """``ops.BF16_TILES`` names the one bf16 instance the CUDA source
+    builds for each head dim (``Bf16Tiles<hd>``: Tiles<hd, keys, stages,
+    consumer warpgroups of 64 rows>)."""
+    built = {int(hd): (64 * int(c), int(bk), int(st)) for hd, hd2, bk, st, c
+             in re.findall(r"struct Bf16Tiles<(\d+)> \{\s*using T = "
+                           r"Tiles<(\d+), (\d+), (\d+), (\d+)>;",
+                           build.SOURCE.read_text())
+             if hd == hd2}
+    assert built == ops.BF16_TILES
+    assert sorted(built) == sorted(ops.HEAD_DIMS)
 
 
 def test_band_of_rows_equals_the_full_computation():

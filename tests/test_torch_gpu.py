@@ -141,6 +141,62 @@ def test_flash_kernel_matches_plain_version(card, dtype, causal, S, hd):
     assert float(fa_ref.row_errors(got, want).max()) <= fa_ref.ROW_RTOL[dtype]
 
 
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("edge", ["one_key", "under_a_tile", "tile_and_one"])
+def test_flash_bf16_tile_edges(card, hd, causal, edge):
+    """bf16 at S below one key tile of the kernel (1 key; half a tile
+    and one) and at S one past a tile, where TMA's zero fill and the
+    ragged-tile mask carry the whole result; GQA 8 over 2, every head
+    dim."""
+    bk = fa_ops.BF16_TILES[hd][1]
+    S = {"one_key": 1, "under_a_tile": bk // 2 + 1, "tile_and_one": bk + 1}[edge]
+    rng = np.random.default_rng(S * hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(card, torch.bfloat16) for sh in
+               ((2, 8, S, hd), (2, 2, S, hd), (2, 2, S, hd)))
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {"flash_attention": 1}
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert float(fa_ref.row_errors(got, want).max()) <= fa_ref.ROW_RTOL[
+        torch.bfloat16]
+
+
+def test_flash_bf16_build_short_of_registers_refuses_to_launch(
+        card, tmp_path, monkeypatch):
+    """A build whose bf16 kernel has fewer registers a thread than the
+    block's whole share (here the source with launch bounds of 576
+    threads, which cap it at 112 where 128 and 168 are the shares) would
+    leave the consumers' ``setmaxnreg.inc`` waiting forever; it refuses
+    to launch, and the wrapper raises and counts nothing."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attention import build as fa_build
+    bounds = "__launch_bounds__(T::THREADS, 1)"
+    text = fa_build.SOURCE.read_text()
+    assert text.count(bounds) == 1
+    src = tmp_path / "flash_attention_112_registers.cu"
+    src.write_text(text.replace(bounds, "__launch_bounds__(576, 1)"))
+    lib = src.with_suffix(".so")
+    subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    monkeypatch.setattr(fa_build, "load",
+                        lambda: fa_build.typed(ctypes.CDLL(str(lib))))
+    q = torch.zeros((1, 4, 200, 64), device=card, dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 200, 64), device=card, dtype=torch.bfloat16)
+    fa_ops.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa_ops.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {"flash_attention": 0}
+
+
 def test_flash_kernel_reads_the_model_layout(card):
     """Transposed (B, S, H, hd) views go in as they are; the output comes
     back with q's strides."""
