@@ -22,14 +22,18 @@ once) and then:
    fail the row limit; the ``-Xptxas -v`` report must show one bf16
    instance a head dim, with the tiles ``ops.BF16_TILES`` names, no
    spills and no serialised ``wgmma``), the SSD
-   intra-chunk kernel in bf16 and f32 to the JAX package's tolerances
+   intra-chunk kernel (the ``-Xptxas -v`` report must show the bf16
+   bodies ``ops.BF16_BODIES`` names, no spills and no serialised
+   ``wgmma``) in bf16 and f32 to the JAX package's tolerances
    (5e-2, 1e-5) and a per-row limit (y 2e-2, 1e-5; states 1e-4, 1e-5)
    at mamba2-1.3b's shape (B 2, S 32,768, 64 heads, N 128, hd 64, Q 256)
    and through the whole scan at S 32,768 and a ragged S 1,000, with dt
    from Mamba-2's init so the chunk decays carry signal (two planted
    faults must fail the limits) — and times kernel, plain version and
    (for attention, in alternating rounds with the kernel) SDPA with CUDA
-   events;
+   events (``bulk_hash``, a launch of a few microseconds, as a CUDA
+   graph of back-to-back launches, beside the time of one wrapper
+   call);
 3. anchors the simulator on the paper testbed (256 flows x 1,024
    seeds): aggregate FIM mean and mean max-min rate under both hash
    backends must match the JAX package's numpy-engine values to 1e-9;
@@ -99,6 +103,7 @@ PINNED_SUM = 8712584361707
 
 GRID_FLOWS, GRID_SEEDS, N_FIELDS = 102_400, 2_560, 5
 FIM_SEEDS, TP_SEEDS = 10_240, 1_024
+GRAPH_LAUNCHES = 200           # bulk_hash launches a timed CUDA graph holds
 FLOWS_PER_PAIR = 800           # 128 directed host pairs -> 102,400 flows
 
 # flash attention: the JAX package's tolerances for its Pallas kernel
@@ -174,6 +179,20 @@ def cuda_ms(fn, reps: int) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, launches: int, reps: int = 10) -> float:
+    """Device ms per call of ``fn``, from the median over ``reps`` of a
+    CUDA graph of ``launches`` back-to-back calls, event-timed: the
+    kernel's own time, without the host's cost of each call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches
 
 
 def paired_ms(fn_a, fn_b, rounds: int = 4, reps: int = 3) -> tuple:
@@ -287,7 +306,8 @@ def phase_kernels(np, torch):
         "replaces": "src/repro/kernels/flowhash/kernel.py:70",
         "shape": [GRID_FLOWS, N_FIELDS],
         "max_abs_err": int((got - want).abs().max()),
-        "ms": cuda_ms(lambda: ops.bulk_hash(fields, 12345), 50),
+        "ms": graph_ms(lambda: ops.bulk_hash(fields, 12345), GRAPH_LAUNCHES),
+        "wrapper_ms": cuda_ms(lambda: ops.bulk_hash(fields, 12345), 50),
         "plain_ms": cuda_ms(
             lambda: ref.murmur_hash_grid_ref(fields, init), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -635,7 +655,32 @@ def phase_ssd(np, torch):
     """The SSD intra-chunk kernel against its plain version on the card
     in bf16 and f32, alone and inside the whole scan; returns its record
     at the serving path's shape (launch count filled in later)."""
-    from repro_torch.kernels.ssd import ops, ref
+    from repro_torch.kernels.ssd import build, ops, ref
+
+    # the bf16 bodies as the compiler built them, (Q, N, hd, heads a
+    # block) on wgmma and (Q, N, hd) on mma.sync: the ones ops.BF16_BODIES
+    # names, and no spills or serialised wgmma in any instance
+    log = build.build().with_suffix(".log").read_text()
+    report = {k: ptxas_report(log, k)[0] for k in (
+        "ssd_chunk_wgmma", "ssd_chunk_bf16", "ssd_chunk_f32")}
+    warnings = ptxas_report(log, "ssd_chunk")[1]
+    emit({"phase": "ptxas", "kernel": "ssd", "instances": report,
+          "warnings": warnings})
+    want_bodies = {
+        "ssd_chunk_wgmma": sorted(f"{q} {n} {hd} {g}" for (q, n, hd), (body, g)
+                                  in ops.BF16_BODIES.items() if body == "wgmma"),
+        "ssd_chunk_bf16": sorted(" ".join(map(str, k)) for k, (body, _)
+                                 in ops.BF16_BODIES.items() if body == "mma.sync")}
+    for kernel, want in want_bodies.items():
+        check(sorted(report[kernel]) == want,
+              f"{kernel} instances {sorted(report[kernel])} are not "
+              f"ops.BF16_BODIES {ops.BF16_BODIES}")
+    for kernel, insts in report.items():
+        for inst, r in insts.items():
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                  f"{kernel}<{inst}> spills: {r}")
+    check(not [w for w in warnings if "wgmma" in w or "ssd_chunk" in w],
+          f"ptxas warns on the SSD kernel: {warnings}")
     failures = []
 
     def errs_of(got, want, dtype, row_tol, what):

@@ -25,7 +25,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     fn = lib.flowhash_grid
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -8,9 +8,11 @@
 //
 // out[n, s] = fmix(fold(... fold(seed32[n, s], f[n, 0]) ..., f[n, F-1]))
 // with seed32 the low 32 bits of seeds[n * seed_stride_n + s * seed_stride_s]
-// and every field truncated to its low 32 bits.  Strides of 0 broadcast
-// the seed: (0, 0) is bulk_hash's scalar seed, (1, 0) with one column is
-// bulk_hash_seeded's per-row seed, (S, 1) is the walk's device-seed grid.
+// and every field truncated to its low 32 bits.  (1, 0) with one column is
+// bulk_hash_seeded's per-row seed, (S, 1) the walk's device-seed grid.  A
+// null ``seeds`` takes ``seed_value`` for every cell: bulk_hash's scalar
+// seed, passed by value so that its call copies nothing to the card and
+// never waits on it.
 //
 // Bound: memory.  Per cell the body does F folds of ~9 32-bit integer
 // operations plus a ~9-operation fmix (about 54 for F = 5), against 16
@@ -57,6 +59,7 @@ __global__ void flowhash_grid_kernel(const int64_t* __restrict__ fields,
                                      const int64_t* __restrict__ seeds,
                                      int64_t seed_stride_n,
                                      int64_t seed_stride_s,
+                                     uint32_t seed_value,
                                      int64_t* __restrict__ out,
                                      int64_t n_rows, int64_t n_seeds) {
   const int64_t i =
@@ -64,8 +67,10 @@ __global__ void flowhash_grid_kernel(const int64_t* __restrict__ fields,
   if (i >= n_rows * n_seeds) return;
   const int64_t n = i / n_seeds;
   const int64_t s = i - n * n_seeds;
-  uint32_t h = static_cast<uint32_t>(
-      seeds[n * seed_stride_n + s * seed_stride_s]);
+  uint32_t h = seeds == nullptr
+                   ? seed_value
+                   : static_cast<uint32_t>(
+                         seeds[n * seed_stride_n + s * seed_stride_s]);
   const int64_t* row = fields + n * n_fields;
   for (int f = 0; f < n_fields; ++f) {
     h = murmur_fold(h, static_cast<uint32_t>(row[f]));
@@ -77,7 +82,8 @@ __global__ void flowhash_grid_kernel(const int64_t* __restrict__ fields,
 
 extern "C" int flowhash_grid(const void* fields, int n_fields,
                              const void* seeds, long long seed_stride_n,
-                             long long seed_stride_s, void* out,
+                             long long seed_stride_s,
+                             unsigned int seed_value, void* out,
                              long long n_rows, long long n_seeds,
                              void* stream) {
   const long long cells = n_rows * n_seeds;
@@ -89,6 +95,6 @@ extern "C" int flowhash_grid(const void* fields, int n_fields,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(fields), n_fields,
       static_cast<const int64_t*>(seeds), seed_stride_n, seed_stride_s,
-      static_cast<int64_t*>(out), n_rows, n_seeds);
+      seed_value, static_cast<int64_t*>(out), n_rows, n_seeds);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,18 +38,20 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _launch(fields: torch.Tensor, seeds: torch.Tensor, stride_n: int,
-            stride_s: int, n_seeds: int) -> torch.Tensor:
+def _launch(fields: torch.Tensor, seeds: torch.Tensor | None, stride_n: int,
+            stride_s: int, n_seeds: int, seed_value: int = 0) -> torch.Tensor:
     """Launch ``flowhash_grid`` on the current stream of ``fields``'
     device; ``seeds`` is addressed as ``seeds[n*stride_n + s*stride_s]``
-    from its first element."""
+    from its first element, and ``seeds=None`` hashes every cell from
+    ``seed_value`` (a 32-bit int passed by value)."""
     N, F = fields.shape
     out = torch.empty((N, n_seeds), dtype=torch.int64, device=fields.device)
     with torch.cuda.device(fields.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = build.load().flowhash_grid(
-            fields.data_ptr(), F, seeds.data_ptr(), stride_n, stride_s,
-            out.data_ptr(), N, n_seeds, stream)
+            fields.data_ptr(), F, None if seeds is None else seeds.data_ptr(),
+            stride_n, stride_s, seed_value, out.data_ptr(), N, n_seeds,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flowhash_grid launch failed with CUDA error {rc}")
     return out
@@ -100,15 +102,16 @@ def _fields64(fields) -> torch.Tensor:
 
 def bulk_hash(fields, seed: int) -> torch.Tensor:
     """fields: (N, F) integers -> (N,) int64 hashes in [0, 2**32).
-    ``seed``: any int (wrapped to 32 bits) — the hash init of every row."""
+    ``seed``: any int (wrapped to 32 bits) — the hash init of every row.
+    On the card the seed goes to the kernel by value: no device tensor,
+    no host-to-device copy, no synchronisation."""
     f = _fields64(fields)
     _check_fields(f)
     seed = int(seed) & _MASK32
     if f.device.type == "cpu":
         init = torch.full((f.shape[0], 1), seed, dtype=torch.int64)
         return murmur_hash_grid_ref(f, init)[:, 0]
-    s = torch.tensor([seed], dtype=torch.int64, device=f.device)
-    out = _launch(f, s, 0, 0, 1)
+    out = _launch(f, None, 0, 0, 1, seed)
     LAUNCHES["bulk_hash"] += 1
     return out[:, 0]
 

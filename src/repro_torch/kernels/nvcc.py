@@ -4,8 +4,9 @@ shared library, for ``ctypes``.
 The libraries have plain C interfaces (no PyTorch headers), so each
 builds in seconds.  A library is built at first use from the checkout's
 own source into ``_build/`` beside its family's package, under a name
-keyed by a hash of the source and the flags, so an edited source is never
-served a stale library.  The compiler's register and spill report
+keyed by a hash of the source, the headers it includes with ``#include
+"..."`` (``kernels/csrc/hopper.cuh``) and the flags, so an edited source
+or header is never served a stale library.  The compiler's register and spill report
 (``-Xptxas -v``) is kept beside the library as ``<name>.log``.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,11 +35,34 @@ def nvcc() -> str:
         "first use on the card")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(source: Path) -> list[Path]:
+    """``source`` and every file it includes with ``#include "..."``,
+    transitively, each resolved against the including file's directory
+    (as ``nvcc`` resolves them) and listed once."""
+    seen: list[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [(path.parent / name.decode()).resolve()
+                 for name in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(source: Path) -> Path:
-    """Where the library for ``source`` (``<family>/csrc/<name>.cu``) and
-    the current flags lives: ``<family>/_build/<name>-<hash>.so``."""
-    key = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library for ``source`` (``<family>/csrc/<name>.cu``), the
+    headers it includes and the current flags lives:
+    ``<family>/_build/<name>-<hash>.so``."""
+    digest = hashlib.sha256()
+    for path in sources(source):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    key = digest.hexdigest()[:16]
     return source.parent.parent / "_build" / f"{source.stem}-{key}.so"
 
 

@@ -19,9 +19,13 @@ def build() -> Path:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The built library with its one entry point typed (pointers and
-    the stream as ``c_void_p``, strides as ``c_longlong``)."""
-    lib = ctypes.CDLL(str(build()))
+    """The built library, typed."""
+    return typed(ctypes.CDLL(str(build())))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with its one entry point typed (pointers and the stream as
+    ``c_void_p``, strides as ``c_longlong``)."""
     fn = lib.ssd_intra_chunk
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 22 + [ctypes.c_void_p])

@@ -1,8 +1,10 @@
 """Mamba-2 SSD: the port of ``repro/kernels/ssd/ops.py``.
 
 ``ssd_intra_chunk`` is one CUDA kernel (``csrc/ssd.cu``; bf16 on the
-tensor cores, f32 in FMAs) computing, per (batch, head, chunk of Q
-tokens), the chunk's own output, its local state and its decay.  A CUDA
+tensor cores, by ``wgmma`` with TMA staging at the serving chunk and
+``mma.sync`` at the reduced config's; f32 in FMAs) computing, per (batch,
+head, chunk of Q tokens), the chunk's own output, its local state and its
+decay.  A CUDA
 tensor launches the kernel or raises; a CPU tensor takes the plain
 version in ``ref.py``.  ``LAUNCHES`` counts kernel launches (CPU calls
 never count), so a run can show that it went through the kernel.
@@ -23,9 +25,14 @@ from .ref import ssd_intra_chunk_ref
 
 #: kernel launches, counted only where the kernel launches
 LAUNCHES = {"ssd_intra_chunk": 0}
-#: (Q, N, hd) the kernel is built for: mamba2-1.3b's and the reduced
-#: config's (template instances)
-KERNEL_SIZES = ((256, 128, 64), (32, 16, 16))
+#: the bf16 body of each (Q, N, hd) the kernel is built for, and its heads
+#: per block: mamba2-1.3b's chunk on ``wgmma`` (one block per batch, chunk
+#: and group of 8 heads) and the reduced config's on ``mma.sync`` (one
+#: block per batch, chunk and head), as ``Bf16Body`` in ``csrc/ssd.cu``
+#: builds them (the tests and ``chip_smoke.py`` check that the two agree)
+BF16_BODIES = {(256, 128, 64): ("wgmma", 8), (32, 16, 16): ("mma.sync", 1)}
+#: (Q, N, hd) the kernel is built for, in bf16 and f32
+KERNEL_SIZES = tuple(BF16_BODIES)
 _DTYPES = (torch.bfloat16, torch.float32)
 
 

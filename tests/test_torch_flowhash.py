@@ -46,6 +46,19 @@ def test_bulk_hash_seeded_equals_pallas_kernel(n_fields):
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
+@pytest.mark.parametrize("seed", [2**31, 2**32 - 1, 2**32 + 5, 2**40 + 7,
+                                  -1, -2**31 - 3])
+def test_bulk_hash_seed_wraps_like_the_jax_package(seed):
+    """Seeds at and past 2**31, and negative ones, hash from their low 32
+    bits, as the JAX package's ``bulk_hash`` wraps them."""
+    rng = np.random.default_rng(17)
+    fields = _fields(rng, 300, 5)
+    want = np.asarray(jops.bulk_hash(jnp.asarray(fields), seed,
+                                     force_kernel=True, interpret=True))
+    got = ops.bulk_hash(torch.from_numpy(fields.astype(np.int64)), seed)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
 def test_bulk_hash_is_the_broadcast_seeded_hash():
     rng = np.random.default_rng(3)
     f = torch.from_numpy(_fields(rng, 300, 5).astype(np.int64))

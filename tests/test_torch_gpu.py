@@ -80,6 +80,42 @@ def test_kernel_matches_plain_version(card):
     assert ops.LAUNCHES == {"murmur_hash_grid": 1, "bulk_hash": 1}
 
 
+WRAP_SEEDS = [2**31, 2**32 - 1, 2**32 + 5, 2**40 + 7, -1, -2**31 - 3]
+
+
+@pytest.mark.parametrize("seed", WRAP_SEEDS)
+def test_bulk_hash_seed_wraps_like_the_cpu_path(card, seed):
+    """Seeds at and past 2**31, and negative ones, hash from their low 32
+    bits on the card as on the CPU path (which the CPU tests hold against
+    the JAX package's ``bulk_hash``)."""
+    rng = np.random.default_rng(4)
+    f = torch.from_numpy(rng.integers(0, 2**32, (777, 5)))
+    ops.reset_launches()
+    got = ops.bulk_hash(f.to(card), seed)
+    assert ops.LAUNCHES["bulk_hash"] == 1
+    assert torch.equal(got.cpu(), ops.bulk_hash(f, seed))
+
+
+def test_bulk_hash_never_synchronises(card):
+    """``bulk_hash`` and ``simulate_paper_paths`` (four launches) copy
+    nothing to the card and never wait on it: under the sync debug mode
+    "error" a synchronising call would raise."""
+    rng = np.random.default_rng(42)
+    f = torch.from_numpy(rng.integers(0, 2**31, (4096, 5))).to(card)
+    ops.bulk_hash(f, 1)                     # build and load outside the mode
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = ops.bulk_hash(f, 12345)
+        stages = ops.simulate_paper_paths(f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.LAUNCHES == {"murmur_hash_grid": 0, "bulk_hash": 5}
+    assert h[:4].tolist() == [1282828036, 453300701, 462728589, 1920719609]
+    assert int(stages["uplink"].sum()) == 30992
+
+
 def test_kernel_wrapper_raises_instead_of_falling_back(card):
     f = torch.zeros((4, 5), dtype=torch.int64, device=card)
     with pytest.raises(ValueError):
@@ -184,7 +220,8 @@ def test_flash_bf16_build_short_of_registers_refuses_to_launch(
     src = tmp_path / "flash_attention_112_registers.cu"
     src.write_text(text.replace(bounds, "__launch_bounds__(576, 1)"))
     lib = src.with_suffix(".so")
-    subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib), str(src)],
+    subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-I",
+                    str(fa_build.SOURCE.parent), "-o", str(lib), str(src)],
                    check=True, capture_output=True)
     monkeypatch.setattr(fa_build, "load",
                         lambda: fa_build.typed(ctypes.CDLL(str(lib))))
@@ -320,6 +357,42 @@ def test_ssd_kernel_matches_plain_version(card, dtype, B, S, H, hd, N, Q):
             assert float(ssd_ref.row_errors(g, w).max()) <= row_tol
 
 
+@pytest.mark.parametrize("edge", ["heads_not_a_multiple_of_G", "one_chunk",
+                                  "one_head", "padded_rows"])
+def test_ssd_wgmma_tiling_edges(card, edge):
+    """The bf16 wgmma body at the edges of its tiling (Q 256, N 128, hd
+    64; blocks of ``BF16_BODIES`` heads): a last head group short of G, a
+    single chunk, a group of one head (one x stage of the two ever used),
+    and x, Bm, Cm as slices of wider rows (the tensor maps carry their
+    strides).  y, S_loc and dec against the plain version."""
+    G = ssd_ops.BF16_BODIES[(256, 128, 64)][1]
+    B, S, H = {"heads_not_a_multiple_of_G": (1, 512, G + G // 2),
+               "one_chunk": (2, 256, G), "one_head": (1, 512, 1),
+               "padded_rows": (2, 512, G)}[edge]
+    x, dt, A, Bm, Cm = _ssd_inputs(card, B, S, H, 64, 128, torch.bfloat16,
+                                   S + H)
+    if edge == "padded_rows":
+        wide = torch.zeros((B, S, H, 72), dtype=x.dtype, device=card)
+        wide[..., :64] = x
+        x = wide[..., :64]
+        bc = torch.zeros((B, S, 2, 136), dtype=x.dtype, device=card)
+        bc[:, :, 0, :128], bc[:, :, 1, :128] = Bm, Cm
+        Bm, Cm = bc[:, :, 0, :128], bc[:, :, 1, :128]
+    args = _chunks(x, dt, A, Bm, Cm, 256)
+    ssd_ops.reset_launches()
+    got = ssd_ops.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == {"ssd_intra_chunk": 1}
+    want = ssd_ref.ssd_intra_chunk_ref(*args)
+    tol = SSD_TOL[torch.bfloat16]
+    for g, w, row_tol in zip(got, want, (ssd_ref.ROW_RTOL[torch.bfloat16],
+                                         ssd_ref.STATE_ROW_RTOL[torch.bfloat16],
+                                         0)):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        if row_tol:
+            assert float(ssd_ref.row_errors(g, w).max()) <= row_tol
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,hd,N,Q", [(2, 100, 16, 16, 16, 32),
                                           (1, 1000, 64, 64, 128, 256)])
@@ -342,6 +415,37 @@ def test_ssd_scan_with_kernel_equals_plain_version(card, monkeypatch, dtype,
     assert float(ssd_ref.row_errors(y, yp).max()) <= ssd_ref.ROW_RTOL[dtype]
     assert float(ssd_ref.row_errors(s, sp).max()) <= \
         ssd_ref.STATE_ROW_RTOL[dtype]
+
+
+def test_ssd_bf16_build_short_of_registers_refuses_to_launch(
+        card, tmp_path, monkeypatch):
+    """A build whose wgmma kernel has fewer registers a thread than the
+    block's whole share (here the source with launch bounds of 512
+    threads, which cap it at 128 where 168 is the share) would leave the
+    consumers' ``setmaxnreg.inc`` waiting forever; it refuses to launch,
+    and the wrapper raises and counts nothing."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.ssd import build as ssd_build
+    bounds = "__launch_bounds__(WG_THREADS, 1)"
+    text = ssd_build.SOURCE.read_text()
+    assert text.count(bounds) == 1
+    src = tmp_path / "ssd_128_registers.cu"
+    src.write_text(text.replace(bounds, "__launch_bounds__(512, 1)"))
+    lib = src.with_suffix(".so")
+    subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-I",
+                    str(ssd_build.SOURCE.parent), "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    monkeypatch.setattr(ssd_build, "load",
+                        lambda: ssd_build.typed(ctypes.CDLL(str(lib))))
+    x, dt, A, Bm, Cm = _ssd_inputs(card, 1, 256, 8, 64, 128, torch.bfloat16, 0)
+    ssd_ops.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_ops.ssd_intra_chunk(*_chunks(x, dt, A, Bm, Cm, 256))
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == {"ssd_intra_chunk": 0}
 
 
 def test_ssd_wrapper_raises_instead_of_falling_back(card):

@@ -13,6 +13,8 @@ Mamba-2's own log-uniform [1e-3, 1e-1] (arXiv:2405.21060), where states
 carry across chunks.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,6 +202,25 @@ def test_decay_fault_reaches_the_scan_output_only_where_decays_carry():
 
 
 # -- the wrapper --------------------------------------------------------------
+
+
+def test_bf16_bodies_are_the_kernels():
+    """``ops.BF16_BODIES`` names the bf16 body the CUDA source builds for
+    each (Q, N, hd) (``Bf16Body<Q, N, hd>``: ``Wgmma<heads a block>`` or
+    ``MmaSync``), and the wrapper takes exactly those sizes."""
+    from repro_torch.kernels.ssd import build
+    built = {}
+    for q, n, hd, body in re.findall(
+            r"struct Bf16Body<(\d+), (\d+), (\d+)> : (Wgmma<\d+>|MmaSync) \{\};",
+            build.SOURCE.read_text()):
+        g = re.fullmatch(r"Wgmma<(\d+)>", body)
+        built[(int(q), int(n), int(hd))] = (
+            ("wgmma", int(g.group(1))) if g else ("mma.sync", 1))
+    assert built == ops.BF16_BODIES
+    assert ops.KERNEL_SIZES == tuple(ops.BF16_BODIES)
+    # the serving chunk of mamba2-1.3b takes the wgmma body
+    assert ops.BF16_BODIES[(256, 128, 64)][0] == "wgmma"
+
 
 
 def test_cpu_calls_count_no_launch():
