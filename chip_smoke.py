@@ -4,19 +4,21 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (any
-card with ``nvcc`` for ``sm_90a``).  It builds the three kernel
+card with ``nvcc`` for ``sm_90a``).  It builds the four kernel
 libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu``,
+``src/repro_torch/kernels/placement/csrc/placement.cu``,
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`` and
-``src/repro_torch/kernels/ssd/csrc/ssd.cu``, three ``nvcc`` processes at
+``src/repro_torch/kernels/ssd/csrc/ssd.cu``, four ``nvcc`` processes at
 once) and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds every kernel wrapper against its plain PyTorch version on the
-   card at the main paths' shapes — the flow hash bit for bit (and the
-   JAX package's pinned values), flash attention in bf16 and f32 to the
-   JAX package's Pallas tolerances (2e-2, 2e-6) and to a per-row
-   relative limit (2e-2, 1e-4) at 32 query heads over 8 kv heads, hd 64,
-   S 4,096 causal and not, a ragged S 1,000, and S 32,768 (every row,
+   card at the main paths' shapes — the flow hash bit for bit at 5 and
+   at 7 fields (and the JAX package's pinned values), flash attention
+   in bf16 and f32 to the JAX package's Pallas tolerances (2e-2, 2e-6)
+   and to a per-row relative limit (2e-2, 1e-4) at 32 query heads over
+   8 kv heads, hd 64, S 4,096 causal and not, a ragged S 1,000, and S
+   32,768 (every row,
    and the last 256 rows against a plain computation of those rows
    alone; a planted skipped key tile of the bf16 kernel's width must
    fail the row limit; the ``-Xptxas -v`` report must show one bf16
@@ -43,22 +45,40 @@ once) and then:
    ``monte_carlo_throughput`` over 1,024 seeds and the paper's
    four-stage ``simulate_paper_paths`` — and checks its first two seeds
    against the CPU path;
-5. drives granite-3-2b serving at full width and depth (40 layers,
+5. drives the routing strategies: the sequential placement kernel
+   (a warp per seed) must equal its plain version bit for bit (link
+   ids and float64 loads) on 102,400 flows x 64 seeds with a residue
+   mask; on the paper testbed (256 flows x 1,024 seeds, ``murmur``,
+   ``roce-nack``) the FIM mean, goodput mean and exposure p95 of every
+   family (and of the two elephant variants under byte demand) must
+   match the JAX package's numpy-engine values to 1e-9; at full scale
+   ``prime-spray`` (819,200 flowlet columns, the hash at 7 fields),
+   ``adaptive-spray`` (on a 3:1 skewed pair mix, where its re-spray
+   rounds run), ``congestion-aware`` and ``wave-congestion-aware``
+   route 64 seeds, each with FIM and throughput, and each but the
+   congestion-aware chain then routes seeds 0 and 1 on the card and on
+   the CPU: the same link ids and rounds, FIM to 1e-12, rates and
+   goodput to 1e-9;
+6. drives granite-3-2b serving at full width and depth (40 layers,
    bf16, weights from a seeded generator on the card): ``prefill_logits``
    on 2 x 32,768 tokens (40 flash-attention launches), ``generate`` for
    4 x 2,304-token prompts and 16 greedy tokens with the decode logits
    checked against the prefill's, and a 2-layer f32 prefill on the card
    against the CPU;
-6. drives mamba2-1.3b serving at full width and depth (48 layers, bf16,
+7. drives mamba2-1.3b serving at full width and depth (48 layers, bf16,
    Mamba-2's dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (48
    SSD launches), ``generate`` for 4 x 520-token prompts and 16 greedy
    tokens with the decode logits checked against the prefill's, and a
    2-layer f32 prefill on the card against the CPU;
-7. prints the ``kernels`` record and, last, the one-line result.
+8. prints the ``kernels`` record and, last, the one-line result.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel that its path never launched fails the
-run.
+run, and so does a strategy whose walk made fewer murmur launches than
+its paths have hops, or a chain that did not launch the placement
+kernel.  The flow hash's launches are counted by the width they hashed:
+the ``kernels`` line gives the 5-field launches on the murmur row and
+the 7-field ones under its ``f7``.
 
 Every check raises, so any failure exits non-zero before the result
 line.  Without a CUDA card, or without the repository around it, the
@@ -81,6 +101,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit ALU peak outside the tensor cores
+F64_FLOPS_PER_S = 34e12        # float64 peak outside the tensor cores (data sheet)
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 FMA peak outside the tensor cores
 # exponentials of the special-function units: 16 per SM per clock, 132
@@ -96,12 +117,57 @@ ANCHORS = {
     "murmur": (32.590484619140625, 18.449603870457246),
 }
 ANCHOR_RTOL = 1e-9
+# The JAX package's numpy-engine values on the paper testbed, for
+# (strategy, demand_mode): aggregate FIM mean, goodput mean and exposure
+# p95 under roce-nack, 256 bipartite flows (16 a host pair) of
+# alternating 2**20 and 2**30 bytes (``anchor_flows``), seeds 0..1023,
+# murmur.  Made with
+#   PYTHONPATH=src python -c 'import dataclasses as d, numpy as np, repro.core as R
+#   c = R.compile_fabric(R.build_paper_testbed()); s = np.arange(1024)
+#   w = R.bipartite_pairs([R.server_name(i) for i in range(8)],
+#       [R.server_name(8 + i) for i in range(8)], flows_per_pair=16)
+#   f = [d.replace(x, bytes=2**20 if j % 2 == 0 else 2**30) for j, x in
+#        enumerate(R.synthesize_flows(w, nic_ip=R.nic_ip, nics_per_server=2))]
+#   for n, m in [("prime-spray", "uniform"), ("adaptive-spray", "uniform"),
+#       ("congestion-aware", "uniform"), ("wave-congestion-aware", "uniform"),
+#       ("prime-spray-elephant", "bytes"), ("adaptive-spray-elephant", "bytes")]:
+#     k = dict(strategy=n, demand_mode=m, hash_backend="murmur")
+#     t = R.monte_carlo_throughput(c, f, s, transport="roce-nack", **k)
+#     print(n, m, R.monte_carlo_fim(c, f, s, **k).aggregate.mean(),
+#           t.goodput.mean(), np.percentile(t.exposure, 95))'
+STRATEGY_ANCHORS = {
+    ("prime-spray", "uniform"):
+        (11.779379844665527, 15.837154231893102, 0.7070889522395549),
+    ("adaptive-spray", "uniform"):
+        (10.354781150817871, 16.95561558939206, 0.665906102593618),
+    ("congestion-aware", "uniform"):
+        (3.1169891357421875, 23.772078998505123, 0.0),
+    ("wave-congestion-aware", "uniform"):
+        (3.1169891357421875, 23.772078998505123, 0.0),
+    ("prime-spray-elephant", "bytes"):
+        (58.23903600181028, 16.424418813608987, 0.5834432982546484),
+    ("adaptive-spray-elephant", "bytes"):
+        (58.06043931914546, 17.932433883364403, 0.36057408148643516),
+}
 # tests/test_kernels.py pins these for the Pallas bulk_hash kernel:
 # rng(42) fields (4096, 5) below 2**31, seed 12345
 PINNED_HEAD = [1282828036, 453300701, 462728589, 1920719609]
 PINNED_SUM = 8712584361707
 
 GRID_FLOWS, GRID_SEEDS, N_FIELDS = 102_400, 2_560, 5
+# the sprayed walk's grid: 8 flowlets a flow, the 5-tuple and two
+# entropy digits (parts (2, 4)), over the full-scale strategy sweeps' seeds
+SPRAY_COLUMNS, SPRAY_FIELDS, SPRAY_SEEDS = 8 * GRID_FLOWS, 7, 64
+CHECK_SEEDS = [0, 1]           # strategies on the card against the CPU
+# adaptive re-spray's full-scale traffic: the same 102,400 unit-demand
+# flows from pod 0 to pod 1, 1,200 a pair on even host pairs and 400 on
+# odd ones.  Under the even mix (800 a pair) 819,200 flowlets leave no
+# link 1.25 x above the mean and no round runs; the 3:1 skew marks cells
+# in every round
+SKEW_FLOWS_PER_PAIR = (1_200, 400)
+# the placement chain's check against its plain version: flows whose
+# every seed is placed, and flows with a share of their seeds placed
+CHAIN_WHOLE_FLOWS, CHAIN_PART_FLOWS, CHAIN_PART_SHARE = 2_048, 2_048, 0.3
 FIM_SEEDS, TP_SEEDS = 10_240, 1_024
 GRAPH_LAUNCHES = 200           # bulk_hash launches a timed CUDA graph holds
 FLOWS_PER_PAIR = 800           # 128 directed host pairs -> 102,400 flows
@@ -230,8 +296,9 @@ def phase_build():
     once."""
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.flowhash import build as fh_build
+    from repro_torch.kernels.placement import build as pl_build
     from repro_torch.kernels.ssd import build as ssd_build
-    builds = (fh_build, fa_build, ssd_build)
+    builds = (fh_build, pl_build, fa_build, ssd_build)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda b: b.build(), builds))
@@ -291,6 +358,30 @@ def phase_kernels(np, torch):
             lambda: ref.murmur_hash_grid_ref(fields, dev_seed), 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     del dev_seed
+
+    # the same kernel at the sprayed walk's width: 7 fields over 819,200
+    # flowlet columns
+    fields7 = torch.from_numpy(rng.integers(
+        0, 2**32, (SPRAY_COLUMNS, SPRAY_FIELDS), dtype=np.uint64
+    ).view(np.int64)).cuda()
+    seed7 = torch.from_numpy(rng.integers(
+        0, 2**64, (SPRAY_COLUMNS, SPRAY_SEEDS), dtype=np.uint64
+    ).view(np.int64)).cuda()
+    got = ops.murmur_hash_grid(fields7, seed7)
+    want = ref.murmur_hash_grid_ref(fields7, seed7)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "murmur_hash_grid != plain version at F 7")
+    cells7 = SPRAY_COLUMNS * SPRAY_SEEDS
+    b_ms, b_by = bound(fields7.numel() * 8 + 2 * cells7 * 8,
+                       cells7 * (SPRAY_FIELDS * FOLD_OPS + FMIX_OPS))
+    records[0]["f7"] = {
+        "shape": [SPRAY_COLUMNS, SPRAY_FIELDS, SPRAY_SEEDS],
+        "max_abs_err": int((got - want).abs().max()),
+        "ms": cuda_ms(lambda: ops.murmur_hash_grid(fields7, seed7), 20),
+        "plain_ms": cuda_ms(
+            lambda: ref.murmur_hash_grid_ref(fields7, seed7), 5),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del fields7, seed7, got, want
 
     # one scalar seed broadcast over the rows (bulk_hash_kernel)
     got = ops.bulk_hash(fields, 12345)
@@ -384,6 +475,8 @@ def phase_full_scale(np, torch):
     fields = torch.from_numpy(fm.view(np.int64)).cuda()
     stages, pp_s, _ = timed(lambda: ops.simulate_paper_paths(fields))
     launches = dict(ops.LAUNCHES)
+    check(set(ops.GRID_LAUNCHES_BY_FIELDS) == {5},
+          f"grid widths {sorted(ops.GRID_LAUNCHES_BY_FIELDS)}")
 
     fim_chunks = -(-FIM_SEEDS // fim.seed_chunk)
     tp_chunks = -(-TP_SEEDS // tp.seed_chunk)
@@ -449,6 +542,275 @@ def phase_full_scale(np, torch):
               "fill_peak_bytes": fill_peak},
           })
     return launches
+
+
+def anchor_flows(T):
+    """The paper testbed's 256 bipartite flows (16 a host pair) with
+    alternating 2**20 and 2**30 bytes: mice and elephants."""
+    wl = T.bipartite_pairs([T.server_name(i) for i in range(8)],
+                           [T.server_name(8 + i) for i in range(8)],
+                           flows_per_pair=16)
+    return [dataclasses.replace(f, bytes=2**20 if j % 2 == 0 else 2**30)
+            for j, f in enumerate(T.synthesize_flows(
+                wl, nic_ip=T.nic_ip, nics_per_server=2))]
+
+
+def skewed_flows(T):
+    """The full-scale flows with a 3:1 skew between alternate host pairs
+    (``SKEW_FLOWS_PER_PAIR``), 102,400 in all."""
+    pod0 = [f"host-{i}" for i in range(64)]
+    pod1 = [f"host-{64 + i}" for i in range(64)]
+    out = []
+    for k, per_pair in enumerate(SKEW_FLOWS_PER_PAIR):
+        part = T.synthesize_flows(
+            T.bipartite_pairs(pod0[k::2], pod1[k::2], per_pair),
+            nic_ip=T.nic_ip, nics_per_server=1)
+        out += [dataclasses.replace(f, flow_id=len(out) + i)
+                for i, f in enumerate(part)]
+    return out
+
+
+def check_placement(np, torch, T, comp, flows, fm):
+    """The sequential placement kernel against its plain version at the
+    full-scale shape: 102,400 flows x 64 seeds on the ECMP loads of the
+    same seeds, placing a residue mask as the wave's round cap does.
+    Returns the kernel's record (launch count filled in later)."""
+    from repro_torch.kernels.placement import ops, ref
+    n, s, L = len(flows), SPRAY_SEEDS, comp.num_links
+    seeds = np.arange(s)
+    ecmp = T.simulate_paths(comp, flows, seeds, field_matrix=fm,
+                            hash_backend="murmur")
+    load = ecmp.link_flow_counts().to(torch.float64).contiguous()
+    rng = np.random.default_rng(16)
+    pick = rng.permutation(n)[:CHAIN_WHOLE_FLOWS + CHAIN_PART_FLOWS]
+    mask = np.zeros((n, s), bool)
+    mask[pick[:CHAIN_WHOLE_FLOWS]] = True
+    part = pick[CHAIN_WHOLE_FLOWS:]
+    mask[part] = rng.random((len(part), s)) < CHAIN_PART_SHARE
+    tabs = comp.to("cuda")
+    ends = [torch.from_numpy(np.asarray(e, np.int64)).cuda()
+            for e in comp.flow_endpoint_ids(flows)]
+    order = torch.arange(n, device="cuda")
+    weight = torch.ones(n, dtype=torch.float64, device="cuda")
+    fields = torch.from_numpy(fm.view(np.int64).copy()).cuda()
+    seeds_t = torch.from_numpy(seeds.astype(np.int64)).cuda()
+    mask_t = torch.from_numpy(mask).cuda()
+    ids0 = torch.full((16, n, s), -1, dtype=torch.int32, device="cuda")
+
+    def run(dev, load_in, ids_in):
+        def on(t):
+            return t if t is None else t.to(dev)
+        return ops.congestion_place(
+            *(on(t) for t in (tabs.cand, tabs.cand_n, tabs.dev_crc,
+                              tabs.is_server, tabs.link_dst, fields,
+                              seeds_t, *ends, weight, order)),
+            load_in, ids_in, on(mask_t), num_keys=tabs.num_keys,
+            c_max=tabs.c_max, max_hops=16, murmur=True)
+
+    got_load, got_ids = load.clone(), ids0.clone()
+    got = run("cuda", got_load, got_ids)
+    want_load, want_ids = load.cpu(), ids0.cpu()
+    t = time.perf_counter()
+    want = run("cpu", want_load, want_ids)
+    plain_s = time.perf_counter() - t
+    check(got[1] is None and want[1] is None, f"placement faults {got[1]}")
+    check(got[0] == want[0], f"placement hops {got[0]} != {want[0]}")
+    check(torch.equal(got_ids.cpu(), want_ids),
+          "congestion_place link ids != plain version")
+    err = float((got_load.cpu() - want_load).abs().max())
+    check(err == 0.0, f"congestion_place loads differ by {err}")
+
+    # the kernel alone, its inputs restored outside the timed span
+    times = []
+    for _ in range(3):
+        l_in, i_in = load.clone(), ids0.clone()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run("cuda", l_in, i_in)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = sorted(times)[1]
+    # work of these inputs: per placed cell, each hop reads its
+    # candidates' loads and compares them twice (the min and the ties)
+    placed = int(mask.sum())
+    hop_cells = int((want_ids >= 0).sum())
+    placed_flows = int(mask.any(1).sum())
+    F = fm.shape[1]
+    bytes_moved = (placed_flows * (F + 6) * 8 + n * s   # fields, ends,
+                   # weight, order of the placed flows; the mask
+                   + 2 * s * L * 8                      # loads in and out
+                   + hop_cells * 4                      # the paths written
+                   + sum(t.numel() * t.element_size() for t in (
+                       tabs.cand, tabs.cand_n, tabs.dev_crc, tabs.is_server,
+                       tabs.link_dst)))
+    b_ms, b_by = bound(bytes_moved, 2 * hop_cells * tabs.c_max,
+                       F64_FLOPS_PER_S)
+    del got_ids, want_ids, ecmp
+    return {
+        "name": "congestion_place", "route": "cuda",
+        "source": "src/repro_torch/kernels/placement/csrc/placement.cu",
+        "replaces": "src/repro/core/strategies.py:467",
+        "shape": [n, s, 16], "placed_cells": placed,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_strategies(np, torch):
+    """The routing strategies: the placement kernel against its plain
+    version, paper-testbed anchors, full-scale sweeps and the card
+    against the CPU; returns the placement kernel's record and the
+    launch counts of the counted run (the full-scale sweeps)."""
+    import repro_torch.core as T
+    from repro_torch.kernels.flowhash import ops
+    from repro_torch.kernels.placement import ops as pl_ops
+
+    t_phase = time.perf_counter()
+    big = T.compile_fabric(T.build_multipod_fabric())
+    even = T.synthesize_flows(
+        T.bipartite_pairs([f"host-{i}" for i in range(64)],
+                          [f"host-{64 + i}" for i in range(64)],
+                          FLOWS_PER_PAIR),
+        nic_ip=T.nic_ip, nics_per_server=1)
+    skew = skewed_flows(T)
+    check(len(even) == len(skew) == GRID_FLOWS, "full-scale flow counts")
+    fm_even = T.flow_fields_matrix(even, "5tuple")
+    fm_skew = T.flow_fields_matrix(skew, "5tuple")
+    record = check_placement(np, torch, T, big, even, fm_even)
+    check_s = time.perf_counter() - t_phase
+
+    # 1. anchors against the JAX package's numpy engine (their launches,
+    # at the paper testbed's shapes, are reported here and not counted
+    # in the kernels line)
+    ops.reset_launches()
+    pl_ops.reset_launches()
+    t_anchor = time.perf_counter()
+    comp = T.compile_fabric(T.build_paper_testbed())
+    flows = anchor_flows(T)
+    seeds = np.arange(1024)
+    anchors = {}
+    for (name, demand), want in STRATEGY_ANCHORS.items():
+        kw = dict(strategy=name, demand_mode=demand, hash_backend="murmur")
+        (fim, tp), wall, _ = timed(lambda: (
+            T.monte_carlo_fim(comp, flows, seeds, **kw),
+            T.monte_carlo_throughput(comp, flows, seeds,
+                                     transport="roce-nack", **kw)))
+        got = (float(fim.aggregate.mean()), float(tp.goodput.mean()),
+               float(np.percentile(tp.exposure.cpu().numpy(), 95)))
+        for what, g, w in zip(("fim_mean", "goodput_mean", "exposure_p95"),
+                              got, want):
+            check(abs(g - w) <= ANCHOR_RTOL * abs(w),
+                  f"{name} ({demand}) {what} {g!r} != {w!r}")
+        anchors[name] = {"demand": demand, "fim_mean": got[0],
+                         "goodput_mean": got[1], "exposure_p95": got[2],
+                         "wall_s": wall}
+    anchors_s = time.perf_counter() - t_anchor
+    anchor_launches = {"grid_by_fields": dict(ops.GRID_LAUNCHES_BY_FIELDS),
+                       "chain": pl_ops.LAUNCHES["congestion_place"]}
+
+    # 2. full scale, the counted run: each strategy routes its seeds
+    # once; FIM and throughput read the same routed result
+    ops.reset_launches()
+    pl_ops.reset_launches()
+    sweeps = (("prime-spray", "even", even, fm_even),
+              ("adaptive-spray", "skewed 3:1", skew, fm_skew),
+              ("congestion-aware", "even", even, fm_even),
+              ("wave-congestion-aware", "even", even, fm_even))
+    full = {}
+    for name, traffic, fl, fm in sweeps:
+        grid0 = dict(ops.GRID_LAUNCHES_BY_FIELDS)
+        chain0 = pl_ops.LAUNCHES["congestion_place"]
+        res, route_s, route_peak = timed(lambda: T.simulate_paths(
+            big, fl, np.arange(SPRAY_SEEDS), strategy=name,
+            field_matrix=fm, hash_backend="murmur"))
+        grid = {f: c - grid0.get(f, 0)
+                for f, c in ops.GRID_LAUNCHES_BY_FIELDS.items()
+                if c > grid0.get(f, 0)}
+        chain = pl_ops.LAUNCHES["congestion_place"] - chain0
+        fim, fim_s, _ = timed(lambda: T.fim_vector(res))
+        tp, tp_s, tp_peak = timed(lambda: T.throughput_from_result(
+            res, transport="roce-nack"))
+        hops, columns = res.link_ids.shape[0], res.num_flowlets
+        walks = sum(grid.values())
+        if name == "congestion-aware":
+            check(walks == 0 and chain == 1,
+                  f"{name}: {walks} grid and {chain} chain launches")
+        else:
+            check(walks >= hops, f"{name}: {walks} grid launches < {hops} hops")
+        check(name != "adaptive-spray" or res.rounds > 0,
+              f"{name}: no re-spray round ran")
+        check(chain == int(res.residue_placed or name == "congestion-aware"),
+              f"{name}: {chain} placement launches")
+        check(tuple(fim.shape) == (SPRAY_SEEDS,)
+              and bool(torch.isfinite(fim).all()), f"{name} FIM")
+        check(tuple(tp.rates.shape) == (GRID_FLOWS, SPRAY_SEEDS)
+              and bool(torch.isfinite(tp.rates).all())
+              and bool((tp.rates > 0).all()), f"{name} rates")
+        check(bool((tp.exposure >= 0).all())
+              and bool((tp.goodput <= tp.rates).all()),
+              f"{name} exposure or goodput out of range")
+        full[name] = {
+            "traffic": traffic, "columns": columns, "hops": hops,
+            "seeds": SPRAY_SEEDS, "route_s": route_s, "fim_s": fim_s,
+            "throughput_s": tp_s, "wall_s": route_s + fim_s + tp_s,
+            "peak_bytes": max(route_peak, tp_peak), "rounds": res.rounds,
+            "residue_placed": res.residue_placed,
+            "grid_launches_by_fields": grid, "chain_launches": chain,
+            "fim_mean": float(fim.mean()),
+            "goodput_mean": float(tp.goodput.mean()),
+            "exposure_p95": float(np.percentile(
+                tp.exposure.cpu().numpy(), 95))}
+        del res, tp
+    launches = {"murmur_hash_grid": ops.GRID_LAUNCHES_BY_FIELDS.get(5, 0),
+                "murmur_hash_grid_f7": ops.GRID_LAUNCHES_BY_FIELDS.get(7, 0),
+                "congestion_place": pl_ops.LAUNCHES["congestion_place"]}
+    check(set(ops.GRID_LAUNCHES_BY_FIELDS) <= {5, 7},
+          f"grid widths {sorted(ops.GRID_LAUNCHES_BY_FIELDS)}")
+
+    # 3. the card against the CPU on one seed list, at full width (the
+    # congestion-aware chain's CPU side takes about a minute at this
+    # width; its kernel is held against the plain version above)
+    t_check = time.perf_counter()
+    vs_cpu = {}
+    for name, traffic, fl, fm in sweeps:
+        if name == "congestion-aware":
+            continue
+        kw = dict(strategy=name, field_matrix=fm, hash_backend="murmur")
+        card, card_s, _ = timed(lambda: T.simulate_paths(
+            big, fl, CHECK_SEEDS, **kw))
+        t = time.perf_counter()
+        cpu = T.simulate_paths(big, fl, CHECK_SEEDS, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t
+        check(torch.equal(card.link_ids.cpu(), cpu.link_ids),
+              f"{name}: link ids on the card != on the CPU")
+        check(card.rounds == cpu.rounds
+              and card.residue_placed == cpu.residue_placed,
+              f"{name}: rounds on the card != on the CPU")
+        check(np.allclose(T.fim_vector(card).cpu().numpy(),
+                          T.fim_vector(cpu).numpy(), rtol=1e-12, atol=0),
+              f"{name}: FIM on the card != on the CPU")
+        tp_card = T.throughput_from_result(card, transport="roce-nack")
+        tp_cpu = T.throughput_from_result(cpu, transport="roce-nack")
+        for what in ("rates", "goodput"):
+            check(np.allclose(getattr(tp_card, what).cpu().numpy(),
+                              getattr(tp_cpu, what).numpy(),
+                              rtol=1e-9, atol=0),
+                  f"{name}: {what} on the card != on the CPU")
+        vs_cpu[name] = {"traffic": traffic, "seeds": CHECK_SEEDS,
+                        "rounds": cpu.rounds, "card_route_s": card_s,
+                        "cpu_route_s": cpu_s, "link_ids": "identical"}
+        del card, cpu
+    emit({"phase": "strategies", "fabric": "multipod default",
+          "flows": GRID_FLOWS, "placement_check": {
+              k: record[k] for k in ("shape", "placed_cells", "max_abs_err",
+                                     "ms", "plain_ms")},
+          "placement_check_s": check_s, "anchors": anchors,
+          "anchor_rtol": ANCHOR_RTOL, "anchors_s": anchors_s,
+          "anchor_launches": anchor_launches, "full_scale": full, "card_vs_cpu": vs_cpu,
+          "card_vs_cpu_s": time.perf_counter() - t_check,
+          "seconds": time.perf_counter() - t_phase})
+    return record, launches
 
 
 def ptxas_report(log: str, kernel: str) -> tuple[dict, list]:
@@ -1157,6 +1519,12 @@ def main() -> int:
                                           phase_ssd(np, torch)]
     phase_anchor(np)
     launches = phase_full_scale(np, torch)
+    chain_record, strat = phase_strategies(np, torch)
+    records.insert(2, chain_record)
+    records[0]["f7"]["launches"] = strat.pop("murmur_hash_grid_f7")
+    check(records[0]["f7"]["launches"] > 0, "no sprayed walk at 7 fields")
+    launches["murmur_hash_grid"] += strat.pop("murmur_hash_grid")
+    launches.update(strat)
     launches.update(phase_serve(np, torch))
     launches.update(phase_serve_mamba2(np, torch))
     for r in records:

@@ -1,5 +1,6 @@
 """The port's simulator core: fabric model, compiled tables, the ECMP
-walk, link loads / FIM and the max-min fill, on PyTorch tensors."""
+walk, the routing strategies, link loads / FIM, the max-min fill and
+the flowlet reordering cost, on PyTorch tensors."""
 
 from .compile_fabric import CompiledFabric, DeviceTables, compile_fabric
 from .ecmp import (
@@ -15,17 +16,27 @@ from .flows import (
     synthesize_flows, workload_from_flows,
 )
 from .reordering import (
-    IDEAL, ROCE_NACK, STRACK, TransportProfile, calibrate_transport,
-    resolve_transport,
+    DEFAULT_RTT_SECONDS, IDEAL, ROCE_NACK, ROCE_NACK_ANCHORS, STRACK,
+    STRACK_ANCHORS, TransportProfile, available_transports,
+    calibrate_transport, flowlet_exposure, reordering_efficiency,
+    resolve_transport, rtt_round_budget,
+)
+from .strategies import (
+    ELEPHANT_MIN_BYTES, AdaptiveSpraying, CongestionAware, EcmpStrategy,
+    PrimeSpraying, RoutingStrategy, WaveCongestionAware,
+    available_strategies, register_strategy, resolve_strategy,
 )
 from .vector_sim import (
-    EXACT, MURMUR, MonteCarloFim, SimSpec, VectorTraceResult, ecmp_walk,
-    fim_from_counts, monte_carlo_fim, normalize_seeds, seed_chunk_size,
+    DEMAND_BYTES, DEMAND_UNIFORM, EXACT, MURMUR, MonteCarloFim, SimSpec,
+    VectorTraceResult, ecmp_walk, fim_from_counts, fim_vector,
+    flow_demand_weights, monte_carlo_fim, normalize_seeds,
+    resolve_flows, resolve_hash_backend, seed_chunk_size, segment_reduce,
     simulate_paths,
 )
 from .vector_throughput import (
-    MonteCarloThroughput, batched_max_min, dedup_link_ids, max_min_rates,
-    monte_carlo_throughput, pair_rate_matrix, throughput_from_result,
+    MonteCarloThroughput, batched_max_min, dedup_link_ids,
+    flow_rates_from_flowlets, max_min_rates, monte_carlo_throughput,
+    pair_rate_matrix, throughput_from_result,
 )
 
 __all__ = [
@@ -36,12 +47,20 @@ __all__ = [
     "build_paper_testbed", "nic_ip", "server_name",
     "FiveTuple", "Flow", "PairSpec", "WorkloadDescription",
     "bipartite_pairs", "synthesize_flows", "workload_from_flows",
-    "IDEAL", "ROCE_NACK", "STRACK", "TransportProfile",
-    "calibrate_transport", "resolve_transport",
-    "EXACT", "MURMUR", "MonteCarloFim", "SimSpec", "VectorTraceResult",
-    "ecmp_walk", "fim_from_counts", "monte_carlo_fim", "normalize_seeds",
-    "seed_chunk_size", "simulate_paths",
+    "DEFAULT_RTT_SECONDS", "IDEAL", "ROCE_NACK", "ROCE_NACK_ANCHORS",
+    "STRACK", "STRACK_ANCHORS", "TransportProfile", "available_transports",
+    "calibrate_transport", "flowlet_exposure", "reordering_efficiency",
+    "resolve_transport", "rtt_round_budget",
+    "ELEPHANT_MIN_BYTES", "AdaptiveSpraying", "CongestionAware",
+    "EcmpStrategy", "PrimeSpraying", "RoutingStrategy",
+    "WaveCongestionAware", "available_strategies", "register_strategy",
+    "resolve_strategy",
+    "DEMAND_BYTES", "DEMAND_UNIFORM", "EXACT", "MURMUR", "MonteCarloFim",
+    "SimSpec", "VectorTraceResult", "ecmp_walk", "fim_from_counts",
+    "fim_vector", "flow_demand_weights", "monte_carlo_fim",
+    "normalize_seeds", "resolve_flows", "resolve_hash_backend",
+    "seed_chunk_size", "segment_reduce", "simulate_paths",
     "MonteCarloThroughput", "batched_max_min", "dedup_link_ids",
-    "max_min_rates", "monte_carlo_throughput", "pair_rate_matrix",
-    "throughput_from_result",
+    "flow_rates_from_flowlets", "max_min_rates", "monte_carlo_throughput",
+    "pair_rate_matrix", "throughput_from_result",
 ]

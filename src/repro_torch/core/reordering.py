@@ -1,18 +1,18 @@
-"""Transport reordering profiles: exposure -> goodput efficiency.
+"""Flowlet reordering cost: exposure -> goodput efficiency.
 
-The port's own copy of the profile half of ``repro.core.reordering``:
-``TransportProfile``, ``calibrate_transport``, the published anchor
-points and the three shipped profiles (``ideal``, ``roce-nack``,
-``strack``).  A profile maps a flow's out-of-order exposure to a goodput
-multiplier::
+The port's own copy of ``repro.core.reordering``: ``TransportProfile``,
+``calibrate_transport``, the published anchor points, the three shipped
+profiles (``ideal``, ``roce-nack``, ``strack``), and the exposure model.
+A multi-path result's flows see out-of-order delivery in proportion to
+their flowlets' path-length skew and rate dispersion
+(``flowlet_exposure``, on the result's device); a profile maps it to a
+goodput multiplier::
 
     efficiency = 1 + (1 - floor) * expm1(-alpha * exposure)
 
-Single-path ECMP — the only routing this slice of the port runs — has
-zero exposure, so every profile leaves its goodput equal to its rates;
-the exposure pass itself (``flowlet_exposure``) comes with the spraying
-strategies.  The profiles live in a plain port-local dict: the port
-registers nothing in the JAX package's registries.
+Single-path flows have zero exposure, so every profile leaves their
+goodput equal to their rates.  The profiles live in a plain port-local
+dict: the port registers nothing in the JAX package's registries.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import dataclasses
 from collections.abc import Sequence
 
 import numpy as np
+import torch
 
 #: one fabric round-trip at datacenter scale (tens of microseconds) —
 #: the unit the event-timed timeline prices adaptation in
@@ -135,3 +136,78 @@ def resolve_transport(
     raise TypeError(
         f"transport must be a TransportProfile, registered name, or None, "
         f"got {type(transport).__name__}")
+
+
+def flowlet_exposure(result, flowlet_rates: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """(N, S) out-of-order exposure per flow per seed, on the result's
+    device: the skew of the flowlets' hop counts ``(hmax - hmin) /
+    max(hmin, 1)`` plus the dispersion of their per-unit-demand max-min
+    rates ``(rmax - rmin) / rmax``.
+
+    ``flowlet_rates`` is the ``(Nf, S)`` per-column rate tensor
+    (``max_min_rates(result)``); passing it saves a second fill.
+    Zero-link flowlets carry infinite rates and traverse no shared
+    queue, so they are left out of the dispersion (a flow whose
+    flowlets are all link-free disperses nothing).
+    ``result.extra_exposure`` is added on top.
+    """
+    from .vector_sim import segment_reduce
+
+    n, s = result.num_flows, result.num_seeds
+    extra = result.extra_exposure
+    fi = result.flow_index
+    dev = result.link_ids.device
+    if not result.is_multipath and bool(
+            (fi == torch.arange(n, device=dev)).all()):
+        base = torch.zeros((n, s), dtype=torch.float64, device=dev)
+        return base if extra is None else base + extra
+    inf = float("inf")
+    hops = result.hop_counts().to(torch.float64)                   # (Nf, S)
+    hmin = segment_reduce(hops, fi, n, "amin", inf)
+    hmax = segment_reduce(hops, fi, n, "amax", -inf)
+    skew = (hmax - hmin) / hmin.clamp(min=1.0)
+    if flowlet_rates is None:
+        from .vector_throughput import max_min_rates
+        flowlet_rates = max_min_rates(result)
+    unit = flowlet_rates / result.column_weights()[:, None]
+    finite = torch.isfinite(unit)
+    rmin = segment_reduce(torch.where(finite, unit, inf), fi, n, "amin", inf)
+    rmax = segment_reduce(torch.where(finite, unit, -inf), fi, n, "amax",
+                          -inf)
+    live = torch.isfinite(rmax) & (rmax > 0)
+    dispersion = torch.where(live, (rmax - torch.where(live, rmin, 0.0))
+                             / torch.where(live, rmax, 1.0), 0.0)
+    exposure = skew + dispersion
+    # parents with no columns (only in hand-built results) reorder
+    # nothing; scrub the fallback's inf/nan seeds
+    exposure = torch.where(torch.isfinite(exposure), exposure, 0.0)
+    return exposure if extra is None else exposure + extra
+
+
+def rtt_round_budget(duration_s: float, rtt_s: float, cap: int) -> int:
+    """Adaptation rounds a transfer of ``duration_s`` seconds affords:
+    ``ceil(duration / rtt)``, floored at 1 (the initial pick always
+    happens) and capped at ``cap`` (the strategy's configured rounds)."""
+    if not rtt_s > 0:
+        raise ValueError(f"rtt_s must be > 0, got {rtt_s}")
+    if cap < 1:
+        raise ValueError(f"cap must be >= 1, got {cap}")
+    if not duration_s >= 0:                # also rejects nan
+        raise ValueError(f"duration_s must be >= 0, got {duration_s}")
+    return int(np.clip(np.ceil(duration_s / rtt_s), 1, cap))
+
+
+def reordering_efficiency(
+    exposure: torch.Tensor,
+    transport: TransportProfile | str | None = None,
+) -> torch.Tensor:
+    """Goodput multiplier in ``(0, 1]`` for an exposure tensor:
+    ``1 + (1 - floor) * expm1(-alpha * exposure)``, exactly 1.0 at zero
+    exposure (``expm1(-0) == -0``), decaying monotonically toward
+    ``floor``."""
+    p = resolve_transport(transport)
+    e = torch.as_tensor(exposure, dtype=torch.float64)
+    if bool((e < 0).any()):
+        raise ValueError("exposure must be non-negative")
+    return 1.0 + (1.0 - p.floor) * torch.expm1(-p.alpha * e)

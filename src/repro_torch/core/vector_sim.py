@@ -1,9 +1,8 @@
 """Vectorized fabric path simulation on the card: all flows x all seeds.
 
-The PyTorch port of the plain-ECMP part of ``repro.core.vector_sim``
-(the numpy engine, which stays the differential reference).  The
-forwarding process runs as whole-tensor operations on a
-``CompiledFabric``'s device tables:
+The PyTorch port of ``repro.core.vector_sim`` (the numpy engine, which
+stays the differential reference).  The forwarding process runs as
+whole-tensor operations on a ``CompiledFabric``'s device tables:
 
 * state is an ``(N flows, S seeds)`` tensor of current-device ids;
 * each hop gathers the candidate set of every (flow, seed), hashes the
@@ -22,9 +21,12 @@ exactly as uint64 does, logical right shifts mask off the sign-extended
 bits, seeds at or above 2**63 cross in as ``np.uint64 -> view(int64)``,
 and the walk's ``hash % n`` is an unsigned modulo over 32-bit halves.
 
-``monte_carlo_fim`` walks the seeds in chunks sized from the card's free
-memory and keeps walk -> counts -> FIM on the device; results stay
-device tensors until the caller asks for them (``summary()``).
+Plain ECMP walks the seeds in chunks sized from the card's free memory
+and keeps walk -> counts -> FIM on the device.  Every other routing
+strategy (``core/strategies.py``) routes the whole seed list in one
+pass: some couple their seeds through loop-wide decisions, so a chunk
+would route differently.  Results stay device tensors until the caller
+asks for them (``summary()``).
 """
 
 from __future__ import annotations
@@ -51,9 +53,6 @@ MURMUR = "murmur"  # kernels/flowhash murmur3 (the CUDA kernel on the card)
 
 DEMAND_UNIFORM = "uniform"  # every flow weighs 1
 DEMAND_BYTES = "bytes"      # flows weigh their wire bytes (mean-normalized)
-
-#: the one routing this slice runs; the rest come with the strategies
-_PLAIN_ECMP = (None, "ecmp")
 
 # Front ends default every per-simulation kwarg to this so "not passed"
 # is distinguishable from "passed its default": mixing an explicit kwarg
@@ -136,8 +135,9 @@ class SimSpec:
     Front ends accept ``spec=SimSpec(...)`` *or* the per-simulation
     kwargs (which build a SimSpec internally); passing both raises.
 
-    * ``strategy`` — ``None`` or ``"ecmp"`` (per-flow ECMP); any other
-      strategy raises ``NotImplementedError`` until the port has it;
+    * ``strategy`` — ``None`` (per-flow ECMP), a registered name
+      (``"wave-congestion-aware"``) or a ``RoutingStrategy`` instance;
+      ``resolve()`` makes a name an instance;
     * ``demand_mode`` — ``"uniform"`` or ``"bytes"``;
     * ``device`` — ``None`` (the card, raising without one) or an
       explicit device such as ``"cpu"``; ``resolve()`` makes it a
@@ -172,16 +172,15 @@ class SimSpec:
                 f"have {_KNOWN_FIELDS}")
         if int(self.max_hops) < 1:
             raise ValueError(f"max_hops must be >= 1, got {self.max_hops}")
-        if self.strategy not in _PLAIN_ECMP:
-            raise NotImplementedError(
-                f"strategy {self.strategy!r} is not ported yet: the port "
-                f"routes plain ECMP only (ROADMAP, module queue: routing "
-                f"strategies)")
+        strategy = self.strategy
+        if strategy is not None:
+            from .strategies import resolve_strategy
+            strategy = resolve_strategy(strategy)
         transport = (None if self.transport is None
                      else resolve_transport(self.transport))
         device = resolve_device(self.device)
         return dataclasses.replace(
-            self, strategy=None, transport=transport, device=device,
+            self, strategy=strategy, transport=transport, device=device,
             hash_backend=resolve_hash_backend(self.hash_backend, device),
             max_hops=int(self.max_hops))
 
@@ -286,36 +285,125 @@ def _as_int64(a, device: torch.device) -> torch.Tensor:
 class VectorTraceResult:
     """Paths for N flows under S seeds, as a dense device link-id tensor.
 
-    Single-path ECMP: one tensor column per flow.  ``flow_demand``
-    carries the per-flow demand weight (``demand_mode="bytes"`` derives
-    it from ``Flow.bytes`` normalized to mean 1), which is each column's
-    weight in the link loads and the max-min fill.
+    Multi-path strategies (spraying) emit more tensor columns than there
+    are flows: each column is a *flowlet* — ``flow_index[j]`` names its
+    parent flow (row into ``flows``) and ``demand[j]`` the fraction of the
+    parent's demand it carries (flowlet demands sum to 1 per flow).
+    Single-path results leave the defaults (``flow_index == arange(N)``,
+    ``demand == 1``).  ``flow_demand`` carries the per-flow demand weight
+    (``demand_mode="bytes"`` derives it from ``Flow.bytes`` normalized to
+    mean 1); a column's weight in the link loads and the max-min fill is
+    ``flow_demand[flow_index[j]] * demand[j]`` (``column_weights``).
+
+    ``extra_exposure`` is an optional (N, S) reordering exposure a
+    strategy charges on top of what the flowlet tensors imply (adaptive
+    re-spray bills its accepted mid-flow path changes there).  Arrays
+    given as numpy become tensors on ``link_ids``' device.  ``rounds`` and
+    ``residue_placed`` report what an iterative strategy did: adaptive
+    re-spray's feedback rounds, the wave's repair rounds and whether its
+    residue at the round cap went to the sequential chain.
     """
 
     compiled: CompiledFabric
     flows: list[Flow]
     seeds: np.ndarray            # (S,) uint64 (as given, masked to 64 bit)
-    link_ids: torch.Tensor       # (H, N, S) int32 link ids, -1 past arrival
-    flow_demand: torch.Tensor    # (N,) float64 per-flow demand weight
+    link_ids: torch.Tensor       # (H, Nf, S) int32 link ids, -1 past arrival
+    flow_index: torch.Tensor | None = None   # (Nf,) int64 parent-flow row
+    demand: torch.Tensor | None = None       # (Nf,) float64 demand fraction
+    strategy: str = "ecmp"
+    flow_demand: torch.Tensor | None = None  # (N,) float64 per-flow weight
+    extra_exposure: torch.Tensor | None = None  # (N, S) float64
+    rounds: int = 0              # feedback / repair rounds the strategy ran
+    residue_placed: bool = False  # the wave's round-cap residue was chained
+
+    def __post_init__(self):
+        dev, nf = self.link_ids.device, self.link_ids.shape[1]
+
+        def on_dev(a, dtype):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+
+        f64 = torch.float64
+        self.flow_index = on_dev(np.arange(nf) if self.flow_index is None
+                                 else self.flow_index, torch.int64)
+        self.demand = on_dev(np.ones(nf) if self.demand is None
+                             else self.demand, f64)
+        self.flow_demand = on_dev(np.ones(len(self.flows))
+                                  if self.flow_demand is None
+                                  else self.flow_demand, f64)
+        if self.extra_exposure is not None:
+            self.extra_exposure = on_dev(self.extra_exposure, f64)
 
     @property
     def num_flows(self) -> int:
         return len(self.flows)
 
     @property
+    def num_flowlets(self) -> int:
+        return self.link_ids.shape[1]
+
+    @property
     def num_seeds(self) -> int:
         return len(self.seeds)
 
+    @property
+    def is_multipath(self) -> bool:
+        return self.num_flowlets != self.num_flows
+
+    def hop_counts(self) -> torch.Tensor:
+        """(Nf, S) links crossed per tensor column per seed — the
+        path-length grid the reordering model's skew term reads."""
+        return (self.link_ids >= 0).sum(0)
+
+    def flowlet_paths_for_seed(self, seed_index: int) -> dict[int, list]:
+        """One seed's paths per flow id, as a *list* of flowlet paths
+        (each a list of ``Link``)."""
+        links = self.compiled.links
+        out: dict[int, list] = {f.flow_id: [] for f in self.flows}
+        ids = self.link_ids[:, :, seed_index].cpu().numpy()
+        fi = self.flow_index.cpu().numpy()
+        for j in range(self.num_flowlets):
+            out[self.flows[int(fi[j])].flow_id].append(
+                [links[i] for i in ids[:, j] if i >= 0])
+        return out
+
     def column_weights(self) -> torch.Tensor:
-        """(N,) effective demand per tensor column — for single-path
-        results, the flow's own demand."""
-        return self.flow_demand
+        """(Nf,) effective demand per tensor column: the parent flow's
+        ``flow_demand`` times the column's flowlet fraction.  Uniform
+        flow demand short-circuits to ``demand`` itself."""
+        if bool((self.flow_demand == 1.0).all()):
+            return self.demand
+        return self.flow_demand[self.flow_index] * self.demand
 
     def link_flow_counts(self) -> torch.Tensor:
         """(S, L) flow load per link per seed (int64 under unit demand,
         float64 demand sums otherwise)."""
         return link_counts(self.link_ids, _weights_or_none(
             self.column_weights()), self.compiled.num_links)
+
+
+def segment_reduce(values: torch.Tensor, fi: torch.Tensor, n: int,
+                   reduce: str, fill: float) -> torch.Tensor:
+    """Per-parent ``reduce`` (``"sum"``, ``"amin"`` or ``"amax"``) over
+    the column axis of an ``(Nf, S)`` tensor, grouping columns by ``fi``
+    (their parent-flow rows) into ``(n, S)``.  Parent-sorted contiguous
+    ``fi`` in which every parent has a column — the flowlet layout every
+    built-in strategy emits — takes ``torch.segment_reduce`` over the
+    run lengths; anything else a scatter, where a parent without columns
+    reads ``fill``.  On the CPU both sum in column order; the
+    reference's ``reduceat`` sums long segments pairwise, so per-parent
+    sums agree with it to rounding, minima and maxima exactly."""
+    S = values.shape[1]
+    if fi.numel() and bool((fi[1:] >= fi[:-1]).all()):
+        lengths = torch.bincount(fi, minlength=n)
+        if lengths.numel() == n and bool((lengths > 0).all()):
+            return torch.segment_reduce(
+                values, {"sum": "sum", "amin": "min", "amax": "max"}[reduce],
+                lengths=lengths, axis=0)
+    out = torch.full((n, S), fill, dtype=values.dtype, device=values.device)
+    if reduce == "sum":
+        return out.index_add_(0, fi, values)
+    return out.scatter_reduce_(0, fi[:, None].expand(-1, S), values, reduce,
+                               include_self=False)
 
 
 def _weights_or_none(w: torch.Tensor) -> torch.Tensor | None:
@@ -501,10 +589,13 @@ def simulate_paths(
 
     How to simulate is a ``SimSpec`` — ``spec=`` or the kwargs, not
     both.  Per-flow ECMP under ``hash_backend="exact"`` is bit-identical
-    to the JAX package's tracer and numpy engine.  ``field_matrix``
-    optionally supplies precomputed ``flow_fields_matrix`` output.  The
-    whole (H, N, S) tensor is materialized at once; the Monte-Carlo
-    front ends walk in seed chunks instead.
+    to the JAX package's tracer and numpy engine; ``strategy`` (a name or
+    a ``RoutingStrategy``) routes through that strategy instead, and the
+    result may carry flowlet columns (``VectorTraceResult``).
+    ``field_matrix`` optionally supplies precomputed
+    ``flow_fields_matrix`` output.  The whole (H, Nf, S) tensor is
+    materialized at once; the Monte-Carlo front ends walk plain ECMP in
+    seed chunks instead.
     """
     s = resolve_spec(spec, dict(
         fields=fields, hash_backend=hash_backend, max_hops=max_hops,
@@ -512,11 +603,30 @@ def simulate_paths(
     comp = fabric if isinstance(fabric, CompiledFabric) else compile_fabric(fabric)
     flows = list(flows)
     seeds_u64 = normalize_seeds(seeds)
+    if not _is_plain_ecmp(s.strategy):
+        if len(flows) == 0:
+            raise ValueError("simulate_paths needs at least one flow")
+        return s.strategy.route(
+            comp, flows, seeds_u64, fields=s.fields,
+            hash_backend=s.hash_backend, max_hops=s.max_hops,
+            field_matrix=field_matrix, demand_mode=s.demand_mode,
+            device=s.device)
     inp = _walk_inputs(comp, flows, s, field_matrix)
     link_ids = inp.walk(comp, _as_int64(seeds_u64, s.device), s)
     return VectorTraceResult(
         compiled=comp, flows=flows, seeds=seeds_u64, link_ids=link_ids,
         flow_demand=inp.flow_demand)
+
+
+def _is_plain_ecmp(strategy) -> bool:
+    """True when ``strategy`` asks for the default per-flow ECMP walk,
+    which the front ends run seed-chunked.  Configured or custom
+    strategies (subclasses of ``EcmpStrategy`` too) route through their
+    own ``route``."""
+    if strategy is None:
+        return True
+    from .strategies import EcmpStrategy
+    return type(strategy) is EcmpStrategy
 
 
 # ---------------------------------------------------------------------------
@@ -586,6 +696,18 @@ def fim_from_counts(
     return agg, per_layer
 
 
+def fim_vector(
+    result: VectorTraceResult,
+    *,
+    layers: Sequence[str] | None = None,
+    only_used_leaves: bool = False,
+) -> torch.Tensor:
+    """(S,) aggregate FIM per seed of a routed result."""
+    agg, _ = fim_from_counts(result.link_flow_counts(), result.compiled,
+                             layers=layers, only_used_leaves=only_used_leaves)
+    return agg
+
+
 def _stats(v: np.ndarray) -> dict[str, float]:
     return {
         "mean": float(v.mean()),
@@ -627,17 +749,18 @@ def monte_carlo_fim(
     max_hops=_UNSET,
     field_matrix: np.ndarray | None = None,
 ) -> MonteCarloFim:
-    """FIM distribution of per-flow ECMP across a hash-seed sweep.
+    """FIM distribution of a routing strategy across a hash-seed sweep.
 
     ``workload`` may be a ``WorkloadDescription`` or an explicit flow
     list; how to simulate is a ``SimSpec`` (``spec=`` or the kwargs).
     ``layers`` / ``only_used_leaves`` describe what to measure.
 
-    The seeds are walked in chunks sized from free device memory
+    Plain ECMP walks the seeds in chunks sized from free device memory
     (``seed_chunk_size``); each chunk's walk reduces to its (chunk, L)
     link counts on the device and only the counts are kept, so the
     sweep's memory is bounded by one chunk.  The chunking never changes
-    results.
+    results.  Every other strategy routes the whole seed list in one
+    pass (``seed_chunk`` is then the seed count).
     """
     s = resolve_spec(spec, dict(
         fields=fields, hash_backend=hash_backend, strategy=strategy,
@@ -645,17 +768,23 @@ def monte_carlo_fim(
     comp = fabric if isinstance(fabric, CompiledFabric) else compile_fabric(fabric)
     flows = resolve_flows(comp, workload)
     seeds_u64 = normalize_seeds(seeds)
-    inp = _walk_inputs(comp, flows, s, field_matrix)
-    weights = _weights_or_none(inp.flow_demand)
-    seeds_t = _as_int64(seeds_u64, s.device)
     S, L = len(seeds_u64), comp.num_links
-    chunk = seed_chunk_size(len(flows), S, WALK_BYTES_PER_CELL, s.device)
-    counts = torch.empty((S, L), device=s.device,
-                         dtype=torch.int64 if weights is None else torch.float64)
-    for s0, s1 in _seed_chunks(S, chunk):
-        ids = inp.walk(comp, seeds_t[s0:s1], s)
-        counts[s0:s1] = link_counts(ids, weights, L)
-        del ids
+    if not _is_plain_ecmp(s.strategy):
+        res = simulate_paths(comp, flows, seeds_u64, spec=s,
+                             field_matrix=field_matrix)
+        counts, chunk = res.link_flow_counts(), S
+    else:
+        inp = _walk_inputs(comp, flows, s, field_matrix)
+        weights = _weights_or_none(inp.flow_demand)
+        seeds_t = _as_int64(seeds_u64, s.device)
+        chunk = seed_chunk_size(len(flows), S, WALK_BYTES_PER_CELL, s.device)
+        counts = torch.empty(
+            (S, L), device=s.device,
+            dtype=torch.int64 if weights is None else torch.float64)
+        for s0, s1 in _seed_chunks(S, chunk):
+            ids = inp.walk(comp, seeds_t[s0:s1], s)
+            counts[s0:s1] = link_counts(ids, weights, L)
+            del ids
     agg, per_layer = fim_from_counts(
         counts, comp, layers=layers, only_used_leaves=only_used_leaves)
     return MonteCarloFim(seeds=seeds_u64, aggregate=agg, per_layer=per_layer,

@@ -1,7 +1,7 @@
 """Batched progressive-filling max-min fairness on the card.
 
-The PyTorch port of the single-path part of
-``repro.core.vector_throughput``.  The fill runs on the dense
+The PyTorch port of ``repro.core.vector_throughput`` (departure-ordered
+drains excepted).  The fill runs on the dense
 ``(H, N, S)`` link-id tensor with the reference's *parallel*
 formulation of progressive filling: a (seed, link) cell is a bottleneck
 as soon as its fair share ``residual / active demand`` equals the
@@ -38,11 +38,14 @@ import torch
 from .compile_fabric import CompiledFabric, compile_fabric
 from .fabric import Fabric
 from .flows import Flow, WorkloadDescription
-from .reordering import resolve_transport
+from .reordering import (
+    flowlet_exposure, reordering_efficiency, resolve_transport,
+)
 from .vector_sim import (
     FILL_BYTES_PER_CELL, SimSpec, VectorTraceResult, _UNSET, _as_int64,
-    _seed_chunks, _stats, _walk_inputs, _weights_or_none, normalize_seeds,
-    resolve_flows, resolve_spec, seed_chunk_size,
+    _is_plain_ecmp, _seed_chunks, _stats, _walk_inputs, _weights_or_none,
+    normalize_seeds, resolve_flows, resolve_spec, seed_chunk_size,
+    segment_reduce, simulate_paths,
 )
 
 
@@ -192,8 +195,9 @@ def _fill_seeds(link_ids: torch.Tensor, cap: torch.Tensor,
 
 
 def max_min_rates(result: VectorTraceResult) -> torch.Tensor:
-    """``(N, S)`` max-min rates of every column under every seed; each
-    column's effective demand (``column_weights``) is its weight."""
+    """``(Nf, S)`` max-min rates of every column (flowlet) under every
+    seed; each column's effective demand (``column_weights``) is its
+    weight.  Aggregate per parent flow with ``flow_rates_from_flowlets``."""
     return batched_max_min(result.link_ids, result.compiled.link_gbps,
                            assume_unique=True,
                            weights=_weights_or_none(result.column_weights()))
@@ -201,14 +205,14 @@ def max_min_rates(result: VectorTraceResult) -> torch.Tensor:
 
 def flow_rates_from_flowlets(result: VectorTraceResult,
                              flowlet_rates: torch.Tensor) -> torch.Tensor:
-    """Per-flow rates from per-column rates.  Single-path results have
-    one column per flow, so the column rates are the flow rates; the
-    per-parent sum over flowlets comes with the spraying strategies."""
-    if tuple(flowlet_rates.shape) != (result.num_flows, result.num_seeds):
-        raise ValueError(
-            f"flowlet_rates must be ({result.num_flows}, "
-            f"{result.num_seeds}), got {tuple(flowlet_rates.shape)}")
-    return flowlet_rates
+    """``(N, S)`` per-flow rates: the ``(Nf, S)`` column rates summed per
+    parent (``result.flow_index``) — the same grouping
+    (``vector_sim.segment_reduce``) the exposure model runs."""
+    fi = result.flow_index
+    if not result.is_multipath and bool(
+            (fi == torch.arange(fi.numel(), device=fi.device)).all()):
+        return flowlet_rates
+    return segment_reduce(flowlet_rates, fi, result.num_flows, "sum", 0.0)
 
 
 @dataclasses.dataclass
@@ -216,9 +220,11 @@ class MonteCarloThroughput:
     """Per-flow and per-pair max-min rate distributions over a seed sweep
     (device tensors).
 
-    ``goodput`` is what the transport can use after the flowlet
-    reordering cost; single-path ECMP has zero exposure, so under every
-    transport ``goodput`` is a copy of ``rates`` (never an alias)."""
+    ``rates`` is the max-min allocation; ``goodput`` is ``rates x
+    efficiency`` under the ``transport`` profile.  Where the exposure
+    pass is skipped (``ideal`` transport, plain ECMP's seed-chunked
+    sweep, whose flows have zero exposure) ``goodput`` is a copy of
+    ``rates`` (never an alias)."""
 
     seeds: np.ndarray                    # (S,)
     flows: list[Flow]
@@ -279,18 +285,29 @@ def throughput_from_result(
 ) -> MonteCarloThroughput:
     """Rate distributions for an already-simulated ``VectorTraceResult``.
 
-    ``transport`` names the reordering profile (``None`` = ``ideal``);
-    single-path ECMP has zero exposure, so ``goodput`` equals ``rates``
-    under every profile.  ``flowlet_rates`` optionally supplies a
-    precomputed ``max_min_rates(result)``."""
+    Multi-path results fill over flowlet columns and sum rates per parent
+    flow, so ``rates`` is always ``(N, S)`` over ``result.flows``.
+    ``transport`` names the reordering profile (``None`` = ``ideal``):
+    flowlet exposure comes from the same fill (``flowlet_exposure``, with
+    any ``extra_exposure`` the strategy charged) and ``goodput = rates x
+    efficiency``.  A profile with ``alpha == 0`` or ``floor == 1`` makes
+    every efficiency 1, so the exposure pass is skipped (``.exposure``
+    reads 0).  ``flowlet_rates`` optionally supplies a precomputed
+    ``max_min_rates(result)``."""
     profile = resolve_transport(transport)
     if flowlet_rates is None:
         flowlet_rates = max_min_rates(result)
     rates = flow_rates_from_flowlets(result, flowlet_rates)
     pairs, per_pair = pair_rate_matrix(result.flows, rates)
-    return MonteCarloThroughput(seeds=result.seeds, flows=result.flows,
-                                rates=rates, pairs=pairs, per_pair=per_pair,
-                                transport=profile.name)
+    tp = MonteCarloThroughput(seeds=result.seeds, flows=result.flows,
+                              rates=rates, pairs=pairs, per_pair=per_pair,
+                              transport=profile.name)
+    if profile.alpha == 0.0 or profile.floor == 1.0:
+        return tp
+    tp.exposure = flowlet_exposure(result, flowlet_rates)
+    tp.efficiency = reordering_efficiency(tp.exposure, profile)
+    tp.goodput = rates * tp.efficiency
+    return tp
 
 
 def monte_carlo_throughput(
@@ -308,14 +325,17 @@ def monte_carlo_throughput(
     device=_UNSET,
     max_hops=_UNSET,
 ) -> MonteCarloThroughput:
-    """Max-min throughput distribution of per-flow ECMP across a seed
-    sweep.
+    """Max-min throughput distribution of a routing strategy across a
+    seed sweep.
 
     Same front-end contract as ``monte_carlo_fim``; ``demand_mode=
     "bytes"`` allocates weighted max-min shares and ``transport`` names
-    the reordering profile.  Each seed chunk (sized from free device
-    memory, ``seed_chunk_size``) is walked and filled on the device
-    before the next starts; only its (N, chunk) rates are kept.
+    the reordering profile.  Plain ECMP walks and fills each seed chunk
+    (sized from free device memory, ``seed_chunk_size``) before the next
+    starts and keeps only its (N, chunk) rates; its flows have zero
+    exposure, so goodput equals rates under every profile.  Every other
+    strategy routes and fills the whole seed list in one pass and prices
+    its flowlets' reordering (``throughput_from_result``).
     """
     s = resolve_spec(spec, dict(
         fields=fields, hash_backend=hash_backend, strategy=strategy,
@@ -324,10 +344,20 @@ def monte_carlo_throughput(
     comp = fabric if isinstance(fabric, CompiledFabric) else compile_fabric(fabric)
     flows = resolve_flows(comp, workload)
     seeds_u64 = normalize_seeds(seeds)
+    tabs = comp.to(s.device)
+    if not _is_plain_ecmp(s.strategy):
+        res = simulate_paths(comp, flows, seeds_u64, spec=s,
+                             field_matrix=field_matrix)
+        flowlet_rates, rounds = _fill_seeds(
+            res.link_ids, tabs.link_gbps,
+            _weights_or_none(res.column_weights()))
+        tp = throughput_from_result(res, transport=s.transport,
+                                    flowlet_rates=flowlet_rates)
+        tp.seed_chunk, tp.fill_rounds = len(seeds_u64), rounds
+        return tp
     inp = _walk_inputs(comp, flows, s, field_matrix)
     weights = _weights_or_none(inp.flow_demand)
     seeds_t = _as_int64(seeds_u64, s.device)
-    tabs = comp.to(s.device)
     N, S = len(flows), len(seeds_u64)
     chunk = seed_chunk_size(N, S, FILL_BYTES_PER_CELL, s.device)
     rates = torch.empty((N, S), dtype=torch.float64, device=s.device)

@@ -1,10 +1,11 @@
 """Carry state into the port from plain data.
 
-The simulator's state is the compiled fabric tables and the flow table;
-the model stack's is its weights.  These helpers build the port's own
-types from numpy arrays and plain tuples, so another implementation's
-compiled fabric (for instance the JAX package's ``CompiledFabric``, field
-by field), flows and LM parameters can be handed to the port exactly.
+The simulator's state is the compiled fabric tables, the flow table and
+a routed result; the model stack's is its weights.  These helpers build
+the port's own types from numpy arrays and plain tuples, so another
+implementation's compiled fabric (for instance the JAX package's
+``CompiledFabric``, field by field), flows, routed paths and LM
+parameters can be handed to the port exactly.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .configs.base import ArchConfig
 from .core.compile_fabric import CompiledFabric
 from .core.fabric import Fabric
 from .core.flows import FiveTuple, Flow
+from .core.vector_sim import VectorTraceResult, normalize_seeds
 from .device import resolve_device
 from .models.lm import check_supported
 
@@ -78,6 +80,40 @@ def flows_from_records(
                                          int(proto)),
                         bytes=int(nbytes)))
     return out
+
+
+def trace_result_from_arrays(
+    comp: CompiledFabric,
+    flows: list[Flow],
+    seeds,
+    link_ids: np.ndarray,
+    *,
+    flow_index: np.ndarray | None = None,
+    demand: np.ndarray | None = None,
+    flow_demand: np.ndarray | None = None,
+    extra_exposure: np.ndarray | None = None,
+    strategy: str = "ecmp",
+    device=None,
+) -> VectorTraceResult:
+    """The port's ``VectorTraceResult`` from a routed result given as
+    numpy arrays: ``link_ids`` (H, Nf, S), and optionally the flowlet
+    columns' ``flow_index`` and ``demand`` (Nf,), the per-flow
+    ``flow_demand`` (N,) and a strategy's ``extra_exposure`` (N, S);
+    left out, each takes the single-path default.  The tensors land on
+    ``device`` (the card unless ``"cpu"``)."""
+    ids = np.asarray(link_ids)
+    if ids.ndim != 3:
+        raise ValueError(f"link_ids must be (H, Nf, S), got {ids.shape}")
+    seeds_u64 = normalize_seeds(seeds)
+    if ids.shape[2] != len(seeds_u64):
+        raise ValueError(f"link_ids has {ids.shape[2]} seeds, "
+                         f"seeds has {len(seeds_u64)}")
+    return VectorTraceResult(
+        compiled=comp, flows=list(flows), seeds=seeds_u64,
+        link_ids=torch.from_numpy(ids.astype(np.int32)).to(
+            resolve_device(device)),
+        flow_index=flow_index, demand=demand, strategy=strategy,
+        flow_demand=flow_demand, extra_exposure=extra_exposure)
 
 
 def _tensor(a: np.ndarray, dtype: torch.dtype,

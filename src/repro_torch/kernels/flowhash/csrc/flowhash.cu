@@ -31,28 +31,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "../../csrc/murmur.cuh"
+
 namespace {
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ uint32_t murmur_fold(uint32_t h, uint32_t k) {
-  k *= 0xCC9E2D51u;
-  k = rotl32(k, 15);
-  k *= 0x1B873593u;
-  h ^= k;
-  h = rotl32(h, 13);
-  return h * 5u + 0xE6546B64u;
-}
-
-__device__ __forceinline__ uint32_t murmur_fmix(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  return h ^ (h >> 16);
-}
 
 __global__ void flowhash_grid_kernel(const int64_t* __restrict__ fields,
                                      int n_fields,
@@ -73,9 +54,9 @@ __global__ void flowhash_grid_kernel(const int64_t* __restrict__ fields,
                          seeds[n * seed_stride_n + s * seed_stride_s]);
   const int64_t* row = fields + n * n_fields;
   for (int f = 0; f < n_fields; ++f) {
-    h = murmur_fold(h, static_cast<uint32_t>(row[f]));
+    h = murmur::fold(h, static_cast<uint32_t>(row[f]));
   }
-  out[i] = static_cast<int64_t>(murmur_fmix(h));
+  out[i] = static_cast<int64_t>(murmur::fmix(h));
 }
 
 }  // namespace

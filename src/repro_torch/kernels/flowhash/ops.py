@@ -17,7 +17,8 @@ fmix:
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the
 plain version in ``ref.py``.  ``LAUNCHES`` counts kernel launches per
 wrapper (CPU calls never count), so a run can show that it went through
-the kernel.
+the kernel, and ``GRID_LAUNCHES_BY_FIELDS`` the grid's launches by the
+width they hashed.
 """
 
 from __future__ import annotations
@@ -31,11 +32,15 @@ _MASK32 = 0xFFFFFFFF
 
 #: kernel launches per wrapper, counted only where the kernel launches
 LAUNCHES = {"murmur_hash_grid": 0, "bulk_hash": 0}
+#: ``murmur_hash_grid`` launches by the number of hash fields (5 for the
+#: 5-tuple, 7 for a sprayed flowlet's 5-tuple and two entropy digits)
+GRID_LAUNCHES_BY_FIELDS: dict[int, int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    GRID_LAUNCHES_BY_FIELDS.clear()
 
 
 def _launch(fields: torch.Tensor, seeds: torch.Tensor | None, stride_n: int,
@@ -88,6 +93,8 @@ def murmur_hash_grid(fields: torch.Tensor,
     S = dev_seed.shape[1]
     out = _launch(fields, dev_seed, S, 1, S)
     LAUNCHES["murmur_hash_grid"] += 1
+    F = fields.shape[1]
+    GRID_LAUNCHES_BY_FIELDS[F] = GRID_LAUNCHES_BY_FIELDS.get(F, 0) + 1
     return out
 
 

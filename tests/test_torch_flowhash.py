@@ -121,6 +121,7 @@ def test_cpu_calls_leave_launch_counts_unchanged():
     ops.murmur_hash_grid(f, torch.zeros((10, 4), dtype=torch.int64))
     ops.simulate_paper_paths(f)
     assert ops.LAUNCHES == {"murmur_hash_grid": 0, "bulk_hash": 0}
+    assert ops.GRID_LAUNCHES_BY_FIELDS == {}
 
 
 @pytest.mark.parametrize("fields, seeds, exc", [

@@ -9,7 +9,13 @@ kernels, so they run on the machine with the card:
 The CPU side is held against the JAX package by the other
 ``test_torch_*`` files; here the card must give the same link ids bit
 for bit, counts and FIM to 1e-12 and rates to 1e-9 relative (float
-atomics on the card sum in another order).  The flash-attention kernel
+atomics on the card sum in another order).  Every routing strategy
+routes the same seed list on both sides (the wave couples its seeds)
+under unit demand, where the card's load sums are exact: the same link
+ids and flowlet layout, FIM to 1e-12, rates and goodput to 1e-9 and
+exposure to 1e-12 absolute.  The sequential placement kernel must
+equal its plain version bit for bit (link ids, float64 loads, hop count
+and the fault it reports).  The flash-attention kernel
 must match its plain version to 2e-6 in f32 and 2e-2 in bf16 (the JAX
 package's tolerances for its Pallas kernel) and, row by row, to the
 relative limits of ``ref.ROW_RTOL`` (1e-4 f32, 2e-2 bf16); the SSD
@@ -20,6 +26,8 @@ the reduced granite and mamba2 models on the card must match the CPU in
 f32 with TF32 off.
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -27,10 +35,12 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.core as T  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.core import vector_sim as TV  # noqa: E402
 from repro_torch.core import vector_throughput as TT  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flowhash import ops, ref  # noqa: E402
+from repro_torch.kernels.placement import ops as pl_ops  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -155,6 +165,176 @@ def test_fim_and_rates_on_card_equal_cpu(card, multipod, demand,
                                rtol=1e-9, atol=0)
     np.testing.assert_allclose(got.per_pair.cpu().numpy(),
                                want.per_pair.numpy(), rtol=1e-9, atol=0)
+
+
+#: every registered strategy, and the wave forced onto its own path
+#: (the fixture's 64 flows on 192 links are below its cutover) with and
+#: without the round cap's residue fallback
+STRATEGY_CASES = {
+    **{name: (lambda name=name: T.resolve_strategy(name))
+       for name in T.available_strategies()},
+    "wave-path": lambda: T.WaveCongestionAware(min_wave_load=0.0),
+    "wave-residue": lambda: T.WaveCongestionAware(max_rounds=1,
+                                                  min_wave_load=0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STRATEGY_CASES))
+def test_strategy_on_card_equals_cpu(card, multipod, case):
+    comp, flows = multipod
+    make = STRATEGY_CASES[case]
+    want = T.simulate_paths(comp, flows, SEEDS, strategy=make(),
+                            hash_backend="murmur", device="cpu")
+    got = T.simulate_paths(comp, flows, SEEDS, strategy=make(),
+                           hash_backend="murmur")
+    assert got.link_ids.device.type == "cuda"
+    assert torch.equal(got.link_ids.cpu(), want.link_ids)
+    assert torch.equal(got.flow_index.cpu(), want.flow_index)
+    assert torch.equal(got.demand.cpu(), want.demand)
+    assert (got.extra_exposure is None) == (want.extra_exposure is None)
+    if want.extra_exposure is not None:
+        np.testing.assert_allclose(got.extra_exposure.cpu().numpy(),
+                                   want.extra_exposure.numpy(),
+                                   rtol=1e-12, atol=0)
+    np.testing.assert_allclose(T.fim_vector(got).cpu().numpy(),
+                               T.fim_vector(want).numpy(), rtol=1e-12, atol=0)
+    a = T.throughput_from_result(want, transport="roce-nack")
+    b = T.throughput_from_result(got, transport="roce-nack")
+    for field in ("rates", "goodput", "per_pair"):
+        np.testing.assert_allclose(getattr(b, field).cpu().numpy(),
+                                   getattr(a, field).numpy(),
+                                   rtol=1e-9, atol=0, err_msg=field)
+    np.testing.assert_allclose(b.exposure.cpu().numpy(), a.exposure.numpy(),
+                               rtol=0, atol=1e-12)
+
+
+MAX_HOPS = 16
+
+
+def placement_case(comp, flows, fm, n_seeds, weights, masked, preload,
+                   rng):
+    """Inputs of one chain as host arrays: uint64 seeds, per-flow
+    weights, placement order, (S, L) committed loads, an (N, S) mask or
+    None, and the (H, N, S) link ids to fill."""
+    n, L = len(flows), comp.num_links
+    seeds = rng.integers(0, 2**64, n_seeds, dtype=np.uint64)
+    w = (np.ones(n) if weights == "unit"
+         else rng.random(n) * 3.0 + 0.1)
+    order = np.argsort(-w, kind="stable")
+    load = (rng.integers(0, 5, (n_seeds, L)).astype(np.float64) * 0.3
+            if preload else np.zeros((n_seeds, L)))
+    mask = rng.random((n, n_seeds)) < 0.4 if masked else None
+    ids = np.full((MAX_HOPS, n, n_seeds), -1, np.int32)
+    return fm, seeds, w, order, load, mask, ids
+
+
+def port_place(comp, flows, case, backend, device="cpu", max_hops=MAX_HOPS):
+    """Run the port's wrapper on ``case``; returns (hops, fault, link ids,
+    load) on ``device``."""
+    fm, seeds, w, order, load, mask, ids = case
+    tabs = comp.to(device)
+    ends = [torch.from_numpy(np.asarray(e, np.int64)).to(device)
+            for e in comp.flow_endpoint_ids(flows)]
+    ids_t = torch.from_numpy(ids.copy()).to(device)
+    load_t = torch.from_numpy(load.copy()).to(device)
+    hops, fault = pl_ops.congestion_place(
+        tabs.cand, tabs.cand_n, tabs.dev_crc, tabs.is_server, tabs.link_dst,
+        torch.from_numpy(fm.view(np.int64).copy()).to(device),
+        torch.from_numpy(seeds.view(np.int64).copy()).to(device), *ends,
+        torch.from_numpy(w).to(device), torch.from_numpy(order).to(device),
+        load_t, ids_t,
+        None if mask is None else torch.from_numpy(mask).to(device),
+        num_keys=tabs.num_keys, c_max=tabs.c_max, max_hops=max_hops,
+        murmur=backend == "murmur")
+    return hops, fault, ids_t, load_t
+
+@pytest.mark.parametrize("backend", ["exact", "murmur"])
+@pytest.mark.parametrize("weights", ["unit", "random"])
+@pytest.mark.parametrize("masked,preload", [(False, False), (True, True)])
+def test_placement_kernel_matches_plain_version(card, multipod, backend,
+                                                weights, masked, preload):
+    """The chain's kernel (a warp per seed) against its plain version on
+    the same inputs: link ids, the float64 load tally and the hop count
+    bit for bit, for any weights (each seed sums in flow order)."""
+    comp, flows = multipod
+    case = placement_case(comp, flows, T.flow_fields_matrix(flows, "5tuple"),
+                          37, weights, masked, preload,
+                          np.random.default_rng(5))
+    want = port_place(comp, flows, case, backend)
+    pl_ops.reset_launches()
+    got = port_place(comp, flows, case, backend, device=card)
+    assert pl_ops.LAUNCHES == {"congestion_place": 1}
+    assert got[:2] == want[:2] and want[1] is None
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[3].cpu(), want[3])
+
+
+def test_placement_kernel_reports_the_plain_versions_fault(card, multipod):
+    comp, flows = multipod
+    case = placement_case(comp, flows, T.flow_fields_matrix(flows, "5tuple"),
+                          9, "random", True, False, np.random.default_rng(2))
+    for max_hops in (1, 2):
+        want = port_place(comp, flows, case, "murmur", max_hops=max_hops)
+        got = port_place(comp, flows, case, "murmur", device=card,
+                         max_hops=max_hops)
+        assert want[1] is not None and got[1] == want[1]
+
+def test_spray_walk_launches_the_kernel_at_seven_fields(card, multipod,
+                                                         monkeypatch):
+    """Every hop of a sprayed walk hashes the 5-tuple and two entropy
+    digits (K 8, parts (2, 4)) in one launch of the murmur grid kernel."""
+    comp, flows = multipod
+    widths, real = [], TV.murmur_hash_grid
+
+    def spy(fields, dev_seed):
+        widths.append(fields.shape[1])
+        return real(fields, dev_seed)
+
+    monkeypatch.setattr(TV, "murmur_hash_grid", spy)
+    ops.reset_launches()
+    res = T.simulate_paths(comp, flows, SEEDS, strategy="prime-spray",
+                           hash_backend="murmur")
+    hops = res.link_ids.shape[0]
+    assert widths == [7] * hops
+    assert ops.LAUNCHES["murmur_hash_grid"] == hops
+    assert ops.GRID_LAUNCHES_BY_FIELDS == {7: hops}
+
+
+def test_card_strategies_never_take_the_plain_hash(card, multipod,
+                                                   monkeypatch):
+    """On the card every walk of every strategy launches the hash kernel
+    and every sequential chain the placement kernel: no plain version
+    (the murmur, under every name a module of the port imports it by,
+    or the chain's host loop) ever sees a CUDA tensor."""
+    comp, flows = multipod
+
+    def guarded(real):
+        def guard(*args, **kw):
+            assert all(a.device.type == "cpu" for a in args
+                       if isinstance(a, torch.Tensor)), \
+                "a CUDA tensor took a plain version"
+            return real(*args, **kw)
+        return guard
+
+    for module in list(sys.modules.values()):
+        if not getattr(module, "__name__", "").startswith("repro_torch"):
+            continue
+        for name in ("murmur_hash_grid_ref", "congestion_place_ref"):
+            if hasattr(module, name):
+                monkeypatch.setattr(module, name,
+                                    guarded(getattr(module, name)))
+    for case in ("prime-spray", "adaptive-spray", "congestion-aware",
+                 "wave-path", "wave-residue"):
+        ops.reset_launches()
+        pl_ops.reset_launches()
+        res = T.simulate_paths(comp, flows, SEEDS,
+                               strategy=STRATEGY_CASES[case](),
+                               hash_backend="murmur")
+        chained = case == "congestion-aware" or res.residue_placed
+        assert case != "wave-residue" or res.residue_placed
+        assert (ops.LAUNCHES["murmur_hash_grid"] > 0
+                or case == "congestion-aware"), case
+        assert pl_ops.LAUNCHES["congestion_place"] == int(chained), case
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -44,7 +44,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                          capture_output=True, text=True, check=True,
                          timeout=120).stdout.split()
     for module in ("repro_torch.core.vector_throughput",
+                   "repro_torch.core.strategies",
                    "repro_torch.kernels.flowhash.build",
+                   "repro_torch.kernels.placement.build",
+                   "repro_torch.kernels.placement.ops",
                    "repro_torch.kernels.flash_attention.build",
                    "repro_torch.kernels.flash_attention.ops",
                    "repro_torch.kernels.ssd.build",

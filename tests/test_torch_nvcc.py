@@ -7,6 +7,8 @@ pytest.importorskip("torch")
 
 from repro_torch.kernels import nvcc  # noqa: E402
 from repro_torch.kernels.flash_attention import build as fa_build  # noqa: E402
+from repro_torch.kernels.flowhash import build as fh_build  # noqa: E402
+from repro_torch.kernels.placement import build as pl_build  # noqa: E402
 from repro_torch.kernels.ssd import build as ssd_build  # noqa: E402
 
 
@@ -44,4 +46,14 @@ def test_both_hopper_kernels_hash_the_shared_header():
     header = (fa_build.SOURCE.parent.parent.parent / "csrc"
               / "hopper.cuh").resolve()
     for build in (fa_build, ssd_build):
+        assert nvcc.sources(build.SOURCE)[1:] == [header]
+
+
+def test_hash_and_placement_kernels_hash_the_shared_murmur():
+    """The placement chain hashes ties with the flow-hash kernel's own
+    murmur: both sources include one header, and editing it rebuilds
+    both."""
+    header = (fh_build.SOURCE.parent.parent.parent / "csrc"
+              / "murmur.cuh").resolve()
+    for build in (fh_build, pl_build):
         assert nvcc.sources(build.SOURCE)[1:] == [header]

@@ -310,10 +310,11 @@ def test_hash_backend_follows_the_device():
 def test_spec_resolves_and_rejects():
     s = T.SimSpec(device=CPU, strategy="ecmp", transport="roce-nack").resolve()
     assert s.device == torch.device(CPU) and s.hash_backend == T.EXACT
-    assert s.transport is T.ROCE_NACK and s.strategy is None
+    assert s.transport is T.ROCE_NACK
+    assert type(s.strategy) is T.EcmpStrategy and TV._is_plain_ecmp(s.strategy)
     assert s.resolve() == s
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.SimSpec(device=CPU, strategy="prime-spray").resolve()
+    with pytest.raises(ValueError, match="registered"):
+        T.SimSpec(device=CPU, strategy="no-such-strategy").resolve()
     with pytest.raises(ValueError):
         T.SimSpec(device=CPU, fields="mac").resolve()
     with pytest.raises(ValueError):
