@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (any
-card with ``nvcc`` for ``sm_90a``).  It builds the four kernel
+card with ``nvcc`` for ``sm_90a``).  It builds the five kernel
 libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu``,
 ``src/repro_torch/kernels/placement/csrc/placement.cu``,
+``src/repro_torch/kernels/loads/csrc/loads.cu``,
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`` and
-``src/repro_torch/kernels/ssd/csrc/ssd.cu``, four ``nvcc`` processes at
+``src/repro_torch/kernels/ssd/csrc/ssd.cu``, five ``nvcc`` processes at
 once) and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
@@ -46,19 +47,26 @@ once) and then:
    four-stage ``simulate_paper_paths`` — and checks its first two seeds
    against the CPU path;
 5. drives the routing strategies: the sequential placement kernel
-   (a warp per seed) must equal its plain version bit for bit (link
-   ids and float64 loads) on 102,400 flows x 64 seeds with a residue
-   mask; on the paper testbed (256 flows x 1,024 seeds, ``murmur``,
+   (a warp per seed, load rows and compact tables in shared memory)
+   must equal its plain version bit for bit (link ids and float64
+   loads) on 102,400 flows x 64 seeds with a residue mask, and is timed
+   against a latency bound (its longest seed's hops x two dependent
+   shared-memory loads, at the latency a pointer-chase probe measures);
+   the ordered load sum must equal ``torch.bincount`` on the CPU bit for
+   bit at the sprayed walk's shape with byte weights; on the paper testbed (256 flows x 1,024 seeds, ``murmur``,
    ``roce-nack``) the FIM mean, goodput mean and exposure p95 of every
    family (and of the two elephant variants under byte demand) must
    match the JAX package's numpy-engine values to 1e-9; at full scale
    ``prime-spray`` (819,200 flowlet columns, the hash at 7 fields),
    ``adaptive-spray`` (on a 3:1 skewed pair mix, where its re-spray
-   rounds run), ``congestion-aware`` and ``wave-congestion-aware``
-   route 64 seeds, each with FIM and throughput, and each but the
-   congestion-aware chain then routes seeds 0 and 1 on the card and on
-   the CPU: the same link ids and rounds, FIM to 1e-12, rates and
-   goodput to 1e-9;
+   rounds run; again under byte demand, where its load sums take the
+   ordered-sum kernel), ``congestion-aware`` and ``wave-congestion-aware``
+   route 64 seeds, each with FIM and throughput (the chain's own time
+   taken apart from the route's), and each but the congestion-aware
+   chain then routes seeds 0 and 1 on the card and on the CPU: the same
+   link ids and rounds, FIM to 1e-12, rates and goodput to 1e-9; and
+   byte-demand ``adaptive-spray`` and ``adaptive-spray-elephant`` route
+   the paper testbed's 1,024 seeds with the same link ids on both;
 6. drives granite-3-2b serving at full width and depth (40 layers,
    bf16, weights from a seeded generator on the card): ``prefill_logits``
    on 2 x 32,768 tokens (40 flash-attention launches), ``generate`` for
@@ -75,8 +83,8 @@ once) and then:
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel that its path never launched fails the
 run, and so does a strategy whose walk made fewer murmur launches than
-its paths have hops, or a chain that did not launch the placement
-kernel.  The flow hash's launches are counted by the width they hashed:
+its paths have hops, a chain that did not launch the placement
+kernel, or a byte-demand re-spray that did not launch the ordered sum.  The flow hash's launches are counted by the width they hashed:
 the ``kernels`` line gives the 5-field launches on the murmur row and
 the 7-field ones under its ``f7``.
 
@@ -92,6 +100,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -168,6 +177,11 @@ SKEW_FLOWS_PER_PAIR = (1_200, 400)
 # the placement chain's check against its plain version: flows whose
 # every seed is placed, and flows with a share of their seeds placed
 CHAIN_WHOLE_FLOWS, CHAIN_PART_FLOWS, CHAIN_PART_SHARE = 2_048, 2_048, 0.3
+# the chain's latency bound: the shared-memory loads a hop cannot avoid,
+# each waiting on the one before (placement.cu's source note), and the
+# dependent loads the pointer-chase probe times
+CHAIN_DEPENDENT_LOADS = 2
+PROBE_STEPS = 1 << 16
 FIM_SEEDS, TP_SEEDS = 10_240, 1_024
 GRAPH_LAUNCHES = 200           # bulk_hash launches a timed CUDA graph holds
 FLOWS_PER_PAIR = 800           # 128 directed host pairs -> 102,400 flows
@@ -296,9 +310,10 @@ def phase_build():
     once."""
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.flowhash import build as fh_build
+    from repro_torch.kernels.loads import build as loads_build
     from repro_torch.kernels.placement import build as pl_build
     from repro_torch.kernels.ssd import build as ssd_build
-    builds = (fh_build, pl_build, fa_build, ssd_build)
+    builds = (fh_build, pl_build, loads_build, fa_build, ssd_build)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda b: b.build(), builds))
@@ -570,6 +585,99 @@ def skewed_flows(T):
     return out
 
 
+def smem_latency(torch) -> tuple[float, float]:
+    """(cycles of one dependent shared-memory load, the SM clock in MHz
+    by the probe's own timer): the placement library's pointer-chase
+    probe, one warp, ``clock64`` over ``PROBE_STEPS`` loads, run twice."""
+    from repro_torch.kernels.placement import build
+    out = torch.zeros(34, dtype=torch.int64, device="cuda")
+    for _ in range(2):
+        rc = build.load().smem_latency_probe(
+            out.data_ptr(), PROBE_STEPS,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"smem_latency_probe launch failed with {rc}")
+        cycles, ns = out[:2].tolist()
+    check(cycles > 0 and ns > 0, "the latency probe read no clock")
+    return cycles / PROBE_STEPS, cycles / ns * 1e3
+
+
+def sm_clock_during(torch, fn) -> float:
+    """``nvidia-smi``'s ``clocks.sm`` in MHz, read while the card runs
+    ``fn`` back to back (an idle card reads its idle clock)."""
+    box = {}
+
+    def query():
+        box["mhz"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+
+    fn()
+    thread = threading.Thread(target=query)
+    thread.start()
+    while thread.is_alive():
+        fn()
+    thread.join()
+    torch.cuda.synchronize()
+    return float(box["mhz"].split()[0])
+
+
+def check_ordered_sum(np, torch, T, comp, flows, fm):
+    """The ordered load sum against its plain version (``torch.bincount``
+    on the CPU) at the sprayed walk's shape: a ``prime-spray`` route of
+    the full-scale flows over 64 seeds, its (H, 819,200, 64) cells keyed
+    by (seed, link) as ``_cell_loads`` keys them, with byte weights
+    (alternating 2**20- and 2**30-byte flows, over K 8).  Returns the
+    kernel's record (launch count filled in later)."""
+    from repro_torch.kernels.loads import ops
+    res = T.simulate_paths(comp, flows, np.arange(SPRAY_SEEDS),
+                           strategy="prime-spray", field_matrix=fm,
+                           hash_backend="murmur")
+    ids = res.link_ids
+    H, C, S = ids.shape
+    L = comp.num_links
+    b = np.where(np.arange(len(flows)) % 2 == 0, 2.0**20, 2.0**30)
+    col_w = torch.from_numpy(b / b.mean()).cuda()[res.flow_index] / 8
+    off = torch.arange(S, device="cuda", dtype=torch.int32) * L
+    keys = torch.where(ids >= 0, ids + off, S * L).reshape(-1)
+    w = col_w[None, :, None].expand(H, C, S).reshape(-1).contiguous()
+    del res, ids
+    check(not ops.exact_in_any_order(col_w, keys.numel()),
+          "the byte weights sum exactly in any order")
+    got = ops.ordered_bin_sum(keys, w, S * L)
+    keys_cpu, w_cpu = keys.cpu(), w.cpu()
+    t = time.perf_counter()
+    want = ops.ordered_bin_sum(keys_cpu, w_cpu, S * L)
+    plain_s = time.perf_counter() - t
+    err = float((got.cpu() - want).abs().max())
+    check(torch.equal(got.cpu(), want),
+          f"ordered_bin_sum != plain version (max error {err})")
+    again = ops.ordered_bin_sum(keys, w, S * L)
+    check(torch.equal(again, got), "ordered_bin_sum differs between runs")
+    perm, start = ops.sort_runs(keys, S * L)
+    library = torch.bincount(keys, weights=w, minlength=S * L + 1)[:S * L]
+    m = keys.numel()
+    b_ms, b_by = bound(m * 4 + m * 8 + S * L * 8, m, F64_FLOPS_PER_S)
+    rec = {
+        "name": "ordered_bin_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/loads/csrc/loads.cu",
+        "replaces": "src/repro/core/strategies.py:261",
+        "shape": [H, C, S], "cells": m, "bins": S * L,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: ops.ordered_bin_sum(keys, w, S * L), 10),
+        "sort_ms": cuda_ms(lambda: torch.sort(keys, stable=True), 10),
+        "runs_ms": cuda_ms(lambda: ops.sort_runs(keys, S * L), 10),
+        "fold_ms": cuda_ms(lambda: ops.fold_runs(perm, start, w), 10),
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.bincount(
+            keys, weights=w, minlength=S * L + 1), 10),
+        "library_bit_identical": bool(torch.equal(library.cpu(), want)),
+        "library_max_abs_err": float((library.cpu() - want).abs().max())}
+    del keys, w, perm, start, library, got, again
+    return rec
+
+
 def check_placement(np, torch, T, comp, flows, fm):
     """The sequential placement kernel against its plain version at the
     full-scale shape: 102,400 flows x 64 seeds on the ECMP loads of the
@@ -620,7 +728,9 @@ def check_placement(np, torch, T, comp, flows, fm):
     err = float((got_load.cpu() - want_load).abs().max())
     check(err == 0.0, f"congestion_place loads differ by {err}")
 
-    # the kernel alone, its inputs restored outside the timed span
+    # the wrapper (the tables packed, the inputs gathered, the launch and
+    # the fault report), its inputs restored outside the timed span; and
+    # the kernel's own device time, from the profiler
     times = []
     for _ in range(3):
         l_in, i_in = load.clone(), ids0.clone()
@@ -631,7 +741,13 @@ def check_placement(np, torch, T, comp, flows, fm):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    ms = sorted(times)[1]
+    wrapper_ms = sorted(times)[1]
+    prof = device_profile(
+        lambda: [run("cuda", load.clone(), ids0.clone()) for _ in range(3)],
+        groups={"kernel": ("congestion_place_kernel",)})
+    k_s, k_n = prof["groups"]["kernel"]
+    check(k_n == 3, f"profiled {k_n} placement kernels of 3")
+    ms = k_s / k_n * 1e3
     # work of these inputs: per placed cell, each hop reads its
     # candidates' loads and compares them twice (the min and the ties)
     placed = int(mask.sum())
@@ -647,23 +763,45 @@ def check_placement(np, torch, T, comp, flows, fm):
                        tabs.link_dst)))
     b_ms, b_by = bound(bytes_moved, 2 * hop_cells * tabs.c_max,
                        F64_FLOPS_PER_S)
+    # the latency bound: the longest seed's placed hops, each a chain of
+    # CHAIN_DEPENDENT_LOADS shared-memory loads at the probe's latency,
+    # at the SM clock nvidia-smi reads while the kernel runs
+    seed_hops = int((want_ids >= 0).sum((0, 1)).max())
+    mhz = sm_clock_during(torch, lambda: run("cuda", load.clone(),
+                                             ids0.clone()))
+    lat, probe_mhz = smem_latency(torch)
+    chain_ms = seed_hops * CHAIN_DEPENDENT_LOADS * lat / (mhz * 1e3)
+    _, offs = ops.pack_tables(tabs.cand, tabs.cand_n, tabs.dev_crc,
+                              tabs.is_server, tabs.link_dst, tabs.c_max)
+    pl = ops.plan(L, comp.num_devices, tabs.cand_n.numel(), offs["n_cands"])
+    check(pl.shared_tables, "the multipod fabric's tables left shared memory")
     del got_ids, want_ids, ecmp
     return {
         "name": "congestion_place", "route": "cuda",
         "source": "src/repro_torch/kernels/placement/csrc/placement.cu",
         "replaces": "src/repro/core/strategies.py:467",
         "shape": [n, s, 16], "placed_cells": placed,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_s * 1e3,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "instance": "shared tables" if pl.shared_tables else "global tables",
+        "warps": pl.warps, "smem_bytes": pl.smem_bytes,
+        "max_seed_hops": seed_hops,
+        "dependent_loads_per_hop": CHAIN_DEPENDENT_LOADS,
+        "smem_latency_cycles": lat, "sm_clock_mhz": mhz,
+        "probe_clock_mhz": probe_mhz, "chain_bound_ms": chain_ms,
+        "chain_share": chain_ms / ms}
 
 
 def phase_strategies(np, torch):
-    """The routing strategies: the placement kernel against its plain
-    version, paper-testbed anchors, full-scale sweeps and the card
-    against the CPU; returns the placement kernel's record and the
-    launch counts of the counted run (the full-scale sweeps)."""
+    """The routing strategies: the placement kernel and the ordered load
+    sum against their plain versions, paper-testbed anchors, full-scale
+    sweeps and the card against the CPU; returns the two kernels'
+    records and the launch counts of the counted run (the full-scale
+    sweeps)."""
     import repro_torch.core as T
     from repro_torch.kernels.flowhash import ops
+    from repro_torch.kernels.loads import ops as loads_ops
     from repro_torch.kernels.placement import ops as pl_ops
 
     t_phase = time.perf_counter()
@@ -674,11 +812,17 @@ def phase_strategies(np, torch):
                           FLOWS_PER_PAIR),
         nic_ip=T.nic_ip, nics_per_server=1)
     skew = skewed_flows(T)
+    # the same skewed flows, alternating 2**20 and 2**30 bytes
+    skew_bytes = [dataclasses.replace(f, bytes=2**20 if j % 2 == 0 else 2**30)
+                  for j, f in enumerate(skew)]
     check(len(even) == len(skew) == GRID_FLOWS, "full-scale flow counts")
     fm_even = T.flow_fields_matrix(even, "5tuple")
     fm_skew = T.flow_fields_matrix(skew, "5tuple")
     record = check_placement(np, torch, T, big, even, fm_even)
     check_s = time.perf_counter() - t_phase
+    t_sum = time.perf_counter()
+    sum_record = check_ordered_sum(np, torch, T, big, even, fm_even)
+    sum_check_s = time.perf_counter() - t_sum
 
     # 1. anchors against the JAX package's numpy engine (their launches,
     # at the paper testbed's shapes, are reported here and not counted
@@ -710,24 +854,49 @@ def phase_strategies(np, torch):
                        "chain": pl_ops.LAUNCHES["congestion_place"]}
 
     # 2. full scale, the counted run: each strategy routes its seeds
-    # once; FIM and throughput read the same routed result
+    # once; FIM and throughput read the same routed result.  A spy times
+    # each launch of the placement chain with CUDA events, so a route's
+    # chain is taken apart from the rest of it
     ops.reset_launches()
     pl_ops.reset_launches()
-    sweeps = (("prime-spray", "even", even, fm_even),
-              ("adaptive-spray", "skewed 3:1", skew, fm_skew),
-              ("congestion-aware", "even", even, fm_even),
-              ("wave-congestion-aware", "even", even, fm_even))
+    loads_ops.reset_launches()
+    sweeps = (("prime-spray", "uniform", "even", even, fm_even),
+              ("adaptive-spray", "uniform", "skewed 3:1", skew, fm_skew),
+              ("adaptive-spray", "bytes", "skewed 3:1, 2**20 / 2**30 bytes",
+               skew_bytes, fm_skew),
+              ("congestion-aware", "uniform", "even", even, fm_even),
+              ("wave-congestion-aware", "uniform", "even", even, fm_even))
     full = {}
-    for name, traffic, fl, fm in sweeps:
+    chain_ms = []
+    place = pl_ops.congestion_place
+
+    def timed_chain(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = place(*args, **kw)
+        b.record()
+        b.synchronize()
+        chain_ms.append(a.elapsed_time(b))
+        return out
+
+    for name, demand, traffic, fl, fm in sweeps:
         grid0 = dict(ops.GRID_LAUNCHES_BY_FIELDS)
         chain0 = pl_ops.LAUNCHES["congestion_place"]
-        res, route_s, route_peak = timed(lambda: T.simulate_paths(
-            big, fl, np.arange(SPRAY_SEEDS), strategy=name,
-            field_matrix=fm, hash_backend="murmur"))
+        sum0 = loads_ops.LAUNCHES["ordered_bin_sum"]
+        chain_ms.clear()
+        pl_ops.congestion_place = timed_chain
+        try:
+            res, route_s, route_peak = timed(lambda: T.simulate_paths(
+                big, fl, np.arange(SPRAY_SEEDS), strategy=name,
+                field_matrix=fm, hash_backend="murmur", demand_mode=demand))
+        finally:
+            pl_ops.congestion_place = place
         grid = {f: c - grid0.get(f, 0)
                 for f, c in ops.GRID_LAUNCHES_BY_FIELDS.items()
                 if c > grid0.get(f, 0)}
         chain = pl_ops.LAUNCHES["congestion_place"] - chain0
+        ordered = loads_ops.LAUNCHES["ordered_bin_sum"] - sum0
         fim, fim_s, _ = timed(lambda: T.fim_vector(res))
         tp, tp_s, tp_peak = timed(lambda: T.throughput_from_result(
             res, transport="roce-nack"))
@@ -738,8 +907,11 @@ def phase_strategies(np, torch):
                   f"{name}: {walks} grid and {chain} chain launches")
         else:
             check(walks >= hops, f"{name}: {walks} grid launches < {hops} hops")
-        check(name != "adaptive-spray" or res.rounds > 0,
-              f"{name}: no re-spray round ran")
+        check(name != "adaptive-spray" or demand == "bytes"
+              or res.rounds > 0, f"{name}: no re-spray round ran")
+        check((ordered > 0) == (demand == "bytes"),
+              f"{name} ({demand}): {ordered} ordered load sums")
+        check(len(chain_ms) == chain, f"{name}: chain spy saw {chain_ms}")
         check(chain == int(res.residue_placed or name == "congestion-aware"),
               f"{name}: {chain} placement launches")
         check(tuple(fim.shape) == (SPRAY_SEEDS,)
@@ -750,9 +922,11 @@ def phase_strategies(np, torch):
         check(bool((tp.exposure >= 0).all())
               and bool((tp.goodput <= tp.rates).all()),
               f"{name} exposure or goodput out of range")
-        full[name] = {
-            "traffic": traffic, "columns": columns, "hops": hops,
-            "seeds": SPRAY_SEEDS, "route_s": route_s, "fim_s": fim_s,
+        full[name if demand == "uniform" else f"{name} ({demand})"] = {
+            "traffic": traffic, "demand": demand, "columns": columns,
+            "hops": hops, "seeds": SPRAY_SEEDS, "route_s": route_s,
+            "chain_ms": sum(chain_ms), "ordered_sums": ordered,
+            "fim_s": fim_s,
             "throughput_s": tp_s, "wall_s": route_s + fim_s + tp_s,
             "peak_bytes": max(route_peak, tp_peak), "rounds": res.rounds,
             "residue_placed": res.residue_placed,
@@ -764,7 +938,8 @@ def phase_strategies(np, torch):
         del res, tp
     launches = {"murmur_hash_grid": ops.GRID_LAUNCHES_BY_FIELDS.get(5, 0),
                 "murmur_hash_grid_f7": ops.GRID_LAUNCHES_BY_FIELDS.get(7, 0),
-                "congestion_place": pl_ops.LAUNCHES["congestion_place"]}
+                "congestion_place": pl_ops.LAUNCHES["congestion_place"],
+                "ordered_bin_sum": loads_ops.LAUNCHES["ordered_bin_sum"]}
     check(set(ops.GRID_LAUNCHES_BY_FIELDS) <= {5, 7},
           f"grid widths {sorted(ops.GRID_LAUNCHES_BY_FIELDS)}")
 
@@ -773,10 +948,11 @@ def phase_strategies(np, torch):
     # width; its kernel is held against the plain version above)
     t_check = time.perf_counter()
     vs_cpu = {}
-    for name, traffic, fl, fm in sweeps:
+    for name, demand, traffic, fl, fm in sweeps:
         if name == "congestion-aware":
             continue
-        kw = dict(strategy=name, field_matrix=fm, hash_backend="murmur")
+        kw = dict(strategy=name, field_matrix=fm, hash_backend="murmur",
+                  demand_mode=demand)
         card, card_s, _ = timed(lambda: T.simulate_paths(
             big, fl, CHECK_SEEDS, **kw))
         t = time.perf_counter()
@@ -797,20 +973,43 @@ def phase_strategies(np, torch):
                               getattr(tp_cpu, what).numpy(),
                               rtol=1e-9, atol=0),
                   f"{name}: {what} on the card != on the CPU")
-        vs_cpu[name] = {"traffic": traffic, "seeds": CHECK_SEEDS,
-                        "rounds": cpu.rounds, "card_route_s": card_s,
-                        "cpu_route_s": cpu_s, "link_ids": "identical"}
+        vs_cpu[name if demand == "uniform" else f"{name} ({demand})"] = {
+            "traffic": traffic, "seeds": CHECK_SEEDS, "rounds": cpu.rounds,
+            "card_route_s": card_s, "cpu_route_s": cpu_s,
+            "link_ids": "identical"}
         del card, cpu
+    # byte demand on the paper testbed's anchor flows over all 1,024
+    # seeds: the re-spray rounds' load sums take the ordered-sum kernel
+    # on the card, and its decisions are the CPU's
+    bytes_vs_cpu = {}
+    for name in ("adaptive-spray", "adaptive-spray-elephant"):
+        kw = dict(strategy=name, demand_mode="bytes", hash_backend="murmur")
+        loads_ops.reset_launches()
+        card = T.simulate_paths(comp, flows, seeds, **kw)
+        ordered = loads_ops.LAUNCHES["ordered_bin_sum"]
+        cpu = T.simulate_paths(comp, flows, seeds, device="cpu", **kw)
+        check(ordered > 0, f"{name} (bytes): no ordered load sum")
+        check(card.link_ids.shape == cpu.link_ids.shape
+              and torch.equal(card.link_ids.cpu(), cpu.link_ids)
+              and card.rounds == cpu.rounds,
+              f"{name} (bytes): link ids on the card != on the CPU")
+        bytes_vs_cpu[name] = {"seeds": len(seeds), "rounds": cpu.rounds,
+                              "ordered_sums": ordered,
+                              "link_ids": "identical"}
     emit({"phase": "strategies", "fabric": "multipod default",
           "flows": GRID_FLOWS, "placement_check": {
               k: record[k] for k in ("shape", "placed_cells", "max_abs_err",
-                                     "ms", "plain_ms")},
-          "placement_check_s": check_s, "anchors": anchors,
+                                     "ms", "wrapper_ms", "plain_ms")},
+          "placement_check_s": check_s, "ordered_sum_check": {
+              k: sum_record[k] for k in ("shape", "max_abs_err", "ms",
+                                         "sort_ms", "plain_ms")},
+          "ordered_sum_check_s": sum_check_s, "anchors": anchors,
           "anchor_rtol": ANCHOR_RTOL, "anchors_s": anchors_s,
-          "anchor_launches": anchor_launches, "full_scale": full, "card_vs_cpu": vs_cpu,
+          "anchor_launches": anchor_launches, "full_scale": full,
+          "card_vs_cpu": vs_cpu, "bytes_card_vs_cpu": bytes_vs_cpu,
           "card_vs_cpu_s": time.perf_counter() - t_check,
           "seconds": time.perf_counter() - t_phase})
-    return record, launches
+    return [record, sum_record], launches
 
 
 def ptxas_report(log: str, kernel: str) -> tuple[dict, list]:
@@ -1519,8 +1718,8 @@ def main() -> int:
                                           phase_ssd(np, torch)]
     phase_anchor(np)
     launches = phase_full_scale(np, torch)
-    chain_record, strat = phase_strategies(np, torch)
-    records.insert(2, chain_record)
+    strat_records, strat = phase_strategies(np, torch)
+    records[2:2] = strat_records
     records[0]["f7"]["launches"] = strat.pop("murmur_hash_grid_f7")
     check(records[0]["f7"]["launches"] > 0, "no sprayed walk at 7 fields")
     launches["murmur_hash_grid"] += strat.pop("murmur_hash_grid")

@@ -25,20 +25,22 @@ on the card under ``"murmur"``).  Unsigned 64-bit arithmetic (the
 splitmix64 coins, the round constants, ``hash % n_tie``) lives in int64
 as in ``vector_sim``.
 
-Link loads sum the cells of an ``(H, Nf, S)`` tensor in one bincount in
-C order: on the CPU that is the reference's own order, so every float
-decision (adaptive marking and acceptance) is bit-identical to it.  On
-the card the bincount sums with atomics in run-dependent order: sums of
-weights that are exact in float64 (unit demand, flowlet fractions 1/K
-with K a power of two) do not depend on it, but byte-weighted loads can
-differ in their last bits from run to run, and a comparison that ties
-in exact arithmetic can then go either way.
+Link loads sum the cells of an ``(H, N, S)`` tensor into (seed, link)
+bins in C order, the reference's ``np.bincount`` order, so every float
+decision (adaptive marking and acceptance) is bit-identical to it, and
+link ids on the card equal the CPU's under every demand mode.  Where the
+weights' sums are exact in float64 in any order (unit demand, flowlet
+fractions 1/K with K a power of two, the wave's unit weights) one
+atomic bincount gives those bits; other weights (byte demand, K not a
+power of two) go through the ordered-sum kernel (``kernels/loads``),
+which folds each bin's cells left to right.
 
 The sequential placement chain (``_sequential_congestion_place``) reads,
 for each flow, the loads the earlier flows wrote, but only under its own
 seed: the seeds are independent chains.  On the card the whole chain is
 one launch of the placement kernel (``kernels/placement``), a warp per
-seed, hashing ties with the kernel's own murmur or exact fold; loads,
+seed with its load row and the fabric's compact tables in shared
+memory, hashing ties with the kernel's own murmur or exact fold; loads,
 masks and paths stay on the card.  Its per-seed sums run in flow order,
 the host loop's, so its link ids are the CPU's bit for bit under any
 weights.  On the CPU the kernel's plain version runs the reference's
@@ -57,6 +59,7 @@ from collections.abc import Callable, Sequence
 import numpy as np
 import torch
 
+from ..kernels.loads import ops as loads
 from ..kernels.placement import ops as placement
 from .compile_fabric import CompiledFabric
 from .ecmp import FIELDS_5TUPLE
@@ -290,17 +293,26 @@ class PrimeSpraying(RoutingStrategy):
 
 def _cell_loads(link_ids: torch.Tensor, weights: torch.Tensor,
                 num_links: int) -> torch.Tensor:
-    """(S, L) demand-weighted link loads of an ``(H, N, S)`` tensor: one
-    weighted bincount over its cells in C order (the reference's order
-    on the CPU; atomics on the card), ``-1`` skipped."""
+    """(S, L) demand-weighted link loads of an ``(H, N, S)`` tensor,
+    ``-1`` skipped: each (seed, link) bin sums its cells' weights in C
+    order, the reference's ``np.bincount`` order, bit for bit on either
+    device.  Where any order gives those bits
+    (``loads.exact_in_any_order``) one atomic ``torch.bincount`` sums
+    them; otherwise the ordered kernel ``loads.ordered_bin_sum`` does."""
     H, N, S = link_ids.shape
     SL = S * num_links
-    off = torch.arange(S, device=link_ids.device, dtype=torch.int64) * num_links
-    flat = torch.where(link_ids >= 0, link_ids.to(torch.int64) + off,
-                       SL).reshape(-1)
+    if SL >= 2**31 - 1:
+        raise ValueError(f"{S} seeds x {num_links} links do not fit the "
+                         f"load sum's int32 keys")
+    off = torch.arange(S, device=link_ids.device,
+                       dtype=torch.int32) * num_links
+    keys = torch.where(link_ids >= 0, link_ids + off, SL).reshape(-1)
     w = weights[None, :, None].expand(H, N, S).reshape(-1)
-    return torch.bincount(flat, weights=w,
-                          minlength=SL + 1)[:SL].reshape(S, num_links)
+    if loads.exact_in_any_order(weights, keys.numel()):
+        sums = torch.bincount(keys, weights=w, minlength=SL + 1)[:SL]
+    else:
+        sums = loads.ordered_bin_sum(keys, w, SL)
+    return sums.reshape(S, num_links)
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:

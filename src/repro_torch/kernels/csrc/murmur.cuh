@@ -12,13 +12,23 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-__device__ __forceinline__ uint32_t fold(uint32_t h, uint32_t k) {
+// The field's own mixing, which depends on the field alone: a chain that
+// hashes one flow's fields many times mixes them once.
+__device__ __forceinline__ uint32_t mix_k(uint32_t k) {
   k *= 0xCC9E2D51u;
   k = rotl32(k, 15);
-  k *= 0x1B873593u;
+  return k * 0x1B873593u;
+}
+
+// One fold of an already mixed field into the running hash.
+__device__ __forceinline__ uint32_t fold_mixed(uint32_t h, uint32_t k) {
   h ^= k;
   h = rotl32(h, 13);
   return h * 5u + 0xE6546B64u;
+}
+
+__device__ __forceinline__ uint32_t fold(uint32_t h, uint32_t k) {
+  return fold_mixed(h, mix_k(k));
 }
 
 __device__ __forceinline__ uint32_t fmix(uint32_t h) {

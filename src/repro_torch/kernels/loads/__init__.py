@@ -1,0 +1,3 @@
+"""Ordered per-bin float64 sums: the link-load tally of the routing
+strategies in the CPU's summation order, as one CUDA kernel
+(``csrc/loads.cu``)."""

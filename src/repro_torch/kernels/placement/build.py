@@ -19,12 +19,16 @@ def build() -> Path:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The built library with its one entry point typed (every pointer
+    """The built library with its two entry points typed (every pointer
     and the stream as ``c_void_p``, which ctypes would otherwise cut to
-    32 bits)."""
+    32 bits): the placement chain and the shared-memory latency probe."""
     lib = ctypes.CDLL(str(build()))
-    fn = lib.congestion_place
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = ([p] * 6 + [i] + [p] * 12 + [ll, ll, ll, i, ll, i, i, p])
+    fn = lib.congestion_place
+    fn.argtypes = ([p] + [ll] * 6 + [i] * 3 + [p, i] + [p] * 10
+                   + [ll] * 4 + [i, i, p])
     fn.restype = ctypes.c_int
+    probe = lib.smem_latency_probe
+    probe.argtypes = [p, i, p]
+    probe.restype = ctypes.c_int
     return lib

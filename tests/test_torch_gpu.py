@@ -11,11 +11,13 @@ The CPU side is held against the JAX package by the other
 for bit, counts and FIM to 1e-12 and rates to 1e-9 relative (float
 atomics on the card sum in another order).  Every routing strategy
 routes the same seed list on both sides (the wave couples its seeds)
-under unit demand, where the card's load sums are exact: the same link
-ids and flowlet layout, FIM to 1e-12, rates and goodput to 1e-9 and
-exposure to 1e-12 absolute.  The sequential placement kernel must
-equal its plain version bit for bit (link ids, float64 loads, hop count
-and the fault it reports).  The flash-attention kernel
+under unit demand, and the byte-weighted ones under byte demand too,
+where the load sums take the ordered-sum kernel: the same link ids and
+flowlet layout, FIM to 1e-12, rates and goodput to 1e-9 and exposure
+to 1e-12 absolute.  The ordered sum must equal ``torch.bincount`` on the
+CPU bit for bit, and the sequential placement kernel its plain version
+(link ids, float64 loads, hop count and the fault it reports), in both
+of its instances.  The flash-attention kernel
 must match its plain version to 2e-6 in f32 and 2e-2 in bf16 (the JAX
 package's tolerances for its Pallas kernel) and, row by row, to the
 relative limits of ``ref.ROW_RTOL`` (1e-4 f32, 2e-2 bf16); the SSD
@@ -40,6 +42,8 @@ from repro_torch.core import vector_throughput as TT  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flowhash import ops, ref  # noqa: E402
+from repro_torch.kernels.loads import ops as loads_ops  # noqa: E402
+from repro_torch.kernels.placement import build as pl_build  # noqa: E402
 from repro_torch.kernels.placement import ops as pl_ops  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
@@ -74,6 +78,18 @@ def multipod():
                            bytes_per_flow=[1, 5, 10, 2**20, 0, 3, 9, 2**30])
     flows = T.synthesize_flows(wl, nic_ip=T.nic_ip, nics_per_server=1)
     return T.compile_fabric(fab), flows
+
+
+@pytest.fixture(scope="module")
+def multipod3():
+    """Three default pods: compact tables too large for shared memory
+    beside the load rows, so the placement kernel reads them from global
+    memory.  64 flows between pods 0 and 2."""
+    wl = T.bipartite_pairs([f"host-{i}" for i in range(8)],
+                           [f"host-{128 + i}" for i in range(8)],
+                           flows_per_pair=4)
+    flows = T.synthesize_flows(wl, nic_ip=T.nic_ip, nics_per_server=1)
+    return T.compile_fabric(T.build_multipod_fabric(num_pods=3)), flows
 
 
 def test_kernel_matches_plain_version(card):
@@ -179,14 +195,27 @@ STRATEGY_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(STRATEGY_CASES))
+#: the cases routed again under byte demand (the fixture's flows carry
+#: 1 B to 1 GiB): the adaptive ones sum their loads with the ordered-sum
+#: kernel; the wave's heterogeneous weights take the sequential chain
+BYTE_DEMAND_CASES = ["adaptive-spray", "adaptive-spray-elephant",
+                     "prime-spray-elephant", "congestion-aware", "wave-path"]
+
+
+@pytest.mark.parametrize("case", sorted(STRATEGY_CASES) + [
+    f"{name}:bytes" for name in BYTE_DEMAND_CASES])
 def test_strategy_on_card_equals_cpu(card, multipod, case):
     comp, flows = multipod
-    make = STRATEGY_CASES[case]
+    name, _, demand = case.partition(":")
+    make = STRATEGY_CASES[name]
+    kw = dict(hash_backend="murmur", demand_mode=demand or "uniform")
     want = T.simulate_paths(comp, flows, SEEDS, strategy=make(),
-                            hash_backend="murmur", device="cpu")
-    got = T.simulate_paths(comp, flows, SEEDS, strategy=make(),
-                           hash_backend="murmur")
+                            device="cpu", **kw)
+    loads_ops.reset_launches()
+    got = T.simulate_paths(comp, flows, SEEDS, strategy=make(), **kw)
+    ordered = loads_ops.LAUNCHES["ordered_bin_sum"]
+    assert (ordered > 0) == (demand == "bytes"
+                             and name.startswith("adaptive")), ordered
     assert got.link_ids.device.type == "cuda"
     assert torch.equal(got.link_ids.cpu(), want.link_ids)
     assert torch.equal(got.flow_index.cpu(), want.flow_index)
@@ -248,15 +277,27 @@ def port_place(comp, flows, case, backend, device="cpu", max_hops=MAX_HOPS):
         murmur=backend == "murmur")
     return hops, fault, ids_t, load_t
 
+def placement_plan(comp):
+    tabs = comp.to("cpu")
+    _, offs = pl_ops.pack_tables(tabs.cand, tabs.cand_n, tabs.dev_crc,
+                                 tabs.is_server, tabs.link_dst, tabs.c_max)
+    return pl_ops.plan(comp.num_links, comp.num_devices, tabs.cand_n.numel(),
+                       offs["n_cands"])
+
+
 @pytest.mark.parametrize("backend", ["exact", "murmur"])
 @pytest.mark.parametrize("weights", ["unit", "random"])
 @pytest.mark.parametrize("masked,preload", [(False, False), (True, True)])
-def test_placement_kernel_matches_plain_version(card, multipod, backend,
-                                                weights, masked, preload):
+@pytest.mark.parametrize("instance", ["shared", "global"])
+def test_placement_kernel_matches_plain_version(card, multipod, multipod3,
+                                                backend, weights, masked,
+                                                preload, instance):
     """The chain's kernel (a warp per seed) against its plain version on
     the same inputs: link ids, the float64 load tally and the hop count
-    bit for bit, for any weights (each seed sums in flow order)."""
-    comp, flows = multipod
+    bit for bit, for any weights (each seed sums in flow order), with
+    the tables in shared memory and, on three pods, in global memory."""
+    comp, flows = multipod if instance == "shared" else multipod3
+    assert placement_plan(comp).shared_tables == (instance == "shared")
     case = placement_case(comp, flows, T.flow_fields_matrix(flows, "5tuple"),
                           37, weights, masked, preload,
                           np.random.default_rng(5))
@@ -267,6 +308,45 @@ def test_placement_kernel_matches_plain_version(card, multipod, backend,
     assert got[:2] == want[:2] and want[1] is None
     assert torch.equal(got[2].cpu(), want[2])
     assert torch.equal(got[3].cpu(), want[3])
+
+
+def test_ordered_bin_sum_matches_plain_version(card):
+    """Byte weights over a wide range: the kernel's per-bin sums are
+    ``torch.bincount``'s on the CPU bit for bit, and the same on every
+    run; keys at the skip bin are left out."""
+    rng = np.random.default_rng(4)
+    n_bins, m = 3_000, 400_000
+    keys = torch.from_numpy(rng.integers(0, n_bins + 1, m).astype(np.int32))
+    w = torch.from_numpy(np.where(rng.random(m) < 0.5, 2.0**20, 2.0**30)
+                         / 5.4e8 * rng.choice([1.0, 1 / 3, 0.7], m))
+    want = torch.bincount(keys, weights=w, minlength=n_bins + 1)[:n_bins]
+    loads_ops.reset_launches()
+    got = [loads_ops.ordered_bin_sum(keys.to(card), w.to(card), n_bins)
+           for _ in range(2)]
+    assert loads_ops.LAUNCHES == {"ordered_bin_sum": 2}
+    for g in got:
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), want)
+
+
+def test_ordered_bin_sum_raises_instead_of_falling_back(card, monkeypatch):
+    monkeypatch.setattr(loads_ops, "ordered_bin_sum_ref", None)
+    keys = torch.zeros(8, dtype=torch.int32, device=card)
+    w = torch.ones(8, dtype=torch.float64, device=card)
+    assert loads_ops.ordered_bin_sum(keys, w, 2).tolist() == [8.0, 0.0]
+    with pytest.raises(TypeError):
+        loads_ops.ordered_bin_sum(keys.long(), w, 2)
+
+
+def test_smem_latency_probe_counts_cycles(card):
+    """The chain bound's shared-memory latency: a dependent load takes
+    tens of cycles, and the steps' time is the clock's cycles."""
+    out = torch.zeros(34, dtype=torch.int64, device=card)
+    rc = pl_build.load().smem_latency_probe(
+        out.data_ptr(), 4096, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    cycles, ns = out[:2].tolist()
+    assert 10 < cycles / 4096 < 200 and ns > 0
 
 
 def test_placement_kernel_reports_the_plain_versions_fault(card, multipod):
@@ -305,7 +385,8 @@ def test_card_strategies_never_take_the_plain_hash(card, multipod,
     """On the card every walk of every strategy launches the hash kernel
     and every sequential chain the placement kernel: no plain version
     (the murmur, under every name a module of the port imports it by,
-    or the chain's host loop) ever sees a CUDA tensor."""
+    the chain's host loop, or the CPU's ordered load sum) ever sees a
+    CUDA tensor."""
     comp, flows = multipod
 
     def guarded(real):
@@ -319,22 +400,27 @@ def test_card_strategies_never_take_the_plain_hash(card, multipod,
     for module in list(sys.modules.values()):
         if not getattr(module, "__name__", "").startswith("repro_torch"):
             continue
-        for name in ("murmur_hash_grid_ref", "congestion_place_ref"):
+        for name in ("murmur_hash_grid_ref", "congestion_place_ref",
+                     "ordered_bin_sum_ref"):
             if hasattr(module, name):
                 monkeypatch.setattr(module, name,
                                     guarded(getattr(module, name)))
     for case in ("prime-spray", "adaptive-spray", "congestion-aware",
-                 "wave-path", "wave-residue"):
+                 "wave-path", "wave-residue", "adaptive-spray:bytes"):
+        name, _, demand = case.partition(":")
         ops.reset_launches()
         pl_ops.reset_launches()
+        loads_ops.reset_launches()
         res = T.simulate_paths(comp, flows, SEEDS,
-                               strategy=STRATEGY_CASES[case](),
-                               hash_backend="murmur")
-        chained = case == "congestion-aware" or res.residue_placed
-        assert case != "wave-residue" or res.residue_placed
+                               strategy=STRATEGY_CASES[name](),
+                               hash_backend="murmur",
+                               demand_mode=demand or "uniform")
+        chained = name == "congestion-aware" or res.residue_placed
+        assert name != "wave-residue" or res.residue_placed
         assert (ops.LAUNCHES["murmur_hash_grid"] > 0
-                or case == "congestion-aware"), case
+                or name == "congestion-aware"), case
         assert pl_ops.LAUNCHES["congestion_place"] == int(chained), case
+        assert (loads_ops.LAUNCHES["ordered_bin_sum"] > 0) == bool(demand)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

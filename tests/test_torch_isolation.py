@@ -46,6 +46,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     for module in ("repro_torch.core.vector_throughput",
                    "repro_torch.core.strategies",
                    "repro_torch.kernels.flowhash.build",
+                   "repro_torch.kernels.loads.build",
+                   "repro_torch.kernels.loads.ops",
                    "repro_torch.kernels.placement.build",
                    "repro_torch.kernels.placement.ops",
                    "repro_torch.kernels.flash_attention.build",

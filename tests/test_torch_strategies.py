@@ -376,11 +376,11 @@ def test_row_sum_is_numpys_pairwise_sum(n):
 
 def test_byte_demand_adaptive_spray_depends_on_summation_order(
         paper_compiled):
-    """Why byte-demand adaptive spraying is not bit-reproducible on the
-    card, where the load bincount sums with atomics: summing the same
-    cells in another order moves some loads by an ulp, and decisions
-    that tie in exact arithmetic go the other way.  Under unit demand
-    with K = 8 every sum is exact and the order is immaterial."""
+    """Why byte-demand load sums take the ordered sum on the card, where
+    a bincount sums with atomics: summing the same cells in another
+    order moves some loads by an ulp, and decisions that tie in exact
+    arithmetic go the other way.  Under unit demand with K = 8 every sum
+    is exact and the order is immaterial."""
     wl = R.bipartite_pairs([R.server_name(i) for i in range(8)],
                            [R.server_name(8 + i) for i in range(8)],
                            flows_per_pair=16)
