@@ -46,7 +46,24 @@ once) and then:
    ``monte_carlo_throughput`` over 1,024 seeds and the paper's
    four-stage ``simulate_paper_paths`` — and checks its first two seeds
    against the CPU path;
-5. drives the routing strategies: the sequential placement kernel
+5. drives the paper's Algorithm 1 and Fig. 3 comparison ("fig3"): the
+   port's hop-by-hop ``FlowTracer`` with ECMP at seed 7 on the paper
+   testbed must give the JAX package's FIM (29.1015625 and its four
+   layers); the card's ``exact`` walks of four seeds under each field
+   mode must give the tracer's paths (``paths_for_seed``) and the
+   card's max-min fill its per-pair rates by the scalar model
+   (``pair_throughput_for_seed``, 1e-9); ``static_route_assignment``
+   must give FIM 0.0 with 1,024 table entries and every pair at 400
+   Gb/s, replayed by ``StaticRouting`` through the tracer, and
+   ``hop_greedy`` 25.0; the ECMP arm, ``monte_carlo_fim`` over seeds
+   0..1023 on the card (``murmur``, the murmur-grid kernel), must give
+   the anchor's FIM mean and a reduction of at least 15 points; the
+   reduced multipod fabric of ``benchmarks/monte_carlo_fim.py`` gives
+   static FIM 0.0 and tracer FIM 61.40625 at seed 7; and at full scale
+   the card's walk of seed 7 must equal traces of 8 host pairs (6,400
+   flows) by 4 worker processes started after the card's work, and by
+   one;
+6. drives the routing strategies: the sequential placement kernel
    (a warp per seed, load rows and compact tables in shared memory)
    must equal its plain version bit for bit (link ids and float64
    loads) on 102,400 flows x 64 seeds with a residue mask, and is timed
@@ -67,18 +84,18 @@ once) and then:
    link ids and rounds, FIM to 1e-12, rates and goodput to 1e-9; and
    byte-demand ``adaptive-spray`` and ``adaptive-spray-elephant`` route
    the paper testbed's 1,024 seeds with the same link ids on both;
-6. drives granite-3-2b serving at full width and depth (40 layers,
+7. drives granite-3-2b serving at full width and depth (40 layers,
    bf16, weights from a seeded generator on the card): ``prefill_logits``
    on 2 x 32,768 tokens (40 flash-attention launches), ``generate`` for
    4 x 2,304-token prompts and 16 greedy tokens with the decode logits
    checked against the prefill's, and a 2-layer f32 prefill on the card
    against the CPU;
-7. drives mamba2-1.3b serving at full width and depth (48 layers, bf16,
+8. drives mamba2-1.3b serving at full width and depth (48 layers, bf16,
    Mamba-2's dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (48
    SSD launches), ``generate`` for 4 x 520-token prompts and 16 greedy
    tokens with the decode logits checked against the prefill's, and a
    2-layer f32 prefill on the card against the CPU;
-8. prints the ``kernels`` record and, last, the one-line result.
+9. prints the ``kernels`` record and, last, the one-line result.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel that its path never launched fails the
@@ -158,6 +175,24 @@ STRATEGY_ANCHORS = {
     ("adaptive-spray-elephant", "bytes"):
         (58.06043931914546, 17.932433883364403, 0.36057408148643516),
 }
+# The JAX package's hop-by-hop tracer (Algorithm 1) with ECMP at seed 7 on
+# the paper testbed (256 bipartite flows): aggregate and per-layer FIM,
+# and static placement's hop_greedy FIM.  Made with
+#   PYTHONPATH=src python -c 'import repro.core as R; f = R.build_paper_testbed(); w = R.bipartite_pairs([R.server_name(i) for i in range(8)], [R.server_name(8 + i) for i in range(8)], flows_per_pair=16); x = R.synthesize_flows(w, nic_ip=R.nic_ip, nics_per_server=2); p = R.FlowTracer(f, R.EcmpRouting(f, seed=7), w, x).trace().paths; print(R.fim(p, f), R.per_layer_fim(p, f), R.fim(R.static_route_assignment(f, x, mode="hop_greedy")[1], f))'
+FIG3_FIM = 29.1015625
+FIG3_LAYERS = {"host-to-leaf": 30.46875, "leaf-to-host": 19.53125,
+               "leaf-to-spine": 33.59375, "spine-to-leaf": 32.8125}
+FIG3_HOP_GREEDY = 25.0
+# The same on the reduced multipod fabric of benchmarks/monte_carlo_fim.py
+# (2 pods x 16 hosts, 4 leaves a pod, 8 spines, 256 flows): the tracer's
+# FIM at seed 7 and static placement's.  Made with
+#   PYTHONPATH=src python -c 'import repro.core as R; f = R.build_multipod_fabric(num_pods=2, hosts_per_pod=16, leaves_per_pod=4, num_spines=8); w = R.bipartite_pairs([f"host-{i}" for i in range(16)], [f"host-{16 + i}" for i in range(16)], flows_per_pair=8); x = R.synthesize_flows(w, nic_ip=R.nic_ip, nics_per_server=1); print(len(x), R.fim(R.FlowTracer(f, R.EcmpRouting(f, seed=7), w, x).trace().paths, f), R.fim(R.static_route_assignment(f, x)[1], f))'
+FIG3_MULTIPOD_FIM = 61.40625
+# the least ECMP-minus-static FIM, in points (tests/test_system.py; the
+# paper's 36.5 - 6.2 = 30.3)
+FIG3_REDUCTION_MIN = 15.0
+FIG3_SEEDS = [0, 7, 1234567, 2**40 + 17]   # walks held against the tracer
+FIG3_PAIRS = 8                 # full-scale host pairs traced by processes
 # tests/test_kernels.py pins these for the Pallas bulk_hash kernel:
 # rng(42) fields (4096, 5) below 2**31, seed 12345
 PINNED_HEAD = [1282828036, 453300701, 462728589, 1920719609]
@@ -556,6 +591,170 @@ def phase_full_scale(np, torch):
               "fill_rounds": tp.fill_rounds, "walk_peak_bytes": walk_peak,
               "fill_peak_bytes": fill_peak},
           })
+    return launches
+
+
+def link_names(paths) -> dict:
+    return {k: [ln.name for ln in v] for k, v in paths.items()}
+
+
+def phase_fig3(np, torch):
+    """The paper's Algorithm 1 and Fig. 3 comparison on the port: the
+    hop-by-hop tracer against the vector engine's walks on the card
+    (``exact``, the tracer's hash), static routing against an ECMP arm
+    on the card (``murmur``, the murmur-grid kernel); returns the launch
+    counts of the phase."""
+    import repro_torch.core as T
+    from repro_torch.kernels.flowhash import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    # 1. paper testbed: Algorithm 1 against the vector engine on the card
+    fab = T.build_paper_testbed()
+    comp = T.compile_fabric(fab)
+    wl = T.bipartite_pairs([T.server_name(i) for i in range(8)],
+                           [T.server_name(8 + i) for i in range(8)],
+                           flows_per_pair=16)
+    flows = T.synthesize_flows(wl, nic_ip=T.nic_ip, nics_per_server=2)
+    t = time.perf_counter()
+    traced = T.FlowTracer(fab, T.EcmpRouting(fab, seed=7), wl, flows,
+                          num_threads=8).trace()
+    trace_s = time.perf_counter() - t
+    ecmp_fim = T.fim(traced.paths, fab)
+    check(ecmp_fim == FIG3_FIM, f"tracer FIM {ecmp_fim!r} != {FIG3_FIM!r}")
+    layers = {k: v for k, (v, _) in T.per_layer_fim(traced.paths,
+                                                     fab).items()}
+    check(layers == FIG3_LAYERS, f"tracer per-layer FIM {layers}")
+    walks = {}
+    for mode in (T.FIELDS_5TUPLE, T.FIELDS_VXLAN, T.FIELDS_IP_PAIR):
+        res = T.simulate_paths(comp, flows, FIG3_SEEDS, fields=mode,
+                               hash_backend="exact")
+        check(res.link_ids.is_cuda, "the walk did not run on the card")
+        for i, seed in enumerate(FIG3_SEEDS):
+            want = T.FlowTracer(fab, T.EcmpRouting(fab, seed=seed,
+                                                   fields=mode),
+                                wl, flows).trace()
+            check(link_names(res.paths_for_seed(i)) ==
+                  link_names(want.paths),
+                  f"{mode} seed {seed}: paths_for_seed != the tracer")
+        walks[mode] = "identical"
+    mc = T.monte_carlo_throughput(comp, flows, [7, 11, 42],
+                                  hash_backend="exact")
+    check(mc.per_pair.is_cuda and mc.num_seeds == 3, "throughput sweep")
+    scalar = T.per_pair_throughput(flows, traced.paths)
+    vec = mc.pair_throughput_for_seed(0)
+    check(set(vec) == set(scalar), "pair sets differ")
+    pair_err = max(abs(vec[p] - r) / r for p, r in scalar.items())
+    check(pair_err <= 1e-9,
+          f"pair_throughput_for_seed vs the scalar model: rel {pair_err:.3g}")
+
+    # 2. static routing against the ECMP arm on the card
+    t = time.perf_counter()
+    table, static_paths = T.static_route_assignment(fab, flows)
+    static_s = time.perf_counter() - t
+    static_fim = T.fim(static_paths, fab)
+    check(abs(static_fim) <= 1e-9, f"static FIM {static_fim!r}")
+    check(len(table) == 1024, f"{len(table)} static table entries")
+    static_pairs = T.per_pair_throughput(flows, static_paths)
+    check(all(abs(r - 400.0) < 1e-6 for r in static_pairs.values()),
+          "a static pair below 400 Gb/s")
+    replay = T.FlowTracer(fab, T.StaticRouting(fab, table), wl, flows,
+                          num_threads=8).trace()
+    check(link_names(replay.paths) == link_names(static_paths),
+          "StaticRouting through the tracer != the planned paths")
+    _, greedy = T.static_route_assignment(fab, flows, mode="hop_greedy")
+    greedy_fim = T.fim(greedy, fab)
+    check(greedy_fim == FIG3_HOP_GREEDY, f"hop_greedy FIM {greedy_fim!r}")
+    grid_before = ops.LAUNCHES["murmur_hash_grid"]
+    t = time.perf_counter()
+    arm = T.monte_carlo_fim(comp, flows, np.arange(1024))
+    arm_mean = float(arm.aggregate.mean())
+    arm_s = time.perf_counter() - t
+    arm_launches = ops.LAUNCHES["murmur_hash_grid"] - grid_before
+    check(arm_launches > 0, "the ECMP arm never launched the murmur kernel")
+    rel = abs(arm_mean - ANCHORS["murmur"][0]) / ANCHORS["murmur"][0]
+    check(rel <= ANCHOR_RTOL,
+          f"ECMP arm FIM mean {arm_mean!r} != {ANCHORS['murmur'][0]!r}")
+    reduction = arm_mean - static_fim
+    check(reduction >= FIG3_REDUCTION_MIN, f"reduction {reduction!r}")
+
+    # 3. the reduced multipod fabric of benchmarks/monte_carlo_fim.py
+    mfab = T.build_multipod_fabric(num_pods=2, hosts_per_pod=16,
+                                   leaves_per_pod=4, num_spines=8)
+    mwl = T.bipartite_pairs([f"host-{i}" for i in range(16)],
+                            [f"host-{16 + i}" for i in range(16)],
+                            flows_per_pair=8)
+    mflows = T.synthesize_flows(mwl, nic_ip=T.nic_ip, nics_per_server=1)
+    check(len(mflows) == 256, f"{len(mflows)} reduced multipod flows")
+    t = time.perf_counter()
+    _, mstatic = T.static_route_assignment(mfab, mflows)
+    mstatic_s = time.perf_counter() - t
+    check(abs(T.fim(mstatic, mfab)) <= 1e-9, "multipod static FIM")
+    mtraced = T.FlowTracer(mfab, T.EcmpRouting(mfab, seed=7), mwl, mflows,
+                           num_threads=8).trace()
+    mfim = T.fim(mtraced.paths, mfab)
+    check(mfim == FIG3_MULTIPOD_FIM, f"multipod tracer FIM {mfim!r}")
+    mres = T.simulate_paths(T.compile_fabric(mfab), mflows, [7],
+                            hash_backend="exact")
+    check(link_names(mres.paths_for_seed(0)) == link_names(mtraced.paths),
+          "multipod: paths_for_seed != the tracer")
+
+    # 4. full scale: the card's walk of seed 7 against traces of 8 host
+    # pairs, one spread over processes started after the card's work
+    big = T.build_multipod_fabric()
+    bcomp = T.compile_fabric(big)
+    bwl = T.bipartite_pairs([f"host-{i}" for i in range(64)],
+                            [f"host-{64 + i}" for i in range(64)],
+                            FLOWS_PER_PAIR)
+    bflows = T.synthesize_flows(bwl, nic_ip=T.nic_ip, nics_per_server=1)
+    check(len(bflows) == GRID_FLOWS, f"{len(bflows)} full-scale flows")
+    bres, walk_s, _ = timed(lambda: T.simulate_paths(
+        bcomp, bflows, [7], hash_backend="exact"))
+    t = time.perf_counter()
+    bpaths = bres.paths_for_seed(0)
+    pfs_s = time.perf_counter() - t
+    check(len(bpaths) == GRID_FLOWS, "paths_for_seed lost flows")
+    sub = T.WorkloadDescription(pairs=bwl.pairs[:FIG3_PAIRS])
+    keys = {(p.src, p.dst) for p in sub.pairs}
+    sflows = [f for f in bflows if (f.src, f.dst) in keys]
+    check(len(sflows) == FIG3_PAIRS * FLOWS_PER_PAIR, "traced flow count")
+    routing = T.EcmpRouting(big, seed=7)
+    t = time.perf_counter()
+    par = T.FlowTracer(big, routing, sub, sflows, num_processes=4,
+                       num_threads=4).trace()
+    par_s = time.perf_counter() - t
+    t = time.perf_counter()
+    serial = T.FlowTracer(big, routing, sub, sflows).trace()
+    serial_s = time.perf_counter() - t
+    got = link_names(par.paths)
+    check(got == link_names(serial.paths),
+          "the process-parallel trace != the serial one")
+    check(got == {k: [ln.name for ln in bpaths[k]] for k in got},
+          "full scale: paths_for_seed != the tracer")
+    launches = dict(ops.LAUNCHES)
+    check(launches["murmur_hash_grid"] == arm_launches,
+          "a murmur launch outside the ECMP arm")
+
+    emit({"phase": "fig3", "fabric": "paper-testbed", "flows": len(flows),
+          "tracer_fim_seed7": ecmp_fim, "tracer_per_layer_fim": layers,
+          "trace_s": trace_s, "walks_vs_tracer": walks,
+          "walk_seeds": [str(x) for x in FIG3_SEEDS],
+          "pair_throughput_rel_err": pair_err,
+          "static_fim": static_fim, "static_entries": len(table),
+          "static_s": static_s, "hop_greedy_fim": greedy_fim,
+          "ecmp_arm": {"seeds": 1024, "hash_backend": "murmur",
+                       "fim_mean": arm_mean, "wall_s": arm_s,
+                       "murmur_launches": arm_launches},
+          "reduction_pct": reduction,
+          "multipod_reduced": {"flows": len(mflows), "tracer_fim_seed7": mfim,
+                               "static_fim": T.fim(mstatic, mfab),
+                               "static_s": mstatic_s},
+          "full_scale": {"flows": len(bflows), "walk_s": walk_s,
+                         "traced_flows": len(sflows),
+                         "trace_processes_s": par_s,
+                         "trace_serial_s": serial_s},
+          "paths_for_seed_s": pfs_s,
+          "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -1718,6 +1917,7 @@ def main() -> int:
                                           phase_ssd(np, torch)]
     phase_anchor(np)
     launches = phase_full_scale(np, torch)
+    launches["murmur_hash_grid"] += phase_fig3(np, torch)["murmur_hash_grid"]
     strat_records, strat = phase_strategies(np, torch)
     records[2:2] = strat_records
     records[0]["f7"]["launches"] = strat.pop("murmur_hash_grid_f7")

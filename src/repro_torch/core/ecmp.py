@@ -1,15 +1,21 @@
-"""ECMP hash fields and the equal-cost candidate sets.
+"""Routing policies: ECMP hashing (with VXLAN entropy reduction) and
+preprogrammed static routing.
 
-The port's own copy of the parts of ``repro.core.ecmp`` that the
-Monte-Carlo path needs: the splitmix64-over-CRC32 ``ecmp_hash`` (which
-the VXLAN field mode folds the inner 5-tuple with), the per-flow hash
-fields in all three modes, and the ``Forwarder`` whose candidate order
-``compile_fabric`` records.  ``EcmpRouting``, ``StaticRouting`` and the
-hop-by-hop tracer come with a later slice of the port.
+The port's own copy of ``repro.core.ecmp`` (the port imports nothing of
+``repro``); keep the two in step.  The splitmix64-over-CRC32
+``ecmp_hash`` (which the VXLAN field mode folds the inner 5-tuple with),
+the per-flow hash fields in all three modes and the ``Forwarder``, whose
+candidate order ``compile_fabric`` records, feed the Monte-Carlo walk.
+``EcmpRouting`` picks by hashing flow headers per switch under
+``device_seed`` (why collisions differ hop to hop); ``StaticRouting``
+consults a preprogrammed table (the paper's second configuration).  The
+hop-by-hop tracer (``core/tracer.py``) asks these policies at every hop,
+and the walk under the ``exact`` backend makes the same choices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from collections.abc import Sequence
 
@@ -48,6 +54,14 @@ def ecmp_hash(fields: Sequence[int], seed: int) -> int:
     for f in fields:
         h = _mix64(h ^ (f & _MASK))
     return h
+
+
+def device_seed(device: str, seed: int) -> int:
+    """The effective per-switch hash seed: every device salts the shared
+    run seed with a stable digest of its own name (real switches differ in
+    per-ASIC seeds the same way — that is why collisions differ hop to
+    hop)."""
+    return _crc(device) ^ seed
 
 
 def flow_hash_fields(flow: Flow, mode: str) -> list[int]:
@@ -138,3 +152,57 @@ class Forwarder:
             downs = fab.links_between(device, dst_leaf)
             return sorted(downs, key=lambda l: l.src_port)
         raise ValueError(f"unknown device kind {kind}")
+
+
+# ---------------------------------------------------------------------------
+# Policies
+# ---------------------------------------------------------------------------
+
+
+class RoutingPolicy:
+    """Interface: the forwarding decision a device would reveal via its
+    hash-visibility CLI (switches) or driver/route table (servers)."""
+
+    def egress(self, device: str, flow: Flow, ingress_port: str | None) -> Link:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class EcmpRouting(RoutingPolicy):
+    fabric: Fabric
+    seed: int = 0
+    fields: str = FIELDS_5TUPLE
+
+    def __post_init__(self):
+        self.forwarder = Forwarder(self.fabric)
+
+    def egress(self, device: str, flow: Flow, ingress_port: str | None) -> Link:
+        cands = self.forwarder.candidates(device, flow)
+        if len(cands) == 1:
+            return cands[0]
+        h = ecmp_hash(flow_hash_fields(flow, self.fields),
+                      device_seed(device, self.seed))
+        return cands[h % len(cands)]
+
+
+class StaticRouting(RoutingPolicy):
+    """Preprogrammed routing: an explicit (device, flow) -> egress-port map,
+    as produced by placement.static_route_assignment.  Falls back to the
+    single candidate when no choice exists."""
+
+    def __init__(self, fabric: Fabric, table: dict[tuple[str, int], str]):
+        self.fabric = fabric
+        self.forwarder = Forwarder(fabric)
+        self.table = table  # (device, flow_id) -> src_port
+
+    def egress(self, device: str, flow: Flow, ingress_port: str | None) -> Link:
+        port = self.table.get((device, flow.flow_id))
+        if port is not None:
+            return self.fabric.link_from_port(device, port)
+        cands = self.forwarder.candidates(device, flow)
+        if len(cands) != 1:
+            raise KeyError(
+                f"static table has no entry for ({device}, flow {flow.flow_id}) "
+                f"and {len(cands)} candidates exist"
+            )
+        return cands[0]

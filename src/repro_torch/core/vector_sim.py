@@ -354,6 +354,22 @@ class VectorTraceResult:
         path-length grid the reordering model's skew term reads."""
         return (self.link_ids >= 0).sum(0)
 
+    def paths_for_seed(self, seed_index: int) -> dict[int, list]:
+        """Materialize one seed's paths in ``FlowTracer`` format (each a
+        list of ``Link``), for differential testing and drop-in use with
+        the dict-based tools (``fim``, ``per_pair_throughput``,
+        ``analyze_paths``).  Single-path results only; multi-path callers
+        want ``flowlet_paths_for_seed``.  The seed's (H, N) slice is read
+        to the host in one copy."""
+        if self.is_multipath:
+            raise ValueError(
+                f"{self.strategy!r} result has {self.num_flowlets} flowlets "
+                f"for {self.num_flows} flows; use flowlet_paths_for_seed")
+        links = self.compiled.links
+        cols = self.link_ids[:, :, seed_index].T.tolist()
+        return {flow.flow_id: [links[i] for i in col if i >= 0]
+                for flow, col in zip(self.flows, cols)}
+
     def flowlet_paths_for_seed(self, seed_index: int) -> dict[int, list]:
         """One seed's paths per flow id, as a *list* of flowlet paths
         (each a list of ``Link``)."""

@@ -246,6 +246,18 @@ class MonteCarloThroughput:
         if self.goodput is None:
             self.goodput = self.rates.clone()
 
+    @property
+    def num_seeds(self) -> int:
+        return len(self.seeds)
+
+    def pair_throughput_for_seed(
+        self, seed_index: int
+    ) -> dict[tuple[str, str], float]:
+        """One seed's pair throughputs in ``per_pair_throughput`` format
+        (the seed's column read to the host in one copy)."""
+        col = self.per_pair[:, seed_index].tolist()
+        return dict(zip(self.pairs, col))
+
     def summary(self) -> dict[str, dict[str, float]]:
         per_pair = self.per_pair.cpu().numpy()
         rows = {

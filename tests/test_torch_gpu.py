@@ -25,7 +25,10 @@ kernel to 1e-5 in f32 and 5e-2 in bf16 (the JAX package's tolerances for
 its SSD kernel) and to its own row limits (``ref.ROW_RTOL`` and
 ``ref.STATE_ROW_RTOL``);
 the reduced granite and mamba2 models on the card must match the CPU in
-f32 with TF32 off.
+f32 with TF32 off.  The bridges to the hop-by-hop tracer must hold on the
+card: ``paths_for_seed`` of an ``exact`` walk equals the CPU's and the
+tracer's paths, ``pair_throughput_for_seed`` the CPU's to 1e-9, and the
+tracer's process pool, started after the card's work, the serial trace.
 """
 
 import sys
@@ -181,6 +184,58 @@ def test_fim_and_rates_on_card_equal_cpu(card, multipod, demand,
                                rtol=1e-9, atol=0)
     np.testing.assert_allclose(got.per_pair.cpu().numpy(),
                                want.per_pair.numpy(), rtol=1e-9, atol=0)
+
+
+def _names(paths):
+    return {k: [ln.name for ln in v] for k, v in paths.items()}
+
+
+@pytest.mark.parametrize("mode", ["5tuple", "vxlan", "ip-pair"])
+def test_paths_for_seed_on_card_equal_cpu_and_the_tracer(card, multipod,
+                                                          mode):
+    comp, flows = multipod
+    seeds = [0, 7, 1234567, 2**40 + 17]
+    got = T.simulate_paths(comp, flows, seeds, fields=mode,
+                           hash_backend="exact")
+    want = T.simulate_paths(comp, flows, seeds, fields=mode,
+                            hash_backend="exact", device="cpu")
+    assert got.link_ids.device.type == "cuda"
+    wl = T.workload_from_flows(flows)
+    for i, seed in enumerate(seeds):
+        paths = _names(got.paths_for_seed(i))
+        assert paths == _names(want.paths_for_seed(i))
+        traced = T.FlowTracer(comp.fabric, T.EcmpRouting(
+            comp.fabric, seed=seed, fields=mode), wl, flows).trace()
+        assert paths == _names(traced.paths)
+
+
+def test_pair_throughput_for_seed_on_card_equals_cpu(card, multipod):
+    comp, flows = multipod
+    seeds = [7, 11, 42]
+    got = T.monte_carlo_throughput(comp, flows, seeds, hash_backend="exact")
+    want = T.monte_carlo_throughput(comp, flows, seeds, hash_backend="exact",
+                                    device="cpu")
+    assert got.per_pair.device.type == "cuda" and got.num_seeds == 3
+    for i in range(3):
+        a, b = got.pair_throughput_for_seed(i), want.pair_throughput_for_seed(i)
+        assert list(a) == list(b)
+        for pair, rate in b.items():
+            assert a[pair] == pytest.approx(rate, rel=1e-9, abs=0)
+
+
+def test_process_trace_after_card_work_equals_serial(card, multipod):
+    """The tracer's process pool, started from a process that holds a
+    CUDA context, gives the serial paths."""
+    comp, flows = multipod
+    res = T.simulate_paths(comp, flows, [7], hash_backend="exact")
+    torch.cuda.synchronize()
+    wl = T.workload_from_flows(flows)
+    routing = T.EcmpRouting(comp.fabric, seed=7)
+    serial = T.FlowTracer(comp.fabric, routing, wl, flows).trace()
+    par = T.FlowTracer(comp.fabric, routing, wl, flows, num_processes=4,
+                       num_threads=4).trace()
+    assert _names(par.paths) == _names(serial.paths)
+    assert _names(par.paths) == _names(res.paths_for_seed(0))
 
 
 #: every registered strategy, and the wave forced onto its own path

@@ -45,6 +45,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                          timeout=120).stdout.split()
     for module in ("repro_torch.core.vector_throughput",
                    "repro_torch.core.strategies",
+                   "repro_torch.core.tracer", "repro_torch.core.placement",
+                   "repro_torch.core.fim", "repro_torch.core.report",
                    "repro_torch.kernels.flowhash.build",
                    "repro_torch.kernels.loads.build",
                    "repro_torch.kernels.loads.ops",
