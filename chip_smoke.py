@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (any
-card with ``nvcc`` for ``sm_90a``).  It builds the five kernel
+card with ``nvcc`` for ``sm_90a``).  It builds the six kernel
 libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu``,
 ``src/repro_torch/kernels/placement/csrc/placement.cu``,
 ``src/repro_torch/kernels/loads/csrc/loads.cu``,
+``src/repro_torch/kernels/drain/csrc/drain.cu``,
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`` and
-``src/repro_torch/kernels/ssd/csrc/ssd.cu``, five ``nvcc`` processes at
+``src/repro_torch/kernels/ssd/csrc/ssd.cu``, six ``nvcc`` processes at
 once) and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
@@ -84,24 +85,49 @@ once) and then:
    link ids and rounds, FIM to 1e-12, rates and goodput to 1e-9; and
    byte-demand ``adaptive-spray`` and ``adaptive-spray-elephant`` route
    the paper testbed's 1,024 seeds with the same link ids on both;
-7. drives granite-3-2b serving at full width and depth (40 layers,
+7. drives the phased LLM training step ("timeline"): the departure
+   drain's two-flow case (0.16 / 0.32 s) on the card (the drain is the
+   kernel ``kernels/drain/csrc/drain.cu``, every seed's whole drain one
+   block of one launch); at the bench
+   shapes (seeds 0..7) under ``exact`` and ``murmur``, the paper-testbed
+   LLM schedule's static FIM and goodput and event JCT and FIM, the
+   multipod disjoint-elephant schedule's event JCT under ECMP,
+   ``prime-spray`` and the wave, and its merged and phased FIM, each
+   within 1e-9 of the JAX package's numpy-engine value; at full width
+   (the multipod job on all 128 hosts of the default fabric: 4,304
+   flows, 5 steps; byte demand, ``roce-nack``, event timing, 64 seeds)
+   ECMP, the wave, ``prime-spray`` and ``adaptive-spray``, and
+   ``adaptive-spray`` over the DP-overlap schedule (where its load sums
+   take the ordered-sum kernel), each with its route, fill and drain
+   times, drain and fill rounds, JCT mean and p99 and step durations
+   (the adaptive drives' seeds are cut, and the cut printed, if the
+   phase would pass 90 s); ECMP and the wave at full width on seeds
+   0 and 1 on the card and on the CPU: every step's link ids identical,
+   completion times, step durations and JCT within 1e-9; and the drain
+   kernel against its plain version on the card, on the inputs ECMP's
+   widest step gave it (4,096 columns x 64 seeds), completion times
+   within 1e-9 relative (drain rounds reported, not compared);
+8. drives granite-3-2b serving at full width and depth (40 layers,
    bf16, weights from a seeded generator on the card): ``prefill_logits``
    on 2 x 32,768 tokens (40 flash-attention launches), ``generate`` for
    4 x 2,304-token prompts and 16 greedy tokens with the decode logits
    checked against the prefill's, and a 2-layer f32 prefill on the card
    against the CPU;
-8. drives mamba2-1.3b serving at full width and depth (48 layers, bf16,
+9. drives mamba2-1.3b serving at full width and depth (48 layers, bf16,
    Mamba-2's dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (48
    SSD launches), ``generate`` for 4 x 520-token prompts and 16 greedy
    tokens with the decode logits checked against the prefill's, and a
    2-layer f32 prefill on the card against the CPU;
-9. prints the ``kernels`` record and, last, the one-line result.
+10. prints the ``kernels`` record and, last, the one-line result.
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel that its path never launched fails the
 run, and so does a strategy whose walk made fewer murmur launches than
 its paths have hops, a chain that did not launch the placement
-kernel, or a byte-demand re-spray that did not launch the ordered sum.  The flow hash's launches are counted by the width they hashed:
+kernel, a byte-demand re-spray that did not launch the ordered sum, or a
+timeline phase that did not launch the flow hash at 5 and at 7 fields,
+the placement kernel, the ordered sum and the drain (its launches join
+the ``kernels`` line's counts).  The flow hash's launches are counted by the width they hashed:
 the ``kernels`` line gives the 5-field launches on the murmur row and
 the 7-field ones under its ``f7``.
 
@@ -193,6 +219,64 @@ FIG3_MULTIPOD_FIM = 61.40625
 FIG3_REDUCTION_MIN = 15.0
 FIG3_SEEDS = [0, 7, 1234567, 2**40 + 17]   # walks held against the tracer
 FIG3_PAIRS = 8                 # full-scale host pairs traced by processes
+# The JAX package's numpy-engine values for the phased LLM step at the
+# bench shapes, seeds 0..7.  The paper-testbed LLM schedule (336 flows,
+# 5 sequential steps, byte demand, roce-nack, prime-spray-elephant):
+# static FIM mean, static goodput mean, event JCT mean, event FIM mean,
+# per hash backend.  Made with
+#   PYTHONPATH=src python -c 'import numpy as np, repro.core as R
+#   c = R.compile_fabric(R.build_paper_testbed()); _, f, _, s = R.paper_testbed_llm_schedule()
+#   for b in ("exact", "murmur"):
+#     k = dict(demand_mode="bytes", transport="roce-nack", strategy="prime-spray-elephant", hash_backend=b)
+#     a = R.simulate_timeline(c, f, s, np.arange(8), **k); e = R.simulate_timeline(c, f, s, np.arange(8), timing="event", **k)
+#     print(b, a.fim.mean(), a.goodput.mean(), e.job_completion.mean(), e.fim.mean())'
+TIMELINE_PAPER = {
+    "exact": (133.71512276785714, 56.92891008831366, 1.0773051353950285,
+              130.64726421033623),
+    "murmur": (133.58677455357144, 56.74866925820838, 1.1004450181254815,
+               130.34317352396147),
+}
+# The multipod disjoint-elephant schedule of benchmarks/timeline.py (the
+# default multipod fabric; 520 flows: gradient all-reduce, then MoE
+# all-to-all; byte demand, event timing): mean JCT per (backend,
+# strategy), and the merged and phased static FIM (exact).  Made with
+#   PYTHONPATH=src python -c 'import numpy as np, repro.core as R
+#   c = R.compile_fabric(R.build_multipod_fabric()); _, f, _, _ = R.multipod_llm_schedule(param_bytes=20_000_000_000)
+#   f = [x for x in f if R.flow_channel(x) in (1, 4)]; s = [R.TimelineStep("ar", (1,)), R.TimelineStep("a2a", (4,))]
+#   for b in ("exact", "murmur"):
+#     for n in ("ecmp", "prime-spray", "wave-congestion-aware"):
+#       print(b, n, R.simulate_timeline(c, f, s, np.arange(8), demand_mode="bytes", strategy=n, timing="event", hash_backend=b).job_completion.mean())
+#   k = dict(demand_mode="bytes", hash_backend="exact")
+#   print(R.simulate_timeline(c, f, [R.merged_step(s)], np.arange(8), **k).fim.mean(), R.simulate_timeline(c, f, s, np.arange(8), **k).fim.mean())'
+TIMELINE_MULTIPOD_JCT = {
+    ("exact", "ecmp"): 3.01979711488,
+    ("exact", "prime-spray"): 2.40459203232,
+    ("exact", "wave-congestion-aware"): 1.51073741824,
+    ("murmur", "ecmp"): 3.01912602624,
+    ("murmur", "prime-spray"): 2.17017508928,
+    ("murmur", "wave-congestion-aware"): 1.51073741824,
+}
+TIMELINE_MERGED_FIM, TIMELINE_PHASED_FIM = 189.34082589747524, 179.6630859375
+TIMELINE_ANCHOR_SEEDS = 8
+# full width: the repo's multipod LLM job grown to all 128 hosts of the
+# default multipod fabric (4 chips a host, 8 hosts a pod, EP groups of
+# 16 hosts): 4,304 DCN flows over 5 sequential steps, event timing, byte
+# demand, roce-nack, 64 seeds; the DP-overlap schedule (2 fat steps and
+# the barrier, mixed volumes a step) under adaptive-spray, whose
+# byte-weighted load sums are then not exact in any order
+TL_HOSTS, TL_PARAM_BYTES, TL_FLOWS, TL_STEPS = 128, 20_000_000_000, 4_304, 5
+TL_SEEDS = 64
+TL_SWEEPS = (("ecmp", "sequential"), ("wave-congestion-aware", "sequential"),
+             ("prime-spray", "sequential"), ("adaptive-spray", "sequential"),
+             ("adaptive-spray", "dp-overlap"))
+TL_CHECK = ("ecmp", "wave-congestion-aware")   # card against CPU, seeds 0, 1
+TL_BUDGET_S = 90.0
+# what the budget keeps for the card-against-CPU check, and an adaptive
+# drive's time over prime-spray's, with a margin (its second drain
+# departs over about twice the epochs: 13.2 s against 4.1 s at full
+# width on an H100 with the drain kernel)
+TL_CHECK_RESERVE_S = 10.0
+TL_ADAPTIVE_OVER_SPRAY = 4.5
 # tests/test_kernels.py pins these for the Pallas bulk_hash kernel:
 # rng(42) fields (4096, 5) below 2**31, seed 12345
 PINNED_HEAD = [1282828036, 453300701, 462728589, 1920719609]
@@ -343,12 +427,14 @@ def timed(fn):
 def phase_build():
     """Build the kernel libraries with one ``nvcc`` process each, all at
     once."""
+    from repro_torch.kernels.drain import build as drain_build
     from repro_torch.kernels.flash_attention import build as fa_build
     from repro_torch.kernels.flowhash import build as fh_build
     from repro_torch.kernels.loads import build as loads_build
     from repro_torch.kernels.placement import build as pl_build
     from repro_torch.kernels.ssd import build as ssd_build
-    builds = (fh_build, pl_build, loads_build, fa_build, ssd_build)
+    builds = (fh_build, pl_build, loads_build, drain_build, fa_build,
+              ssd_build)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda b: b.build(), builds))
@@ -1211,6 +1297,302 @@ def phase_strategies(np, torch):
     return [record, sum_record], launches
 
 
+class StageClock:
+    """Host seconds a phased simulation spends in each stage: spies on
+    ``core.timeline``'s ``simulate_paths`` (route), ``_fill_seeds``
+    (the snapshot fill) and ``departure_fill`` (the drain), each ending
+    in a synchronise, and the routed link ids of every step."""
+
+    NAMES = {"simulate_paths": "route_s", "_fill_seeds": "fill_s",
+             "departure_fill": "drain_s"}
+
+    def __init__(self, torch, TL):
+        self.torch, self.TL = torch, TL
+        self.real = {n: getattr(TL, n) for n in self.NAMES}
+        self.reset()
+
+    def reset(self):
+        self.seconds = dict.fromkeys(self.NAMES.values(), 0.0)
+        self.link_ids = []
+
+    def __enter__(self):
+        for name, key in self.NAMES.items():
+            setattr(self.TL, name, self._spy(self.real[name], key))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.TL, name, fn)
+
+    def _spy(self, fn, key):
+        def run(*args, **kw):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.seconds[key] += time.perf_counter() - t
+            if key == "route_s":
+                self.link_ids.append(out.link_ids)
+            return out
+        return run
+
+
+def phase_timeline(np, torch):
+    """The phased LLM training step: anchors against the JAX package's
+    numpy engine under both hash backends and both timings, the
+    departure drain's analytic case, the full-width job over 64 seeds
+    per strategy, and ECMP and the wave at full width on the card and
+    the CPU; returns the launch counts of the phase."""
+    import repro_torch.core as T
+    import repro_torch.core.timeline as TL
+    from repro_torch.kernels.drain import ops as drain_ops
+    from repro_torch.kernels.flowhash import ops
+    from repro_torch.kernels.loads import ops as loads_ops
+    from repro_torch.kernels.placement import ops as pl_ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    pl_ops.reset_launches()
+    loads_ops.reset_launches()
+    drain_ops.reset_launches()
+
+    def close(got, want, what):
+        check(abs(got - want) <= ANCHOR_RTOL * abs(want),
+              f"timeline {what}: {got!r} != {want!r}")
+
+    # 1. the departure drain's two-flow analytic case, on the card
+    two = T.departure_fill(torch.zeros((1, 2, 3), dtype=torch.int64,
+                                       device="cuda"), [100.0], [8.0, 24.0])
+    check(two.completion.device.type == "cuda"
+          and np.allclose(two.completion.cpu().numpy(),
+                          [[0.16] * 3, [0.32] * 3], rtol=0, atol=1e-12)
+          and two.rounds == 2, f"two-flow drain {two}")
+
+    # 2. anchors at the bench shapes
+    t_anchor = time.perf_counter()
+    seeds = np.arange(TIMELINE_ANCHOR_SEEDS)
+    paper = T.compile_fabric(T.build_paper_testbed())
+    _, pflows, _, psched = T.paper_testbed_llm_schedule()
+    check(len(pflows) == 336 and len(psched) == 5, "paper LLM schedule")
+    big = T.compile_fabric(T.build_multipod_fabric())
+    _, mflows, _, _ = T.multipod_llm_schedule(param_bytes=TL_PARAM_BYTES)
+    sub = [f for f in mflows if T.flow_channel(f) in (T.CH_GRAD_AR,
+                                                       T.CH_MOE_A2A)]
+    two_steps = [T.TimelineStep("grad-all-reduce", (T.CH_GRAD_AR,)),
+                 T.TimelineStep("moe-all-to-all", (T.CH_MOE_A2A,))]
+    check(len(sub) == 520, f"{len(sub)} disjoint-elephant flows")
+    anchors = {}
+    for backend in ("exact", "murmur"):
+        kw = dict(demand_mode="bytes", transport="roce-nack",
+                  strategy="prime-spray-elephant", hash_backend=backend)
+        st = T.simulate_timeline(paper, pflows, psched, seeds, **kw)
+        ev = T.simulate_timeline(paper, pflows, psched, seeds,
+                                 timing="event", **kw)
+        got = (float(st.fim.mean()), float(st.goodput.mean()),
+               float(ev.job_completion.mean()), float(ev.fim.mean()))
+        for what, g, w in zip(("static FIM", "static goodput", "event JCT",
+                               "event FIM"), got, TIMELINE_PAPER[backend]):
+            close(g, w, f"paper {backend} {what}")
+        row = {"paper": dict(zip(("static_fim", "static_goodput",
+                                  "event_jct_s", "event_fim"), got))}
+        for name in ("ecmp", "prime-spray", "wave-congestion-aware"):
+            tl = T.simulate_timeline(big, sub, two_steps, seeds,
+                                     demand_mode="bytes", strategy=name,
+                                     timing="event", hash_backend=backend)
+            jct = float(tl.job_completion.mean())
+            close(jct, TIMELINE_MULTIPOD_JCT[backend, name],
+                  f"multipod {backend} {name} JCT")
+            row[name] = {"jct_s": jct, "drain_rounds": [
+                sr.drain_rounds for sr in tl.steps]}
+        anchors[backend] = row
+    kw = dict(demand_mode="bytes", hash_backend="exact")
+    merged = float(T.simulate_timeline(big, sub, [T.merged_step(two_steps)],
+                                       seeds, **kw).fim.mean())
+    phased = float(T.simulate_timeline(big, sub, two_steps, seeds,
+                                       **kw).fim.mean())
+    close(merged, TIMELINE_MERGED_FIM, "merged FIM")
+    close(phased, TIMELINE_PHASED_FIM, "phased FIM")
+    anchors_s = time.perf_counter() - t_anchor
+
+    # 3. full width, 64 seeds per strategy; the adaptive drives' seeds
+    # are cut if the phase would pass its budget
+    t_full = time.perf_counter()
+    schedules = {}
+    for mode in ("sequential", "dp-overlap"):
+        _, flows, _, sched = T.multipod_llm_schedule(
+            mode, num_hosts=TL_HOSTS, param_bytes=TL_PARAM_BYTES)
+        schedules[mode] = (flows, sched)
+    check(len(schedules["sequential"][0]) == TL_FLOWS
+          and len(schedules["sequential"][1]) == TL_STEPS,
+          "full-width LLM schedule")
+    full, cuts = {}, {}
+    clock = StageClock(torch, TL)
+    spray_s = None
+    # the drain's inputs at ECMP's widest step, kept for the kernel's
+    # check against its plain version
+    drain, check_args = drain_ops.departure_drain, []
+
+    def keep_widest(*args):
+        if TL_SWEEPS[len(full)][0] == "ecmp" and (
+                not check_args or args[0].shape[1] > check_args[0].shape[1]):
+            check_args[:] = args
+        return drain(*args)
+
+    drain_ops.departure_drain = keep_widest
+    for name, mode in TL_SWEEPS:
+        flows, sched = schedules[mode]
+        n_seeds = TL_SEEDS
+        if name == "adaptive-spray" and spray_s is not None:
+            # an adaptive drive drains each step twice (round 1, then
+            # its RTT budget), the second time over more departure
+            # epochs; the adaptive drives share what is left
+            adaptive_left = sum(n == name for n, _ in TL_SWEEPS[
+                TL_SWEEPS.index((name, mode)):])
+            left = (TL_BUDGET_S - (time.perf_counter() - t_phase)
+                    - TL_CHECK_RESERVE_S) / adaptive_left
+            need = TL_ADAPTIVE_OVER_SPRAY * spray_s
+            if need > left:
+                n_seeds = min(TL_SEEDS, max(8, int(
+                    TL_SEEDS * max(left, 0.0) / need) // 8 * 8))
+                cuts[f"{name} ({mode})"] = {"from": TL_SEEDS, "to": n_seeds,
+                                            "predicted_s": need,
+                                            "left_s": left}
+                print(f"timeline: {name} ({mode}) cut from {TL_SEEDS} to "
+                      f"{n_seeds} seeds (predicted {need:.1f} s, "
+                      f"{left:.1f} s left)", flush=True)
+        grid0 = dict(ops.GRID_LAUNCHES_BY_FIELDS)
+        chain0 = pl_ops.LAUNCHES["congestion_place"]
+        sum0 = loads_ops.LAUNCHES["ordered_bin_sum"]
+        clock.reset()
+        with clock:
+            tl, wall, peak = timed(lambda: T.simulate_timeline(
+                big, flows, sched, np.arange(n_seeds), strategy=name,
+                demand_mode="bytes", transport="roce-nack",
+                hash_backend="murmur", timing="event"))
+        jct = tl.job_completion.cpu().numpy()
+        check(jct.shape == (n_seeds,) and np.isfinite(jct).all()
+              and (jct > 0).all(), f"{name} ({mode}) JCT")
+        check(torch.equal(tl.step_ends[-1], tl.job_completion),
+              f"{name} ({mode}) step ends")
+        if name == "prime-spray":
+            spray_s = wall
+        full[f"{name} ({mode})"] = {
+            "seeds": n_seeds, "steps": [s.name for s in sched],
+            "columns": [int(ids.shape[1]) for ids in clock.link_ids],
+            "wall_s": wall, **clock.seconds, "peak_bytes": peak,
+            "drain_rounds": [sr.drain_rounds for sr in tl.steps],
+            "fill_rounds": [sr.fill_rounds for sr in tl.steps],
+            "jct_mean_s": float(jct.mean()),
+            "jct_p99_s": float(np.percentile(jct, 99)),
+            "step_duration_mean_s": tl.step_durations.mean(1).tolist(),
+            "fim_mean": float(tl.fim.mean()),
+            "goodput_mean": float(tl.goodput.mean()),
+            "grid_launches_by_fields": {
+                f: c - grid0.get(f, 0)
+                for f, c in ops.GRID_LAUNCHES_BY_FIELDS.items()
+                if c > grid0.get(f, 0)},
+            "chain_launches": pl_ops.LAUNCHES["congestion_place"] - chain0,
+            "ordered_sums": loads_ops.LAUNCHES["ordered_bin_sum"] - sum0}
+        del tl
+    drain_ops.departure_drain = drain
+    full_s = time.perf_counter() - t_full
+
+    # 4. ECMP and the wave at full width, seeds 0 and 1, card and CPU
+    t_check = time.perf_counter()
+    vs_cpu = {}
+    flows, sched = schedules["sequential"]
+    for name in TL_CHECK:
+        kw = dict(strategy=name, demand_mode="bytes", transport="roce-nack",
+                  hash_backend="murmur", timing="event")
+        clock.reset()
+        with clock:
+            card = T.simulate_timeline(big, flows, sched, CHECK_SEEDS, **kw)
+        card_ids = [ids.cpu() for ids in clock.link_ids]
+        clock.reset()
+        t = time.perf_counter()
+        with clock:
+            cpu = T.simulate_timeline(big, flows, sched, CHECK_SEEDS,
+                                      device="cpu", **kw)
+        cpu_s = time.perf_counter() - t
+        check(len(card_ids) == len(clock.link_ids) == TL_STEPS,
+              f"{name}: {len(card_ids)} routed steps")
+        for k, (a, b) in enumerate(zip(card_ids, clock.link_ids)):
+            check(torch.equal(a, b),
+                  f"{name} step {k}: link ids on the card != on the CPU")
+        for k, (a, b) in enumerate(zip(card.steps, cpu.steps)):
+            check(np.allclose(a.completion.cpu().numpy(),
+                              b.completion.numpy(), rtol=1e-9, atol=0),
+                  f"{name} step {k}: completion on the card != on the CPU")
+        for what in ("step_durations", "job_completion"):
+            check(np.allclose(getattr(card, what).cpu().numpy(),
+                              getattr(cpu, what).numpy(), rtol=1e-9, atol=0),
+                  f"{name}: {what} on the card != on the CPU")
+        vs_cpu[name] = {"seeds": CHECK_SEEDS, "link_ids": "identical",
+                        "cpu_s": cpu_s,
+                        "jct_s": card.job_completion.tolist(),
+                        "drain_rounds_card": [s.drain_rounds
+                                              for s in card.steps],
+                        "drain_rounds_cpu": [s.drain_rounds
+                                             for s in cpu.steps]}
+    check_s = time.perf_counter() - t_check
+
+    launches = {"murmur_hash_grid": ops.GRID_LAUNCHES_BY_FIELDS.get(5, 0),
+                "murmur_hash_grid_f7": ops.GRID_LAUNCHES_BY_FIELDS.get(7, 0),
+                "congestion_place": pl_ops.LAUNCHES["congestion_place"],
+                "ordered_bin_sum": loads_ops.LAUNCHES["ordered_bin_sum"],
+                "departure_drain": drain_ops.LAUNCHES["departure_drain"]}
+    for k, v in launches.items():
+        check(v > 0, f"the timeline phase never launched {k}")
+    record = check_drain(np, torch, drain_ops, check_args)
+    emit({"phase": "timeline", "fabric": "multipod default",
+          "two_flow_drain_s": two.completion[:, 0].tolist(),
+          "anchors": anchors, "merged_fim": merged, "phased_fim": phased,
+          "anchor_rtol": ANCHOR_RTOL, "anchors_s": anchors_s,
+          "full_width": {"hosts": TL_HOSTS, "flows": TL_FLOWS,
+                         "steps": TL_STEPS, "sweeps": full,
+                         "seed_cut": cuts or None, "seconds": full_s},
+          "card_vs_cpu": vs_cpu, "card_vs_cpu_s": check_s,
+          "launches": launches, "drain_check": {
+              k: record[k] for k in ("shape", "max_abs_err", "max_rel_err",
+                                     "rounds", "ms", "plain_ms")},
+          "seconds": time.perf_counter() - t_phase})
+    return record, launches
+
+
+def check_drain(np, torch, drain_ops, args):
+    """The drain kernel against its plain version on the card, on the
+    inputs the main path gave it at ECMP's widest step (the MoE
+    all-to-all: 4,096 columns x 64 seeds): completion times within 1e-9
+    relative; timed with CUDA events.  Drain rounds are reported, not
+    compared: finish times within 1e-12 of a horizon depart together,
+    and both sides' float atomics can move a finish across that line."""
+    from repro_torch.kernels.drain.ref import departure_drain_ref
+    cells = args[0]
+    got = drain_ops.departure_drain(*args)
+    want_done, want_rounds, want_fills = departure_drain_ref(*args)
+    err = (got.done - want_done).abs()
+    rel = float((err / want_done.abs().clamp(min=1e-300)).max())
+    check(rel <= 1e-9, f"departure_drain != plain version: {rel} "
+          f"relative ({got.rounds} against {want_rounds} rounds)")
+    H, A = cells.shape
+    n_seeds, L = args[2], args[3].numel()
+    moved = (H * A * 4 + (n_seeds + 1) * 8 + L * 8
+             + A * 8 * (3 + sum(a is not None for a in args[6:8]))
+             + A * 8 + n_seeds * 32)
+    b_ms, b_by = bound(moved, got.flops, F64_FLOPS_PER_S)
+    return {
+        "name": "departure_drain", "route": "cuda",
+        "source": "src/repro_torch/kernels/drain/csrc/drain.cu",
+        "replaces": "src/repro/core/vector_throughput.py:395",
+        "shape": [H, A, n_seeds, L], "rounds": [got.rounds, want_rounds],
+        "fill_rounds": [got.fill_rounds, want_fills],
+        "max_abs_err": float(err.max()), "max_rel_err": rel,
+        "ms": cuda_ms(lambda: drain_ops.departure_drain(*args), 5),
+        "plain_ms": cuda_ms(lambda: departure_drain_ref(*args), 1),
+        "bound_ms": b_ms, "bound_by": b_by, "flops": got.flops,
+        "library_ms": None}
+
+
 def ptxas_report(log: str, kernel: str) -> tuple[dict, list]:
     """Registers and spill bytes of each instance of ``kernel`` in an
     ``nvcc -Xptxas -v`` log, keyed by its template arguments ("64 128 3
@@ -1924,6 +2306,12 @@ def main() -> int:
     check(records[0]["f7"]["launches"] > 0, "no sprayed walk at 7 fields")
     launches["murmur_hash_grid"] += strat.pop("murmur_hash_grid")
     launches.update(strat)
+    drain_record, timeline = phase_timeline(np, torch)
+    records[4:4] = [drain_record]
+    records[0]["f7"]["launches"] += timeline.pop("murmur_hash_grid_f7")
+    launches["departure_drain"] = timeline.pop("departure_drain")
+    for name, count in timeline.items():
+        launches[name] += count
     launches.update(phase_serve(np, torch))
     launches.update(phase_serve_mamba2(np, torch))
     for r in records:

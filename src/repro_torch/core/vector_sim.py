@@ -40,6 +40,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.flowhash.ops import murmur_hash_grid
 from .compile_fabric import CompiledFabric, compile_fabric
+from .contracts import check_spec, check_trace_result, contracts_enabled
 from .ecmp import (
     FIELDS_5TUPLE, FIELDS_IP_PAIR, FIELDS_VXLAN, HASH_INIT,
     flow_fields_matrix,
@@ -60,6 +61,12 @@ DEMAND_BYTES = "bytes"      # flows weigh their wire bytes (mean-normalized)
 _UNSET = object()
 
 _KNOWN_FIELDS = (FIELDS_5TUPLE, FIELDS_VXLAN, FIELDS_IP_PAIR)
+
+TIMING_STATIC = "static"  # exogenous step durations (TimelineStep.duration)
+TIMING_EVENT = "event"    # durations derived from routed goodput: a step
+#                           ends when its slowest flow's bytes finish, and
+#                           flows depart mid-step (vector_throughput.
+#                           departure_fill); see core/timeline.py
 
 #: Upper estimates of device bytes held per (flow, seed) cell while a
 #: seed chunk is walked, and while it is walked and then filled; the
@@ -148,7 +155,12 @@ class SimSpec:
       throughput front end;
     * ``fields`` — the hash-field mode (``"5tuple"``/``"vxlan"``/
       ``"ip-pair"``);
-    * ``max_hops`` — walk hop budget.
+    * ``max_hops`` — walk hop budget;
+    * ``timing`` — how ``simulate_timeline`` prices the time axis:
+      ``"static"`` (exogenous ``TimelineStep.duration`` weights) or
+      ``"event"`` (step durations derived from the routed max-min
+      goodput, flows departing as their bytes finish; core/timeline.py).
+      Snapshot front ends ignore it.
 
     ``resolve()`` is idempotent.
     """
@@ -160,8 +172,13 @@ class SimSpec:
     transport: object = None
     fields: str = FIELDS_5TUPLE
     max_hops: int = 16
+    timing: str = TIMING_STATIC
 
     def resolve(self) -> "SimSpec":
+        if self.timing not in (TIMING_STATIC, TIMING_EVENT):
+            raise ValueError(
+                f"unknown timing {self.timing!r}; "
+                f"expected {TIMING_STATIC!r} or {TIMING_EVENT!r}")
         if self.demand_mode not in (DEMAND_UNIFORM, DEMAND_BYTES):
             raise ValueError(
                 f"unknown demand_mode {self.demand_mode!r}; "
@@ -197,8 +214,12 @@ def resolve_spec(spec: SimSpec | None, kwargs: dict) -> SimSpec:
         if not isinstance(spec, SimSpec):
             raise TypeError(
                 f"spec must be a SimSpec, got {type(spec).__name__}")
-        return spec.resolve()
-    return SimSpec(**passed).resolve()
+        s = spec.resolve()
+    else:
+        s = SimSpec(**passed).resolve()
+    if contracts_enabled():
+        check_spec(s)
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -622,16 +643,20 @@ def simulate_paths(
     if not _is_plain_ecmp(s.strategy):
         if len(flows) == 0:
             raise ValueError("simulate_paths needs at least one flow")
-        return s.strategy.route(
+        res = s.strategy.route(
             comp, flows, seeds_u64, fields=s.fields,
             hash_backend=s.hash_backend, max_hops=s.max_hops,
             field_matrix=field_matrix, demand_mode=s.demand_mode,
             device=s.device)
-    inp = _walk_inputs(comp, flows, s, field_matrix)
-    link_ids = inp.walk(comp, _as_int64(seeds_u64, s.device), s)
-    return VectorTraceResult(
-        compiled=comp, flows=flows, seeds=seeds_u64, link_ids=link_ids,
-        flow_demand=inp.flow_demand)
+    else:
+        inp = _walk_inputs(comp, flows, s, field_matrix)
+        link_ids = inp.walk(comp, _as_int64(seeds_u64, s.device), s)
+        res = VectorTraceResult(
+            compiled=comp, flows=flows, seeds=seeds_u64, link_ids=link_ids,
+            flow_demand=inp.flow_demand)
+    if contracts_enabled():
+        check_trace_result(res)
+    return res
 
 
 def _is_plain_ecmp(strategy) -> bool:

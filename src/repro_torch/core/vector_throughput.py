@@ -1,7 +1,8 @@
 """Batched progressive-filling max-min fairness on the card.
 
-The PyTorch port of ``repro.core.vector_throughput`` (departure-ordered
-drains excepted).  The fill runs on the dense
+The PyTorch port of ``repro.core.vector_throughput``, the
+departure-ordered drain of event timing (``departure_fill``) included.
+The fill runs on the dense
 ``(H, N, S)`` link-id tensor with the reference's *parallel*
 formulation of progressive filling: a (seed, link) cell is a bottleneck
 as soon as its fair share ``residual / active demand`` equals the
@@ -19,7 +20,7 @@ meaning on the card):
   same set, since the cell's own share enters every member's minimum —
   by marking each cell a member undercuts, which needs no float atomics;
 * frozen flows drain with ``index_add_`` of negatives, and the survivors
-  are compacted out (``nonzero``: one host sync per round).
+  are compacted out (a prefix sum: one read to the host per round).
 
 Float drains on the card are atomics in run-dependent order, so
 residuals (and the exact-equality freeze test that reads them) can
@@ -35,7 +36,10 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..kernels.drain import ops as drain_ops
 from .compile_fabric import CompiledFabric, compile_fabric
+from .contracts import check_throughput, contracts_enabled
 from .fabric import Fabric
 from .flows import Flow, WorkloadDescription
 from .reordering import (
@@ -60,6 +64,29 @@ def dedup_link_ids(link_ids: torch.Tensor) -> torch.Tensor:
     return ids
 
 
+def _split(mask: torch.Tensor, flag: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """(indices of the True entries of a 1-D ``mask``, indices of the
+    False ones, each in order; ``flag`` read as a bool) with ONE read to
+    the host: the True count and the flag cross together, and one prefix
+    sum scatters every index to its place in the partition (``nonzero``
+    would synchronise once per side)."""
+    n = mask.numel()
+    dev = mask.device
+    csum = torch.cumsum(mask, 0)
+    if n == 0:
+        return csum, csum, flag is not None and bool(flag)
+    head = (csum[-1:] if flag is None
+            else torch.stack([csum[-1], flag.to(csum.dtype)]))
+    kept, *raised = head.tolist()
+    idx = torch.arange(n, device=dev)
+    # a True entry goes to its rank among the Trues, a False one after
+    # all Trues at its rank among the Falses
+    order = torch.empty(n, dtype=torch.int64, device=dev)
+    order[torch.where(mask, csum - 1, kept + idx - csum)] = idx
+    return order[:kept], order[kept:], any(raised)
+
+
 def _fill_block(cells: torch.Tensor, sentinel: int, cap: torch.Tensor,
                 w: torch.Tensor | None) -> tuple[torch.Tensor, int]:
     """Progressive fill of one block of columns; returns the (C,) rates
@@ -76,6 +103,10 @@ def _fill_block(cells: torch.Tensor, sentinel: int, cap: torch.Tensor,
     count beside the weight sum, which drifts by float epsilons as flows
     drain.  With ``w=None`` the weight sum *is* the member count, and the
     arithmetic is the reference's unweighted ``_fill_block``.
+
+    The per-cell state is one (cells, 3) tensor — member count, weight
+    sum, residual — so a round drains its frozen columns with one
+    ``index_add_``; a round reads the host once (``_split``).
     """
     H, C = cells.shape
     SL = sentinel
@@ -86,18 +117,18 @@ def _fill_block(cells: torch.Tensor, sentinel: int, cap: torch.Tensor,
     mem = torch.bincount(flat, minlength=SL + 1).to(f64)
     wsum = mem if w is None else torch.bincount(
         flat, weights=w.expand(H, C).reshape(-1), minlength=SL + 1)
-    residual = torch.cat([cap, cap.new_zeros(1)])
+    state = torch.stack([mem, wsum, torch.cat([cap, cap.new_zeros(1)])], 1)
+    del mem, wsum
 
     def shares():
-        sh = torch.where(mem > 0, residual / wsum.clamp(min=1e-300), inf)
+        sh = torch.where(state[:, 0] > 0,
+                         state[:, 2] / state[:, 1].clamp(min=1e-300), inf)
         sh[SL] = inf                       # sentinel must stay unroutable
         return sh
 
     share = shares()
-    rates = torch.empty(C, dtype=f64, device=dev)
-    haslink = (cells < SL).any(0)
-    rates[~haslink] = inf                  # a flow crossing no link
-    aidx = haslink.nonzero().squeeze(1)
+    rates = torch.full((C,), inf, dtype=f64, device=dev)  # crossing no link
+    aidx, _, _ = _split((cells < SL).any(0))
     s = cells[:, aidx]
     wa = None if w is None else w[aidx]
     rounds = 0
@@ -110,25 +141,23 @@ def _fill_block(cells: torch.Tensor, sentinel: int, cap: torch.Tensor,
         undercut = torch.zeros(SL + 1, dtype=torch.bool, device=dev)
         undercut[torch.where(sv > fm, s, SL)] = True
         del sv
-        freezable = ~undercut
-        freezable[SL] = False
-        fz = freezable[s].any(0)           # flow crosses a local bottleneck
-        fidx = fz.nonzero().squeeze(1)
-        F = fidx.numel()
-        fnorm = fm[fidx]
-        rate_f = fnorm if wa is None else wa[fidx] * fnorm
-        rates[aidx[fidx]] = rate_f
-        if F == aidx.numel():              # everything froze: no survivors
+        undercut[SL] = True
+        fz = (~undercut)[s].any(0)         # flow crosses a local bottleneck
+        rate_a = fm if wa is None else wa * fm
+        rates[aidx] = rate_a               # survivors' are rewritten later
+        keep, froze, _ = _split(~fz)
+        if keep.numel() == 0:              # everything froze: no survivors
             break                          # to drain for
-        cf = s[:, fidx].reshape(-1)        # drain the frozen flows
-        mem.index_add_(0, cf, torch.full((H * F,), -1.0, dtype=f64,
-                                         device=dev))
-        if wa is not None:
-            wsum.index_add_(0, cf, (-wa[fidx]).expand(H, F).reshape(-1))
-        residual.index_add_(0, cf, (-rate_f).expand(H, F).reshape(-1))
+        F = froze.numel()
+        rate_f = rate_a[froze]             # drain the frozen flows
+        drain = torch.stack([
+            torch.full_like(rate_f, -1.0),
+            torch.full_like(rate_f, -1.0) if wa is None else -wa[froze],
+            -rate_f], 1)
+        state.index_add_(0, s[:, froze].reshape(-1),
+                         drain.expand(H, F, 3).reshape(H * F, 3))
         share = shares()
-        keep = (~fz).nonzero().squeeze(1)  # compact to surviving flows
-        s = s[:, keep]
+        s = s[:, keep]                     # compact to surviving flows
         aidx = aidx[keep]
         if wa is not None:
             wa = wa[keep]
@@ -191,7 +220,7 @@ def _fill_seeds(link_ids: torch.Tensor, cap: torch.Tensor,
     del ids
     w = None if weights is None else weights.repeat(S)
     rates, rounds = _fill_block(cells, SL, cap.repeat(S), w)
-    return rates.reshape(S, N).T, rounds                       # (N, S)
+    return rates.reshape(S, N).T.contiguous(), rounds          # (N, S)
 
 
 def max_min_rates(result: VectorTraceResult) -> torch.Tensor:
@@ -213,6 +242,132 @@ def flow_rates_from_flowlets(result: VectorTraceResult,
             (fi == torch.arange(fi.numel(), device=fi.device)).all()):
         return flowlet_rates
     return segment_reduce(flowlet_rates, fi, result.num_flows, "sum", 0.0)
+
+
+@dataclasses.dataclass
+class DepartureFill:
+    """Result of a departure-ordered max-min drain (``departure_fill``),
+    as tensors on the link ids' device.
+
+    ``completion[n, s]`` is the absolute time (seconds) at which tensor
+    column ``n``'s bytes finish under seed ``s``; ``duration[s]`` is the
+    completion time of the slowest column — the step's derived duration;
+    ``rounds`` counts the drain rounds (one per distinct departure
+    epoch, bounded by the column count) and ``fill_rounds`` the freeze
+    rounds of the re-fills those rounds ran (on the CPU summed over the
+    rounds; on the card the most any one seed ran).
+    """
+
+    completion: torch.Tensor             # (Nf, S) seconds per column
+    duration: torch.Tensor               # (S,) slowest-column completion
+    rounds: int
+    fill_rounds: int = 0
+
+
+def departure_fill(
+    link_ids: torch.Tensor,
+    link_gbps,
+    col_gbits,
+    *,
+    weights=None,
+    efficiency=None,
+    assume_unique: bool = False,
+    initial_rates=None,
+    device=None,
+) -> DepartureFill:
+    """Water-filling with departures over an ``(H, N, S)`` link-id tensor,
+    on ``device`` (the card unless ``"cpu"``; ``link_ids`` moves there).
+
+    Every column ``n`` carries ``col_gbits[n]`` gigabits.  All columns
+    start draining at their max-min rate (weighted by ``weights`` exactly
+    like ``max_min_rates``); the earliest-finishing cells *depart* and
+    the survivors' rates are re-filled over the **same** paths with the
+    departed (column, seed) cells gone, so tail flows speed up as
+    elephants drain.  Seeds progress independently (each has its own
+    departure order) while every round fills all surviving cells of all
+    seeds at once.
+
+    The live (column, seed) cells go to the drain in the fill's
+    seed-major order, with their remaining gigabits, goodput multiplier
+    and weight (``kernels/drain``): on the card every seed's whole drain
+    is one block of one kernel launch, on the CPU the plain version runs
+    the reference's rounds over all seeds at once.
+
+    ``efficiency`` optionally scales each cell's drain rate (goodput =
+    rate x efficiency), held fixed across re-fills.  ``initial_rates``
+    (the full-set fill a caller already ran) is reused as round 1, and
+    only trusted when every column starts active.  Zero-gigabit columns
+    complete at t=0 and never contend; columns that cross no links drain
+    at infinite rate and also complete at t=0.  Times are seconds for
+    ``col_gbits`` in gigabits and ``link_gbps`` in Gb/s (``bytes * 8e-9``
+    converts).
+    """
+    dev = resolve_device(device)
+    link_ids = torch.as_tensor(link_ids).to(dev)
+    if link_ids.dim() != 3:
+        raise ValueError(
+            f"link_ids must be (H, N, S), got {tuple(link_ids.shape)}")
+    f64 = torch.float64
+    if not assume_unique:
+        link_ids = dedup_link_ids(link_ids)
+    H, N, S = link_ids.shape
+    gb = torch.as_tensor(col_gbits, dtype=f64, device=dev)
+    if tuple(gb.shape) != (N,):
+        raise ValueError(
+            f"col_gbits must be ({N},) to match link_ids columns, "
+            f"got {tuple(gb.shape)}")
+    if not bool(((gb >= 0) & torch.isfinite(gb)).all()):
+        raise ValueError("col_gbits must be finite and >= 0")
+    if efficiency is None:
+        eff = torch.ones((N, S), dtype=f64, device=dev)
+    else:
+        eff = torch.as_tensor(efficiency, dtype=f64, device=dev)
+        if tuple(eff.shape) != (N, S):
+            raise ValueError(
+                f"efficiency must be ({N}, {S}), got {tuple(eff.shape)}")
+        if not bool(((eff > 0) & torch.isfinite(eff)).all()):
+            raise ValueError("efficiency must be finite and > 0")
+    if weights is not None:
+        weights = torch.as_tensor(weights, dtype=f64, device=dev)
+        if tuple(weights.shape) != (N,):
+            raise ValueError(
+                f"weights must be ({N},) to match link_ids columns, "
+                f"got {tuple(weights.shape)}")
+        if not bool((weights > 0).all()):
+            raise ValueError("weights must be strictly positive")
+        weights = _weights_or_none(weights)
+    completion = torch.zeros((N, S), dtype=f64, device=dev)
+    if N == 0 or S == 0 or H == 0:
+        return DepartureFill(completion=completion,
+                             duration=torch.zeros(S, dtype=f64, device=dev),
+                             rounds=0)
+    cap = torch.as_tensor(link_gbps, dtype=f64, device=dev)
+    L = cap.numel()
+    SL = S * L
+    # every (column, seed) cell in the fill's seed-major order
+    seed = torch.arange(S, device=dev).repeat_interleave(N)
+    col = torch.arange(N, device=dev).repeat(S)
+    ids = link_ids.to(torch.int64).transpose(1, 2).reshape(H, S * N)
+    live, _, _ = _split(gb[col] > 0.0)     # zero-gigabit cells never contend
+    seed, col = seed[live], col[live]
+    cells = torch.where(ids[:, live] >= 0, ids[:, live] + seed * L, SL)
+    del ids
+    rem = gb[col]
+    eff_c = eff[col, seed]
+    w_c = None if weights is None else weights[col]
+    init = None
+    if initial_rates is not None and live.numel() == S * N:
+        init = torch.as_tensor(initial_rates, dtype=f64, device=dev)
+        if tuple(init.shape) != (N, S):
+            raise ValueError(
+                f"initial_rates must be ({N}, {S}), got {tuple(init.shape)}")
+        init = init[col, seed]
+    drain = drain_ops.departure_drain(cells, seed, S, cap, rem, eff_c, w_c,
+                                      init, N + 1)
+    completion.view(-1)[col * S + seed] = drain.done
+    return DepartureFill(completion=completion,
+                         duration=completion.amax(0), rounds=drain.rounds,
+                         fill_rounds=drain.fill_rounds)
 
 
 @dataclasses.dataclass
@@ -314,11 +469,12 @@ def throughput_from_result(
     tp = MonteCarloThroughput(seeds=result.seeds, flows=result.flows,
                               rates=rates, pairs=pairs, per_pair=per_pair,
                               transport=profile.name)
-    if profile.alpha == 0.0 or profile.floor == 1.0:
-        return tp
-    tp.exposure = flowlet_exposure(result, flowlet_rates)
-    tp.efficiency = reordering_efficiency(tp.exposure, profile)
-    tp.goodput = rates * tp.efficiency
+    if profile.alpha != 0.0 and profile.floor != 1.0:
+        tp.exposure = flowlet_exposure(result, flowlet_rates)
+        tp.efficiency = reordering_efficiency(tp.exposure, profile)
+        tp.goodput = rates * tp.efficiency
+    if contracts_enabled():
+        check_throughput(tp)
     return tp
 
 

@@ -1,11 +1,12 @@
 """Carry state into the port from plain data.
 
 The simulator's state is the compiled fabric tables, the flow table and
-a routed result; the model stack's is its weights.  These helpers build
-the port's own types from numpy arrays and plain tuples, so another
-implementation's compiled fabric (for instance the JAX package's
-``CompiledFabric``, field by field), flows, routed paths and LM
-parameters can be handed to the port exactly.
+a routed result, and a phased simulation's its schedule; the model
+stack's is its weights.  These helpers build the port's own types from
+numpy arrays and plain tuples, so another implementation's compiled
+fabric (for instance the JAX package's ``CompiledFabric``, field by
+field), flows, routed paths, schedules and LM parameters can be handed
+to the port exactly.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from .configs.base import ArchConfig
 from .core.compile_fabric import CompiledFabric
 from .core.fabric import Fabric
 from .core.flows import FiveTuple, Flow
+from .core.timeline import TimelineStep
 from .core.vector_sim import VectorTraceResult, normalize_seeds
 from .device import resolve_device
 from .models.lm import check_supported
@@ -72,14 +74,30 @@ def flows_from_records(
     records: Iterable[tuple],
 ) -> list[Flow]:
     """Flows from plain tuples ``(flow_id, src, dst, src_ip, dst_ip,
-    src_port, dst_port, protocol, bytes)``."""
+    src_port, dst_port, protocol, bytes)``, optionally followed by the
+    flow's ``label`` (collective-derived flows carry their channel
+    there, ``#ch<N>``, which ``core.timeline`` partitions by)."""
     out = []
-    for (fid, src, dst, sip, dip, sport, dport, proto, nbytes) in records:
+    for (fid, src, dst, sip, dip, sport, dport, proto, nbytes,
+         *label) in records:
+        (label,) = label or ("",)
         out.append(Flow(flow_id=int(fid), src=src, dst=dst,
                         tuple5=FiveTuple(sip, dip, int(sport), int(dport),
                                          int(proto)),
-                        bytes=int(nbytes)))
+                        bytes=int(nbytes), label=str(label)))
     return out
+
+
+def schedule_from_records(
+    records: Iterable[tuple],
+) -> list[TimelineStep]:
+    """A phase schedule from plain tuples ``(name, channels, duration)``
+    (``TimelineStep``'s fields: a step's name, its collective channel
+    ids and its relative duration under static timing), validated as
+    ``TimelineStep`` validates them."""
+    return [TimelineStep(str(name), tuple(int(c) for c in channels),
+                         float(duration))
+            for name, channels, duration in records]
 
 
 def trace_result_from_arrays(

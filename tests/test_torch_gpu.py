@@ -29,6 +29,10 @@ f32 with TF32 off.  The bridges to the hop-by-hop tracer must hold on the
 card: ``paths_for_seed`` of an ``exact`` walk equals the CPU's and the
 tracer's paths, ``pair_throughput_for_seed`` the CPU's to 1e-9, and the
 tracer's process pool, started after the card's work, the serial trace.
+The departure-ordered drain (its kernel, a block per seed, against its
+plain version) and the event-timed timeline must give the CPU's
+completion times, step durations and job completion time to 1e-9 (and
+every step's link ids bit for bit) on the same seed list.
 """
 
 import sys
@@ -290,6 +294,133 @@ def test_strategy_on_card_equals_cpu(card, multipod, case):
                                    rtol=1e-9, atol=0, err_msg=field)
     np.testing.assert_allclose(b.exposure.cpu().numpy(), a.exposure.numpy(),
                                rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_departure_fill_on_card_equals_cpu(card, trial):
+    """Seeded random link ids with repeats, -1 padding, zero-gigabit and
+    linkless columns, weights, efficiency and reused initial rates: the
+    card's drain within 1e-9 of the CPU's (float atomics in the fill
+    sum in another order; drain rounds may differ and are not held)."""
+    rng = np.random.default_rng(2000 + trial)
+    H, N, S, L = 4, 600, 16, 40
+    ids = torch.from_numpy(rng.integers(-1, L, size=(H, N, S)))
+    gb = rng.uniform(0.5, 20.0, size=N)
+    gb[rng.random(N) < 0.1 * (trial % 2)] = 0.0
+    cap = rng.uniform(50.0, 200.0, size=L)
+    w = rng.uniform(0.2, 3.0, size=N) if trial % 2 else None
+    eff = rng.uniform(0.3, 1.0, size=(N, S))
+    init = T.batched_max_min(ids, cap, weights=w) if trial == 2 else None
+    kw = dict(weights=w, efficiency=eff, initial_rates=init)
+    want = T.departure_fill(ids, cap, gb, device="cpu", **kw)
+    got = T.departure_fill(ids, cap, gb, **kw)
+    assert got.completion.device.type == "cuda"
+    np.testing.assert_allclose(got.completion.cpu().numpy(),
+                               want.completion.numpy(), rtol=1e-9, atol=0)
+    np.testing.assert_allclose(got.duration.cpu().numpy(),
+                               want.duration.numpy(), rtol=1e-9, atol=0)
+    two = T.departure_fill(torch.zeros((1, 2, 3), dtype=torch.int64,
+                                       device=card), [100.0], [8.0, 24.0])
+    np.testing.assert_allclose(two.completion.cpu().numpy(),
+                               [[0.16] * 3, [0.32] * 3], rtol=1e-12)
+
+
+def _drain_inputs(rng, H=4, N=900, S=12, L=48, weighted=True):
+    """The drain's live cells of a random (H, N, S) link tensor, as
+    ``departure_fill`` hands them over: seed-major cell ids, seeds,
+    gigabits, efficiency and weights."""
+    ids = torch.from_numpy(rng.integers(-1, L, size=(H, N, S)))
+    ids = TT.dedup_link_ids(ids)
+    cells = ids.transpose(1, 2).reshape(H, S * N)
+    seed = torch.arange(S).repeat_interleave(N)
+    cells = torch.where(cells >= 0, cells + seed * L, S * L)
+    col = torch.arange(N).repeat(S)
+    gb = torch.from_numpy(rng.uniform(0.5, 20.0, size=N))[col]
+    eff = torch.from_numpy(rng.uniform(0.3, 1.0, size=S * N))
+    w = (torch.from_numpy(rng.uniform(0.2, 3.0, size=N))[col]
+         if weighted else None)
+    cap = torch.from_numpy(rng.uniform(50.0, 200.0, size=L))
+    return cells, seed, S, cap, gb, eff, w
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+def test_departure_drain_kernel_matches_plain_version(card, weighted):
+    """The kernel (a block per seed) against the plain version on the
+    same cells: completion within 1e-9 (shared-memory atomics sum in
+    another order), one launch.  Drain rounds are not compared: the
+    atomics may move a finish time across a departure horizon."""
+    from repro_torch.kernels.drain import ops as drain_ops
+    args = _drain_inputs(np.random.default_rng(7), weighted=weighted)
+    cells, seed, S, cap, gb, eff, w = args
+    want = drain_ops.departure_drain(*args, None, 10_000)
+    drain_ops.reset_launches()
+    got = drain_ops.departure_drain(
+        cells.to(card), seed.to(card), S, cap.to(card), gb.to(card),
+        eff.to(card), None if w is None else w.to(card), None, 10_000)
+    assert drain_ops.LAUNCHES == {"departure_drain": 1}
+    assert got.done.device.type == "cuda" and got.flops > 0
+    np.testing.assert_allclose(got.done.cpu().numpy(), want.done.numpy(),
+                               rtol=1e-9, atol=0)
+    assert 0 < got.rounds <= cells.shape[1]
+
+
+def test_departure_drain_faults_raise_on_the_card(card, monkeypatch):
+    """A zero-capacity link raises the reference's zero-goodput error,
+    and the wrapper never falls back to the plain version."""
+    from repro_torch.kernels.drain import ops as drain_ops
+    monkeypatch.setattr(drain_ops, "departure_drain_ref", None)
+    ids = torch.zeros((1, 2, 1), dtype=torch.int64, device=card)
+    dep = T.departure_fill(ids, [100.0], [8.0, 24.0])
+    np.testing.assert_allclose(dep.completion[:, 0].cpu().numpy(),
+                               [0.16, 0.32], rtol=1e-12)
+    with pytest.raises(RuntimeError, match="zero goodput"):
+        T.departure_fill(ids, [0.0], [1.0, 1.0])
+
+
+@pytest.fixture(scope="module")
+def llm_multipod():
+    """The 16-host multipod LLM job (five sequential steps) on the
+    default multipod fabric."""
+    _, flows, _, sched = T.multipod_llm_schedule(param_bytes=20_000_000_000)
+    return T.compile_fabric(T.build_multipod_fabric()), flows, sched
+
+
+@pytest.mark.parametrize("strategy", ["ecmp", "prime-spray",
+                                      "adaptive-spray",
+                                      "wave-congestion-aware"])
+def test_timeline_on_card_equals_cpu(card, llm_multipod, strategy):
+    """Event timing over the same seed list on both sides: every step's
+    link ids identical, FIM to 1e-12, rates, goodput, completion times,
+    step durations and job completion time to 1e-9."""
+    comp, flows, sched = llm_multipod
+    seeds = list(range(6))
+    spec = dict(strategy=strategy, demand_mode="bytes",
+                transport="roce-nack", hash_backend="murmur",
+                timing="event")
+    want = T.simulate_timeline(comp, flows, sched, seeds, device="cpu",
+                               **spec)
+    got = T.simulate_timeline(comp, flows, sched, seeds, **spec)
+    assert got.job_completion.device.type == "cuda"
+    for g, w in zip(got.steps, want.steps):
+        np.testing.assert_allclose(g.fim.aggregate.cpu().numpy(),
+                                   w.fim.aggregate.numpy(), rtol=1e-12,
+                                   atol=0)
+        for field in ("rates", "goodput"):
+            np.testing.assert_allclose(
+                getattr(g.throughput, field).cpu().numpy(),
+                getattr(w.throughput, field).numpy(), rtol=1e-9, atol=0)
+        np.testing.assert_allclose(g.completion.cpu().numpy(),
+                                   w.completion.numpy(), rtol=1e-9, atol=0)
+    for name in ("step_durations", "job_completion", "fim", "goodput"):
+        np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
+                                   getattr(want, name).numpy(), rtol=1e-9,
+                                   atol=0, err_msg=name)
+    route = dict(strategy=strategy, demand_mode="bytes",
+                 hash_backend="murmur")
+    for sub in T.partition_flows(flows, sched):
+        a = T.simulate_paths(comp, sub, seeds, device="cpu", **route)
+        b = T.simulate_paths(comp, sub, seeds, **route)
+        assert torch.equal(b.link_ids.cpu(), a.link_ids)
 
 
 MAX_HOPS = 16

@@ -47,8 +47,14 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                    "repro_torch.core.strategies",
                    "repro_torch.core.tracer", "repro_torch.core.placement",
                    "repro_torch.core.fim", "repro_torch.core.report",
+                   "repro_torch.core.timeline",
+                   "repro_torch.core.hlo_flows",
+                   "repro_torch.core.llm_workload",
+                   "repro_torch.core.contracts",
                    "repro_torch.kernels.flowhash.build",
                    "repro_torch.kernels.loads.build",
+                   "repro_torch.kernels.drain.build",
+                   "repro_torch.kernels.drain.ops",
                    "repro_torch.kernels.loads.ops",
                    "repro_torch.kernels.placement.build",
                    "repro_torch.kernels.placement.ops",
