@@ -88,7 +88,7 @@ once) and then:
 7. drives the phased LLM training step ("timeline"): the departure
    drain's two-flow case (0.16 / 0.32 s) on the card (the drain is the
    kernel ``kernels/drain/csrc/drain.cu``, every seed's whole drain one
-   block of one launch); at the bench
+   cluster of CTAs of one launch); at the bench
    shapes (seeds 0..7) under ``exact`` and ``murmur``, the paper-testbed
    LLM schedule's static FIM and goodput and event JCT and FIM, the
    multipod disjoint-elephant schedule's event JCT under ECMP,
@@ -101,12 +101,20 @@ once) and then:
    take the ordered-sum kernel), each with its route, fill and drain
    times, drain and fill rounds, JCT mean and p99 and step durations
    (the adaptive drives' seeds are cut, and the cut printed, if the
-   phase would pass 90 s); ECMP and the wave at full width on seeds
-   0 and 1 on the card and on the CPU: every step's link ids identical,
-   completion times, step durations and JCT within 1e-9; and the drain
-   kernel against its plain version on the card, on the inputs ECMP's
-   widest step gave it (4,096 columns x 64 seeds), completion times
-   within 1e-9 relative (drain rounds reported, not compared);
+   phase would pass 90 s), each uncut drive's JCT mean and p99 within
+   1e-9 of the first drain design's (``TL_JCT_FIRST_DESIGN``); ECMP and the wave
+   at full width on seeds 0 and 1 on the card and on the CPU: every
+   step's link ids identical, completion times, step durations and JCT
+   within 1e-9; and the drain kernel against its plain version on the
+   card, on the inputs ECMP's widest step gave it (4,096 columns x 64
+   seeds) and on prime-spray's (32,768 columns x 64 seeds) cut to its
+   first 8 seeds x 8,192 cells under the uncut step's cluster,
+   completion times within 1e-9 relative (drain rounds reported, not
+   compared), timed uncut at both with its operations bound and its
+   latency bound (the longest seed's rounds at the cost of one
+   cluster-wide reduction, ``drain_sync_probe``), and its ``-Xptxas -v``
+   report (registers, spills, the plan's shared memory) free of
+   spills;
 8. drives granite-3-2b serving at full width and depth (40 layers,
    bf16, weights from a seeded generator on the card): ``prefill_logits``
    on 2 x 32,768 tokens (40 flash-attention launches), ``generate`` for
@@ -273,10 +281,33 @@ TL_CHECK = ("ecmp", "wave-congestion-aware")   # card against CPU, seeds 0, 1
 TL_BUDGET_S = 90.0
 # what the budget keeps for the card-against-CPU check, and an adaptive
 # drive's time over prime-spray's, with a margin (its second drain
-# departs over about twice the epochs: 13.2 s against 4.1 s at full
-# width on an H100 with the drain kernel)
+# departs over about twice the epochs: 3.08 s against 0.956 s at full
+# width on an H100 with the cluster drain kernel, as 13.2 s against
+# 4.15 s with the first design)
 TL_CHECK_RESERVE_S = 10.0
 TL_ADAPTIVE_OVER_SPRAY = 4.5
+# the drives whose widest step's drain inputs the kernel is held and
+# timed on: ECMP's (the MoE all-to-all, 4,096 columns x 64 seeds) and
+# prime-spray's (the same step sprayed, 32,768 columns x 64 seeds)
+DRAIN_SHAPES = ("ecmp", "prime-spray")
+# the plain version takes about 30 s at prime-spray's widest step, so its
+# check there cuts the inputs to the first seeds and the first cells of
+# each (8 x 8,192: about 5 s plain on an H100's host, 16 CTAs' lists of
+# 4,096 cells under the uncut step's cluster of 2)
+DRAIN_CUT_SEEDS, DRAIN_CUT_CELLS = 8, 8_192
+# cluster-wide reductions a probe launch times
+DRAIN_PROBE_ITERS = 20_000
+# each full-width drive's JCT mean and p99 (s) under the first drain
+# design (one block a seed; this script on an H100, PERF.md section 5),
+# held to JCT_RTOL when the drive runs its 64 seeds uncut
+TL_JCT_FIRST_DESIGN = {
+    ("ecmp", "sequential"): (6.37118106424, 6.37147466552),
+    ("wave-congestion-aware", "sequential"): (3.18573733304, 3.18573733304),
+    ("prime-spray", "sequential"): (11.4353486673, 12.1686265795),
+    ("adaptive-spray", "sequential"): (8.4762512484, 9.6900484151),
+    ("adaptive-spray", "dp-overlap"): (6.9312492560, 8.3140198167),
+}
+JCT_RTOL = 1e-9
 # tests/test_kernels.py pins these for the Pallas bulk_hash kernel:
 # rng(42) fields (4096, 5) below 2**31, seed 12345
 PINNED_HEAD = [1282828036, 453300701, 462728589, 1920719609]
@@ -1337,6 +1368,73 @@ class StageClock:
         return run
 
 
+class WidestDrain:
+    """Spies on ``kernels/drain/ops.departure_drain`` and keeps, for each
+    label it is given (``label``; ``None`` keeps nothing), the arguments
+    of the widest call: the drain's inputs at a drive's widest step."""
+
+    def __init__(self, drain_ops):
+        self.ops, self.real = drain_ops, drain_ops.departure_drain
+        self.label, self.args = None, {}
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            kept = self.args.get(self.label)
+            if self.label is not None and (
+                    kept is None or args[0].shape[1] > kept[0].shape[1]):
+                self.args[self.label] = args
+            return self.real(*args, **kw)
+        self.ops.departure_drain = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.departure_drain = self.real
+
+
+def full_width_schedules(T) -> dict:
+    """The full-width LLM job's flows and steps per schedule mode."""
+    out = {}
+    for mode in ("sequential", "dp-overlap"):
+        _, flows, _, sched = T.multipod_llm_schedule(
+            mode, num_hosts=TL_HOSTS, param_bytes=TL_PARAM_BYTES)
+        out[mode] = (flows, sched)
+    return out
+
+
+def widest_drains(np, torch, names=DRAIN_SHAPES) -> dict:
+    """The drain's inputs at the widest step of each named strategy's
+    full-width drive (the sequential schedule, 64 seeds, as the timeline
+    phase drives it)."""
+    import repro_torch.core as T
+    from repro_torch.kernels.drain import ops as drain_ops
+    big = T.compile_fabric(T.build_multipod_fabric())
+    flows, sched = full_width_schedules(T)["sequential"]
+    with WidestDrain(drain_ops) as widest:
+        for name in names:
+            widest.label = name
+            T.simulate_timeline(big, flows, sched, np.arange(TL_SEEDS),
+                                strategy=name, demand_mode="bytes",
+                                transport="roce-nack", hash_backend="murmur",
+                                timing="event")
+    torch.cuda.synchronize()
+    return widest.args
+
+
+def cut_drain(torch, args, n_seeds: int, per_seed: int) -> tuple:
+    """The drain's inputs cut to their first ``n_seeds`` seeds and the
+    first ``per_seed`` cells of each (no-link ids renumbered)."""
+    cells, seed, S, cap, gbits, eff, w, init, max_rounds = args
+    L = cap.numel()
+    start = torch.zeros(S + 1, dtype=torch.int64, device=seed.device)
+    torch.cumsum(torch.bincount(seed, minlength=S), 0, out=start[1:])
+    pos = torch.arange(seed.numel(), device=seed.device) - start[seed]
+    keep = (seed < n_seeds) & (pos < per_seed)
+    cut = cells[:, keep]
+    return (torch.where(cut >= S * L, n_seeds * L, cut), seed[keep], n_seeds,
+            cap, gbits[keep], eff[keep], None if w is None else w[keep],
+            None if init is None else init[keep], max_rounds)
+
+
 def phase_timeline(np, torch):
     """The phased LLM training step: anchors against the JAX package's
     numpy engine under both hash backends and both timings, the
@@ -1417,84 +1515,80 @@ def phase_timeline(np, torch):
     # 3. full width, 64 seeds per strategy; the adaptive drives' seeds
     # are cut if the phase would pass its budget
     t_full = time.perf_counter()
-    schedules = {}
-    for mode in ("sequential", "dp-overlap"):
-        _, flows, _, sched = T.multipod_llm_schedule(
-            mode, num_hosts=TL_HOSTS, param_bytes=TL_PARAM_BYTES)
-        schedules[mode] = (flows, sched)
+    schedules = full_width_schedules(T)
     check(len(schedules["sequential"][0]) == TL_FLOWS
           and len(schedules["sequential"][1]) == TL_STEPS,
           "full-width LLM schedule")
     full, cuts = {}, {}
     clock = StageClock(torch, TL)
     spray_s = None
-    # the drain's inputs at ECMP's widest step, kept for the kernel's
-    # check against its plain version
-    drain, check_args = drain_ops.departure_drain, []
-
-    def keep_widest(*args):
-        if TL_SWEEPS[len(full)][0] == "ecmp" and (
-                not check_args or args[0].shape[1] > check_args[0].shape[1]):
-            check_args[:] = args
-        return drain(*args)
-
-    drain_ops.departure_drain = keep_widest
-    for name, mode in TL_SWEEPS:
-        flows, sched = schedules[mode]
-        n_seeds = TL_SEEDS
-        if name == "adaptive-spray" and spray_s is not None:
-            # an adaptive drive drains each step twice (round 1, then
-            # its RTT budget), the second time over more departure
-            # epochs; the adaptive drives share what is left
-            adaptive_left = sum(n == name for n, _ in TL_SWEEPS[
-                TL_SWEEPS.index((name, mode)):])
-            left = (TL_BUDGET_S - (time.perf_counter() - t_phase)
-                    - TL_CHECK_RESERVE_S) / adaptive_left
-            need = TL_ADAPTIVE_OVER_SPRAY * spray_s
-            if need > left:
-                n_seeds = min(TL_SEEDS, max(8, int(
-                    TL_SEEDS * max(left, 0.0) / need) // 8 * 8))
-                cuts[f"{name} ({mode})"] = {"from": TL_SEEDS, "to": n_seeds,
-                                            "predicted_s": need,
-                                            "left_s": left}
-                print(f"timeline: {name} ({mode}) cut from {TL_SEEDS} to "
-                      f"{n_seeds} seeds (predicted {need:.1f} s, "
-                      f"{left:.1f} s left)", flush=True)
-        grid0 = dict(ops.GRID_LAUNCHES_BY_FIELDS)
-        chain0 = pl_ops.LAUNCHES["congestion_place"]
-        sum0 = loads_ops.LAUNCHES["ordered_bin_sum"]
-        clock.reset()
-        with clock:
-            tl, wall, peak = timed(lambda: T.simulate_timeline(
-                big, flows, sched, np.arange(n_seeds), strategy=name,
-                demand_mode="bytes", transport="roce-nack",
-                hash_backend="murmur", timing="event"))
-        jct = tl.job_completion.cpu().numpy()
-        check(jct.shape == (n_seeds,) and np.isfinite(jct).all()
-              and (jct > 0).all(), f"{name} ({mode}) JCT")
-        check(torch.equal(tl.step_ends[-1], tl.job_completion),
-              f"{name} ({mode}) step ends")
-        if name == "prime-spray":
-            spray_s = wall
-        full[f"{name} ({mode})"] = {
-            "seeds": n_seeds, "steps": [s.name for s in sched],
-            "columns": [int(ids.shape[1]) for ids in clock.link_ids],
-            "wall_s": wall, **clock.seconds, "peak_bytes": peak,
-            "drain_rounds": [sr.drain_rounds for sr in tl.steps],
-            "fill_rounds": [sr.fill_rounds for sr in tl.steps],
-            "jct_mean_s": float(jct.mean()),
-            "jct_p99_s": float(np.percentile(jct, 99)),
-            "step_duration_mean_s": tl.step_durations.mean(1).tolist(),
-            "fim_mean": float(tl.fim.mean()),
-            "goodput_mean": float(tl.goodput.mean()),
-            "grid_launches_by_fields": {
-                f: c - grid0.get(f, 0)
-                for f, c in ops.GRID_LAUNCHES_BY_FIELDS.items()
-                if c > grid0.get(f, 0)},
-            "chain_launches": pl_ops.LAUNCHES["congestion_place"] - chain0,
-            "ordered_sums": loads_ops.LAUNCHES["ordered_bin_sum"] - sum0}
-        del tl
-    drain_ops.departure_drain = drain
+    # the drain's inputs at ECMP's and prime-spray's widest steps, kept
+    # for the kernel's checks against its plain version
+    with WidestDrain(drain_ops) as widest:
+        for name, mode in TL_SWEEPS:
+            widest.label = (name if mode == "sequential" and name in DRAIN_SHAPES
+                            else None)
+            flows, sched = schedules[mode]
+            n_seeds = TL_SEEDS
+            if name == "adaptive-spray" and spray_s is not None:
+                # an adaptive drive drains each step twice (round 1, then
+                # its RTT budget), the second time over more departure
+                # epochs; the adaptive drives share what is left
+                adaptive_left = sum(n == name for n, _ in TL_SWEEPS[
+                    TL_SWEEPS.index((name, mode)):])
+                left = (TL_BUDGET_S - (time.perf_counter() - t_phase)
+                        - TL_CHECK_RESERVE_S) / adaptive_left
+                need = TL_ADAPTIVE_OVER_SPRAY * spray_s
+                if need > left:
+                    n_seeds = min(TL_SEEDS, max(8, int(
+                        TL_SEEDS * max(left, 0.0) / need) // 8 * 8))
+                    cuts[f"{name} ({mode})"] = {"from": TL_SEEDS, "to": n_seeds,
+                                                "predicted_s": need,
+                                                "left_s": left}
+                    print(f"timeline: {name} ({mode}) cut from {TL_SEEDS} to "
+                          f"{n_seeds} seeds (predicted {need:.1f} s, "
+                          f"{left:.1f} s left)", flush=True)
+            grid0 = dict(ops.GRID_LAUNCHES_BY_FIELDS)
+            chain0 = pl_ops.LAUNCHES["congestion_place"]
+            sum0 = loads_ops.LAUNCHES["ordered_bin_sum"]
+            clock.reset()
+            with clock:
+                tl, wall, peak = timed(lambda: T.simulate_timeline(
+                    big, flows, sched, np.arange(n_seeds), strategy=name,
+                    demand_mode="bytes", transport="roce-nack",
+                    hash_backend="murmur", timing="event"))
+            jct = tl.job_completion.cpu().numpy()
+            check(jct.shape == (n_seeds,) and np.isfinite(jct).all()
+                  and (jct > 0).all(), f"{name} ({mode}) JCT")
+            check(torch.equal(tl.step_ends[-1], tl.job_completion),
+                  f"{name} ({mode}) step ends")
+            if name == "prime-spray":
+                spray_s = wall
+            jct_mean, jct_p99 = float(jct.mean()), float(np.percentile(jct, 99))
+            if n_seeds == TL_SEEDS:
+                # uncut drives give the first design's job completion times
+                for what, got, want in zip(("mean", "p99"), (jct_mean, jct_p99),
+                                           TL_JCT_FIRST_DESIGN[name, mode]):
+                    check(abs(got - want) <= JCT_RTOL * want,
+                          f"{name} ({mode}) JCT {what} {got!r} != {want!r}")
+            full[f"{name} ({mode})"] = {
+                "seeds": n_seeds, "steps": [s.name for s in sched],
+                "columns": [int(ids.shape[1]) for ids in clock.link_ids],
+                "wall_s": wall, **clock.seconds, "peak_bytes": peak,
+                "drain_rounds": [sr.drain_rounds for sr in tl.steps],
+                "fill_rounds": [sr.fill_rounds for sr in tl.steps],
+                "jct_mean_s": jct_mean, "jct_p99_s": jct_p99,
+                "jct_held_to_first_design": n_seeds == TL_SEEDS,
+                "step_duration_mean_s": tl.step_durations.mean(1).tolist(),
+                "fim_mean": float(tl.fim.mean()),
+                "goodput_mean": float(tl.goodput.mean()),
+                "grid_launches_by_fields": {
+                    f: c - grid0.get(f, 0)
+                    for f, c in ops.GRID_LAUNCHES_BY_FIELDS.items()
+                    if c > grid0.get(f, 0)},
+                "chain_launches": pl_ops.LAUNCHES["congestion_place"] - chain0,
+                "ordered_sums": loads_ops.LAUNCHES["ordered_bin_sum"] - sum0}
+            del tl
     full_s = time.perf_counter() - t_full
 
     # 4. ECMP and the wave at full width, seeds 0 and 1, card and CPU
@@ -1543,7 +1637,9 @@ def phase_timeline(np, torch):
                 "departure_drain": drain_ops.LAUNCHES["departure_drain"]}
     for k, v in launches.items():
         check(v > 0, f"the timeline phase never launched {k}")
-    record = check_drain(np, torch, drain_ops, check_args)
+    record = check_drain(np, torch, drain_ops, widest.args["ecmp"],
+                         widest.args["prime-spray"])
+    del widest
     emit({"phase": "timeline", "fabric": "multipod default",
           "two_flow_drain_s": two.completion[:, 0].tolist(),
           "anchors": anchors, "merged_fim": merged, "phased_fim": phased,
@@ -1555,42 +1651,119 @@ def phase_timeline(np, torch):
           "launches": launches, "drain_check": {
               k: record[k] for k in ("shape", "max_abs_err", "max_rel_err",
                                      "rounds", "ms", "plain_ms")},
+          "drain_spray_check": {
+              k: record["spray"][k] for k in (
+                  "shape", "cut", "max_rel_err", "cut_rounds", "ms",
+                  "cut_ms", "cut_plain_ms")},
           "seconds": time.perf_counter() - t_phase})
     return record, launches
 
 
-def check_drain(np, torch, drain_ops, args):
+def drain_bytes(args) -> int:
+    """Bytes the drain must move: its inputs read once (int64 cells,
+    segment offsets, capacities, gigabits, efficiency and the optional
+    weights and round-1 rates) and its completion times written once,
+    with the statistics."""
+    cells, n_seeds, L = args[0], args[2], args[3].numel()
+    H, A = cells.shape
+    return (H * A * 4 + (n_seeds + 1) * 8 + L * 8
+            + A * 8 * (3 + sum(a is not None for a in args[6:8]))
+            + A * 8 + n_seeds * 32)
+
+
+def check_drain(np, torch, drain_ops, args, spray_args):
     """The drain kernel against its plain version on the card, on the
     inputs the main path gave it at ECMP's widest step (the MoE
-    all-to-all: 4,096 columns x 64 seeds): completion times within 1e-9
-    relative; timed with CUDA events.  Drain rounds are reported, not
-    compared: finish times within 1e-12 of a horizon depart together,
-    and both sides' float atomics can move a finish across that line."""
+    all-to-all: 4,096 columns x 64 seeds) and, cut to its first
+    ``DRAIN_CUT_SEEDS`` seeds and ``DRAIN_CUT_CELLS`` cells a seed under
+    the uncut step's cluster, at prime-spray's (32,768 columns x 64
+    seeds): completion times within 1e-9 relative; timed with CUDA
+    events, uncut at both.  Drain rounds are reported, not compared:
+    finish times within 1e-12 of a horizon depart together, and both
+    sides' float atomics can move a finish across that line.  Beside the
+    operations bound (the float64 operations the inputs' cells and links
+    need), a latency bound: the longest seed's drain and freeze rounds,
+    each at the cost of one cluster-wide reduction that
+    ``drain_sync_probe`` measures at the same launch shape."""
+    from repro_torch.kernels.drain import build
     from repro_torch.kernels.drain.ref import departure_drain_ref
-    cells = args[0]
-    got = drain_ops.departure_drain(*args)
-    want_done, want_rounds, want_fills = departure_drain_ref(*args)
-    err = (got.done - want_done).abs()
-    rel = float((err / want_done.abs().clamp(min=1e-300)).max())
-    check(rel <= 1e-9, f"departure_drain != plain version: {rel} "
-          f"relative ({got.rounds} against {want_rounds} rounds)")
-    H, A = cells.shape
-    n_seeds, L = args[2], args[3].numel()
-    moved = (H * A * 4 + (n_seeds + 1) * 8 + L * 8
-             + A * 8 * (3 + sum(a is not None for a in args[6:8]))
-             + A * 8 + n_seeds * 32)
-    b_ms, b_by = bound(moved, got.flops, F64_FLOPS_PER_S)
-    return {
+
+    report, warnings = ptxas_report(
+        build.build().with_suffix(".log").read_text(), "drain_kernel")
+    check(sorted(report) == ["1", "2"],
+          f"drain_kernel instances {sorted(report)} are not 1 and 2 chunks")
+    for inst, r in report.items():
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"drain_kernel<{inst}> spills: {r}")
+
+    def held(args, cluster=None):
+        """The kernel against one event-timed run of the plain version."""
+        got = drain_ops.departure_drain(*args, cluster=cluster)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        want_done, want_rounds, want_fills = departure_drain_ref(*args)
+        b.record()
+        b.synchronize()
+        err = (got.done - want_done).abs()
+        rel = float((err / want_done.abs().clamp(min=1e-300)).max())
+        check(rel <= 1e-9, f"departure_drain != plain version: {rel} "
+              f"relative ({got.rounds} against {want_rounds} rounds)")
+        return got, float(err.max()), rel, want_rounds, want_fills, \
+            a.elapsed_time(b)
+
+    def timing(args, reps):
+        """The kernel's uncut record at ``args``: ms, bounds, plan."""
+        H, A = args[0].shape
+        S, L = args[2], args[3].numel()
+        per_seed = int(torch.bincount(args[1], minlength=S).max())
+        pl = drain_ops.plan(S, per_seed, L, H)
+        got = drain_ops.departure_drain(*args)
+        ms = cuda_ms(lambda: drain_ops.departure_drain(*args), reps)
+        b_ms, b_by = bound(drain_bytes(args), got.flops, F64_FLOPS_PER_S)
+        probe = drain_ops.sync_probe_ms(pl, S, L, DRAIN_PROBE_ITERS)
+        return pl, {
+            "shape": [H, A, S, L], "plan": dataclasses.asdict(pl),
+            "rounds": got.rounds, "fill_rounds": got.fill_rounds,
+            "chain_rounds": got.chain, "ms": ms,
+            "us_per_freeze_round": ms * 1e3 / max(got.fill_rounds, 1),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": got.flops,
+            "reduction_ms": probe, "chain_bound_ms": got.chain * probe,
+            "chain_share": got.chain * probe / ms}
+
+    pl, rec = timing(args, 5)
+    got, abs_err, rel, want_rounds, want_fills, plain_ms = held(args)
+    rec.update({
         "name": "departure_drain", "route": "cuda",
         "source": "src/repro_torch/kernels/drain/csrc/drain.cu",
         "replaces": "src/repro/core/vector_throughput.py:395",
-        "shape": [H, A, n_seeds, L], "rounds": [got.rounds, want_rounds],
+        "rounds": [got.rounds, want_rounds],
         "fill_rounds": [got.fill_rounds, want_fills],
-        "max_abs_err": float(err.max()), "max_rel_err": rel,
-        "ms": cuda_ms(lambda: drain_ops.departure_drain(*args), 5),
-        "plain_ms": cuda_ms(lambda: departure_drain_ref(*args), 1),
-        "bound_ms": b_ms, "bound_by": b_by, "flops": got.flops,
-        "library_ms": None}
+        "max_abs_err": abs_err, "max_rel_err": rel, "plain_ms": plain_ms,
+        "library_ms": None})
+    spray_pl, spray = timing(spray_args, 3)
+    cut = cut_drain(torch, spray_args, DRAIN_CUT_SEEDS, DRAIN_CUT_CELLS)
+    check(int(torch.bincount(cut[1]).min()) // spray_pl.cluster
+          > drain_ops.THREADS, "the cut keeps no more cells a CTA than "
+          "threads")
+    print(f"timeline: the drain's check at prime-spray's widest step cut to "
+          f"{DRAIN_CUT_SEEDS} seeds x {DRAIN_CUT_CELLS} cells (cluster "
+          f"{spray_pl.cluster})", flush=True)
+    got, abs_err, rel, want_rounds, want_fills, plain_ms = held(
+        cut, spray_pl.cluster)
+    spray.update({
+        "cut": [DRAIN_CUT_SEEDS, DRAIN_CUT_CELLS, spray_pl.cluster],
+        "cut_rounds": [got.rounds, want_rounds],
+        "cut_fill_rounds": [got.fill_rounds, want_fills],
+        "max_abs_err": abs_err, "max_rel_err": rel,
+        "cut_plain_ms": plain_ms,
+        "cut_ms": cuda_ms(lambda: drain_ops.departure_drain(
+            *cut, cluster=spray_pl.cluster), 3)})
+    rec["spray"] = spray
+    emit({"phase": "ptxas", "kernel": "drain_kernel", "instances": report,
+          "smem_bytes": {"ecmp": pl.smem_bytes,
+                         "prime-spray": spray_pl.smem_bytes},
+          "warnings": [w for w in warnings if "drain" in w]})
+    return rec
 
 
 def ptxas_report(log: str, kernel: str) -> tuple[dict, list]:

@@ -48,8 +48,8 @@ from .placement import (
 from .reordering import (
     DEFAULT_RTT_SECONDS, IDEAL, ROCE_NACK, ROCE_NACK_ANCHORS, STRACK,
     STRACK_ANCHORS, TransportProfile, available_transports,
-    calibrate_transport, flowlet_exposure, reordering_efficiency,
-    resolve_transport, rtt_round_budget,
+    calibrate_transport, flowlet_exposure, register_transport,
+    reordering_efficiency, resolve_transport, rtt_round_budget,
 )
 from .report import PathReport, analyze_paths
 from .strategies import (
@@ -105,8 +105,8 @@ __all__ = [
     "topology_aware_ring",
     "DEFAULT_RTT_SECONDS", "IDEAL", "ROCE_NACK", "ROCE_NACK_ANCHORS",
     "STRACK", "STRACK_ANCHORS", "TransportProfile", "available_transports",
-    "calibrate_transport", "flowlet_exposure", "reordering_efficiency",
-    "resolve_transport", "rtt_round_budget",
+    "calibrate_transport", "flowlet_exposure", "register_transport",
+    "reordering_efficiency", "resolve_transport", "rtt_round_budget",
     "PathReport", "analyze_paths",
     "ELEPHANT_MIN_BYTES", "AdaptiveSpraying", "CongestionAware",
     "EcmpStrategy", "PrimeSpraying", "RoutingStrategy",

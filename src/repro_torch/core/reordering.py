@@ -113,6 +113,23 @@ TRANSPORTS: dict[str, TransportProfile] = {
     p.name: p for p in (IDEAL, ROCE_NACK, STRACK)}
 
 
+def register_transport(profile: TransportProfile, *,
+                       replace: bool = False) -> TransportProfile:
+    """Register ``profile`` so ``transport="name"`` resolves to it.
+
+    A duplicate name raises unless ``replace=True``: every benchmark and
+    test resolves transports by name, so silently overwriting e.g.
+    ``"roce-nack"`` would re-anchor all their goodput numbers without a
+    trace."""
+    if not replace and profile.name in TRANSPORTS:
+        raise ValueError(
+            f"transport profile {profile.name!r} is already registered "
+            f"(registered: {available_transports()}); pass replace=True "
+            f"to overwrite it")
+    TRANSPORTS[profile.name] = profile
+    return profile
+
+
 def available_transports() -> list[str]:
     return sorted(TRANSPORTS)
 

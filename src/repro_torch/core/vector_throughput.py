@@ -290,8 +290,8 @@ def departure_fill(
     The live (column, seed) cells go to the drain in the fill's
     seed-major order, with their remaining gigabits, goodput multiplier
     and weight (``kernels/drain``): on the card every seed's whole drain
-    is one block of one kernel launch, on the CPU the plain version runs
-    the reference's rounds over all seeds at once.
+    is one cluster of CTAs of one kernel launch, on the CPU the plain
+    version runs the reference's rounds over all seeds at once.
 
     ``efficiency`` optionally scales each cell's drain rate (goodput =
     rate x efficiency), held fixed across re-fills.  ``initial_rates``

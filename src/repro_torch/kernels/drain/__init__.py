@@ -1,2 +1,3 @@
 """The departure-ordered max-min drain of event timing: every seed's
-whole drain as one CUDA block (``csrc/drain.cu``)."""
+whole drain as one cluster of CTAs over dense cell lists
+(``csrc/drain.cu``)."""

@@ -19,13 +19,26 @@ def build() -> Path:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The built library with its one entry point typed (every pointer
-    and the stream as ``c_void_p``, which ctypes would otherwise cut to
-    32 bits)."""
-    lib = ctypes.CDLL(str(build()))
+    """The built library with its entry points typed (every pointer and
+    the stream as ``c_void_p``, which ctypes would otherwise cut to 32
+    bits): the drain, the width of its statistics rows, the clusters of a
+    launch shape the card keeps resident and the cluster-reduction
+    probe."""
+    return typed(ctypes.CDLL(str(build())))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s entry points typed (any build of ``drain.cu``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.departure_drain
-    p = ctypes.c_void_p
-    fn.argtypes = [p] * 13 + [ctypes.c_longlong, ctypes.c_longlong,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    fn.argtypes = ([p] * 12 + [ctypes.c_longlong, ctypes.c_double]
+                  + [i] * 5 + [p])
     fn.restype = ctypes.c_int
+    lib.drain_stats_cols.argtypes = []
+    lib.drain_stats_cols.restype = i
+    lib.drain_resident_clusters.argtypes = [i] * 4 + [p]
+    lib.drain_resident_clusters.restype = i
+    probe = lib.drain_sync_probe
+    probe.argtypes = [i] * 5 + [p, p]
+    probe.restype = i
     return lib

@@ -75,8 +75,71 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
 
 
 def test_shared_memory_fits_the_default_fabrics():
-    # a block keeps four float64 rows and a byte row per link
+    # a CTA keeps three float64 rows and an int32 row per link beside
+    # lists for one cell a thread
     assert ops.max_links() >= 1_024 * 6
+    assert (ops.smem_bytes(ops.max_links(), ops.THREADS) <= ops.SMEM_BUDGET
+            < ops.smem_bytes(ops.max_links() + 1, ops.THREADS))
     assert build.SOURCE.name == "drain.cu" and build.SOURCE.is_file()
     ops.reset_launches()
     assert ops.LAUNCHES == {"departure_drain": 0}
+
+
+# (seeds, cells a seed, links, hops) -> (cluster, chunks, cells a CTA):
+# ECMP's and prime-spray's widest full-width steps (the MoE all-to-all,
+# 4,096 and 32,768 columns x 64 seeds over the default multipod
+# fabric's 1,024 links), the card check's 2 seeds, more seeds than the
+# card has SMs, one seed, six hops, and a fabric at max_links()
+PLANS = [
+    ((64, 4_096, 1_024, 4), (2, 1, 2_048)),
+    ((64, 32_768, 1_024, 4), (2, 1, 16_384)),
+    ((2, 32_768, 1_024, 4), (4, 1, 8_192)),
+    ((200, 5_000, 48, 4), (1, 1, 5_000)),
+    ((1, 5_000, 48, 4), (2, 1, 2_500)),
+    ((4, 700, 30, 6), (1, 2, 700)),
+    ((2, 900, ops.max_links(), 4), (2, 1, 450)),
+]
+
+
+@pytest.mark.parametrize("shape, want", PLANS)
+def test_plan_picks_the_launch_shape(shape, want):
+    pl = ops.plan(*shape)
+    assert (pl.cluster, pl.chunks, pl.cells_per_block) == want
+    assert pl.cluster * pl.cells_per_block >= shape[1]
+    assert pl.smem_bytes == ops.smem_bytes(shape[2], pl.cells_per_block)
+    assert pl.smem_bytes <= ops.SMEM_BUDGET
+
+
+def test_plan_keeps_every_seed_resident():
+    # prime-spray's step on a card that keeps 30 clusters of 4 resident:
+    # 64 seeds stay at 2 and 30 seeds spread to 4; a card that keeps
+    # no cluster of 2 leaves ECMP's seeds at 1
+    def resident(c, _):
+        return {2: 66, 4: 30, 8: 14}[c]
+    assert ops.plan(64, 32_768, 1_024, 4, resident=resident).cluster == 2
+    assert ops.plan(30, 32_768, 1_024, 4, resident=resident).cluster == 4
+    assert ops.plan(64, 4_096, 1_024, 4, resident=lambda c, _: 0).cluster == 1
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_plan_takes_a_forced_cluster(cluster):
+    pl = ops.plan(3, 5_000, 48, 4, cluster=cluster)
+    assert pl.cluster == cluster
+    assert pl.cells_per_block == -(-5_000 // cluster)
+
+
+# shapes the kernel cannot take, and the limit each error names
+REFUSED = [
+    ((64, 4_096, 1_024, 9), "at most 8"),
+    ((64, 4_096, ops.max_links() + 1, 4), f"at most {ops.max_links()}"),
+    ((64, 8 * 65_536 + 1, 1_024, 4), "cells a seed do not fit"),
+    ((1, 200_000, 14_000, 4), "at most 8512 a seed"),
+    ((64, 40_000, 1_024, 4, ops.SMS, 1), "do not fit 1 CTAs"),
+    ((64, 4_096, 1_024, 4, ops.SMS, 3), "takes 1, 2, 4 or 8"),
+]
+
+
+@pytest.mark.parametrize("shape, msg", REFUSED)
+def test_plan_refuses_what_does_not_fit(shape, msg):
+    with pytest.raises(ValueError, match=msg):
+        ops.plan(*shape)

@@ -221,3 +221,27 @@ def test_reordering_efficiency_matches_reference(transport):
     assert float(got[0]) == 1.0                    # exactly 1 at zero
     with pytest.raises(ValueError, match="non-negative"):
         T.reordering_efficiency(torch.tensor([0.1, -1e-9]), tp)
+
+
+@pytest.mark.parametrize("name", ["dup-transport", "roce-nack"])
+def test_register_transport_raises_like_reference(name):
+    """A second profile under a registered name raises the reference's
+    message in both registries (a fresh name and a published anchor);
+    ``replace=True`` overwrites, and the name resolves to the new one."""
+    from repro_torch.core import reordering as TR
+    RR.register_transport(R.TransportProfile("dup-transport", 1.0, 0.5))
+    probe = T.register_transport(T.TransportProfile("dup-transport", 1.0, 0.5))
+    try:
+        assert T.resolve_transport("dup-transport") is probe
+        with pytest.raises(ValueError, match="already registered") as want:
+            RR.register_transport(R.TransportProfile(name, 2.0, 0.5))
+        with pytest.raises(ValueError, match="already registered") as got:
+            T.register_transport(T.TransportProfile(name, 2.0, 0.5))
+        assert str(got.value) == str(want.value)
+        again = T.TransportProfile("dup-transport", 3.0, 0.5)
+        assert T.register_transport(again, replace=True) is again
+        assert T.resolve_transport("dup-transport") is again
+    finally:
+        RR._TRANSPORTS.pop("dup-transport", None)
+        TR.TRANSPORTS.pop("dup-transport", None)
+    assert T.available_transports() == RR.available_transports()

@@ -29,8 +29,9 @@ f32 with TF32 off.  The bridges to the hop-by-hop tracer must hold on the
 card: ``paths_for_seed`` of an ``exact`` walk equals the CPU's and the
 tracer's paths, ``pair_throughput_for_seed`` the CPU's to 1e-9, and the
 tracer's process pool, started after the card's work, the serial trace.
-The departure-ordered drain (its kernel, a block per seed, against its
-plain version) and the event-timed timeline must give the CPU's
+The departure-ordered drain (its kernel, a cluster of CTAs per seed
+over dense cell lists, against its plain version at every cluster size
+and at edge shapes) and the event-timed timeline must give the CPU's
 completion times, step durations and job completion time to 1e-9 (and
 every step's link ids bit for bit) on the same seed list.
 """
@@ -362,6 +363,113 @@ def test_departure_drain_kernel_matches_plain_version(card, weighted):
     np.testing.assert_allclose(got.done.cpu().numpy(), want.done.numpy(),
                                rtol=1e-9, atol=0)
     assert 0 < got.rounds <= cells.shape[1]
+
+
+def _drain_case(rng, H=4, N=900, S=12, L=48, weighted=True, init=False,
+                empty_seed=False, linkless=0.0, uniform=None):
+    """``_drain_inputs`` with a seed left with no cell, a share of
+    columns that cross no link, round-1 rates and one weight for every
+    cell, as asked; returns the drain's arguments up to ``max_rounds``."""
+    cells, seed, S, cap, gb, eff, w = _drain_inputs(rng, H, N, S, L, weighted)
+    if uniform is not None:
+        w = torch.full_like(gb, uniform)
+    if linkless:
+        cells[:, torch.from_numpy(rng.random(N) < linkless).repeat(S)] = S * L
+    if empty_seed:
+        keep = seed != S // 2
+        cells, seed, gb, eff = cells[:, keep], seed[keep], gb[keep], eff[keep]
+        w = None if w is None else w[keep]
+    ini = (torch.from_numpy(rng.uniform(1.0, 30.0, size=seed.numel()))
+           if init else None)
+    return cells, seed, S, cap, gb, eff, w, ini
+
+
+def _drain_on_card(card, args, want, cluster=None):
+    """The kernel on ``args`` (moved to the card) against the plain
+    version's ``want``: completion within 1e-9, one launch."""
+    from repro_torch.kernels.drain import ops as drain_ops
+    dargs = [a.to(card) if isinstance(a, torch.Tensor) else a for a in args]
+    drain_ops.reset_launches()
+    got = drain_ops.departure_drain(*dargs, 10_000, cluster=cluster)
+    assert drain_ops.LAUNCHES == {"departure_drain": 1}
+    np.testing.assert_allclose(got.done.cpu().numpy(), want.done.numpy(),
+                               rtol=1e-9, atol=0)
+    return got
+
+
+@pytest.fixture(scope="module")
+def long_seed():
+    """One seed of 2,600 cells, more than a CTA has threads and more
+    than one 2,048-cell tile of its passes, and the plain version's
+    drain of it."""
+    from repro_torch.kernels.drain import ops as drain_ops
+    args = _drain_case(np.random.default_rng(11), N=2_600, S=1)
+    return args, drain_ops.departure_drain(*args, 10_000)
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
+def test_departure_drain_spreads_a_seed_over_a_cluster(card, long_seed,
+                                                       cluster):
+    """The seed's cells split over 1 to 8 CTAs (``None``: the plan's),
+    which share shares, stamps, counts and the horizon through
+    distributed shared memory: the plain version's completion times,
+    and the same operations counted whatever the cluster."""
+    args, want = long_seed
+    got = _drain_on_card(card, args, want, cluster)
+    assert got.flops > 0 and got.chain >= got.rounds + got.fill_rounds
+
+
+@pytest.mark.parametrize("case", [
+    dict(N=300, S=200, L=24),                    # more seeds than SMs
+    dict(N=600, S=5, L=40, init=True, empty_seed=True, linkless=0.1),
+    dict(N=900, S=12, weighted=False, init=True),
+    dict(H=6, N=700, S=4, L=30),                 # two 4-hop loads a cell
+    dict(N=900, S=6, uniform=0.125),             # counted: 0.125 x members
+    dict(N=900, S=6, uniform=0.3),               # summed in L2
+], ids=["200-seeds", "empty-seed-linkless-init", "unweighted-init",
+        "six-hops", "uniform-power-of-two", "uniform-other"])
+@pytest.mark.parametrize("cluster", [None, 2])
+def test_departure_drain_edge_shapes_on_the_card(card, case, cluster):
+    """Edge shapes at the plan's cluster and at a cluster of 2: a seed
+    with no cell, columns that cross no link (an infinite rate), round-1
+    rates, unit demand, more seeds than the card has SMs, six hops, and
+    one weight for every cell (a power of two: member counts; another:
+    weight sums)."""
+    from repro_torch.kernels.drain import ops as drain_ops
+    args = _drain_case(np.random.default_rng(12), **case)
+    _drain_on_card(card, args, drain_ops.departure_drain(*args, 10_000),
+                   cluster)
+
+
+def test_departure_drain_at_max_links(card):
+    """A fabric at ``max_links()``: the link rows fill a CTA's shared
+    memory and the plan spreads the seed's lists over a cluster."""
+    from repro_torch.kernels.drain import ops as drain_ops
+    L = drain_ops.max_links()
+    args = _drain_case(np.random.default_rng(13), N=900, S=2, L=L,
+                       weighted=False)
+    assert drain_ops.plan(2, 900, L, 4).cluster > 1
+    _drain_on_card(card, args, drain_ops.departure_drain(*args, 10_000))
+
+
+def test_departure_drain_refused_shape_raises_on_the_card(card, monkeypatch):
+    """Nine hops a cell: the plan refuses, naming its limit, and the
+    wrapper raises rather than take the plain version."""
+    from repro_torch.kernels.drain import ops as drain_ops
+    monkeypatch.setattr(drain_ops, "departure_drain_ref", None)
+    args = _drain_case(np.random.default_rng(14), H=9, N=50, S=2, L=30)
+    dargs = [a.to(card) if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="at most 8"):
+        drain_ops.departure_drain(*dargs, 10_000)
+
+
+def test_drain_sync_probe_times_a_reduction(card):
+    """The cluster-reduction probe behind the latency bound runs at the
+    plan's launch shape and gives a positive, sub-millisecond cost."""
+    from repro_torch.kernels.drain import ops as drain_ops
+    for c in (1, 2):
+        pl = drain_ops.plan(64, 4_096, 1_024, 4, cluster=c)
+        assert 0 < drain_ops.sync_probe_ms(pl, 64, 1_024, 2_000) < 1.0
 
 
 def test_departure_drain_faults_raise_on_the_card(card, monkeypatch):
