@@ -20,11 +20,11 @@ once) and then:
    in bf16 and f32 to the JAX package's Pallas tolerances (2e-2, 2e-6)
    and to a per-row relative limit (2e-2, 1e-4) at 32 query heads over
    8 kv heads, hd 64, S 4,096 causal and not, a ragged S 1,000, and S
-   32,768 (every row,
-   and the last 256 rows against a plain computation of those rows
-   alone; a planted skipped key tile of the bf16 kernel's width must
-   fail the row limit; the ``-Xptxas -v`` report must show one bf16
-   instance a head dim, with the tiles ``ops.BF16_TILES`` names, no
+   32,768 (every row, and the last 256 rows against a plain computation
+   of those rows alone; a planted skipped key tile of the bf16 kernel's
+   width must fail the row limit; the same at the hd-128 serving shape,
+   32 query heads over 2, with its own row on the ``kernels`` line; the
+   ``-Xptxas -v`` report must show one bf16 instance a head dim, with the tiles ``ops.BF16_TILES`` names, no
    spills and no serialised ``wgmma``), the SSD
    intra-chunk kernel (the ``-Xptxas -v`` report must show the bf16
    bodies ``ops.BF16_BODIES`` names, no spills and no serialised
@@ -115,18 +115,46 @@ once) and then:
    cluster-wide reduction, ``drain_sync_probe``), and its ``-Xptxas -v``
    report (registers, spills, the plan's shared memory) free of
    spills;
-8. drives granite-3-2b serving at full width and depth (40 layers,
-   bf16, weights from a seeded generator on the card): ``prefill_logits``
-   on 2 x 32,768 tokens (40 flash-attention launches), ``generate`` for
+8. drives granite-3-2b serving at full width (bf16, weights from a
+   seeded generator on the card) and ``GRANITE_LAYERS`` (8) of its 40
+   layers, printed with ``reduced``: ``prefill_logits`` on 2 x 32,768
+   tokens (a flash-attention launch at hd 64 a layer), ``generate`` for
    4 x 2,304-token prompts and 16 greedy tokens with the decode logits
-   checked against the prefill's, and a 2-layer f32 prefill on the card
-   against the CPU;
-9. drives mamba2-1.3b serving at full width and depth (48 layers, bf16,
-   Mamba-2's dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (48
-   SSD launches), ``generate`` for 4 x 520-token prompts and 16 greedy
-   tokens with the decode logits checked against the prefill's, and a
-   2-layer f32 prefill on the card against the CPU;
-10. prints the ``kernels`` record and, last, the one-line result.
+   checked against the prefill's, and a 2-layer f32 model on the card:
+   its prefill against the CPU's, and its cached decode of a prompt's
+   last token against its prefill;
+9. drives glm4-9b serving the same way at full width and depth (40
+   layers, q/k/v biases, 32 query heads over 2 kv heads: 40 flash
+   launches at hd 128), the 2-layer f32 checks with nonzero biases
+   drawn from the seed;
+10. drives qwen2-moe-a2.7b the same way at full width and depth (24
+   layers, 60 experts, top 4, a shared expert, 16 heads over 16 at hd
+   128): the prefill at the config's capacity factor, which drops
+   tokens (the drops of each layer printed); ``generate`` and the
+   decode checks drop-free (capacity factor 60), each prompt position
+   of the generate routed, layer by layer, to the experts the prompts'
+   prefill chose for it (decode's own choice would differ where two
+   experts' router logits tie within the bf16 rounding: the differing
+   positions of each layer and decode's gap between its k-th and
+   (k+1)-th logits there are printed), so that its bf16 decode is held
+   against the prefill as granite's is; one layer's MoE on the
+   prefill's shape run twice with identical bits;
+11. drives qwen2-72b at full width and the most layers that fit beside
+   a 2 x 32,768-token prefill (printed, with ``reduced``):
+   ``Model.prefill`` with ``last_only`` (a flash launch at hd 128 a
+   layer, 64 query heads over 8);
+12. drives mamba2-1.3b serving at full width and ``MAMBA2_LAYERS``
+   (24) of its 48 layers, printed with ``reduced`` (bf16, Mamba-2's
+   dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (an SSD
+   launch a layer), ``generate`` for 4 x 520-token prompts and
+   16 greedy tokens with the decode logits checked against the
+   prefill's, and a 2-layer f32 prefill on the card against the CPU;
+13. prints the ``kernels`` record, each phase's seconds and, last, the
+   one-line result.
+
+Each serving phase prints its seconds by step, and its decode rate
+from ``DECODE_TIMED_STEPS`` decode steps run alone (no routing patch,
+no profiler).
 
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel that its path never launched fails the
@@ -135,9 +163,12 @@ its paths have hops, a chain that did not launch the placement
 kernel, a byte-demand re-spray that did not launch the ordered sum, or a
 timeline phase that did not launch the flow hash at 5 and at 7 fields,
 the placement kernel, the ordered sum and the drain (its launches join
-the ``kernels`` line's counts).  The flow hash's launches are counted by the width they hashed:
-the ``kernels`` line gives the 5-field launches on the murmur row and
-the 7-field ones under its ``f7``.
+the ``kernels`` line's counts).  The flow hash's launches are counted
+by the width they hashed: the ``kernels`` line gives the 5-field
+launches on the murmur row and the 7-field ones under its ``f7``.  The
+flash kernel's are counted by the head dim of the config that launched
+them: the hd-64 row counts granite's prefills, the hd-128 row those of
+glm4-9b, qwen2-moe-a2.7b and qwen2-72b.
 
 Every check raises, so any failure exits non-zero before the result
 line.  Without a CUDA card, or without the repository around it, the
@@ -146,6 +177,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -342,18 +374,23 @@ FLOWS_PER_PAIR = 800           # 128 directed host pairs -> 102,400 flows
 # to that row's size (ref.row_errors, ref.ROW_RTOL: bf16 2e-2, f32 1e-4)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-6}
 FLASH_HEADS, FLASH_KV_HEADS, FLASH_HD = 32, 8, 64
+# the hd-128 serving shape: glm4-9b's 32 query heads over 2 kv heads
+FLASH_HD128 = (32, 2, 128)
 BAND = 256                     # query rows held at S = 32,768
 # serving: granite-3-2b; the repo's prefill_32k length with the global
 # batch of 32 cut to 2 for one card
 PREFILL_BATCH, PREFILL_LEN = 2, 32_768
 GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 2_304, 16
 SERVE_SEED = 0
-PROFILE_STEPS = 20             # decode steps traced for the device's busy share
+PROFILE_STEPS = 5              # decode steps traced for the device's busy share
+DECODE_TIMED_STEPS = 32        # decode steps timed alone for the decode rate
 # decode (plain attention, bf16 scores) against prefill (the flash
 # kernel, f32 scores) at the last prompt position, 40 layers in bf16:
 # max |logit difference| (0.09 measured on an H100 with these seeds;
-# the logits have std ~1); also the top-2 gap above which the first
-# generated token must be the prefill's argmax
+# glm4-9b's 0.109; the logits have std ~1); also the top-2 gap above
+# which the first generated token must be the prefill's argmax.  A MoE's
+# decode takes the prefill's experts at each prompt position
+# (phase_serve)
 DECODE_TOL = 0.2
 # the card against the CPU, 2 layers in f32 with TF32 off: max |logit
 # difference| relative to the largest |logit|
@@ -370,14 +407,27 @@ SSD_HEADS, SSD_HD, SSD_STATE, SSD_CHUNK = 64, 64, 128, 256
 DT_RANGE = (1e-3, 1e-1)
 DECAY_MIN = 1e-2
 RAGGED_S = 1_000
-# serving: mamba2-1.3b at full depth; prompts of two whole chunks and a
-# ragged third
+# serving: mamba2-1.3b; prompts of two whole chunks and a ragged third
 M2_GEN_PROMPT = 520
 # decode (conv einsum, f32 state) against prefill (the kernel, bf16 w) at
-# the last prompt position, 48 layers in bf16: max |logit difference|, and
+# the last prompt position in bf16 (set at all 48 layers, 0.31 measured
+# there): max |logit difference|, and
 # the top-2 gap above which the first generated token must be the
 # prefill's argmax
 M2_DECODE_TOL = 0.5
+# the q/k/v biases of the f32 card-against-CPU checks, N(0, std), where
+# the reference's init makes them zero
+QKV_BIAS_STD = 0.5
+# granite-3-2b's and mamba2-1.3b's serving depths, cut from 40 and 48
+# so that the script keeps inside 600 s beside the hd-128 paths: their
+# generates are host-bound, about 1.1 to 1.5 ms a layer a decode step
+# on an H100's host, whose speed moves by half from one machine to the
+# next
+GRANITE_LAYERS = 8
+MAMBA2_LAYERS = 24
+# phase_serve's depth for a config whose full depth exceeds the card's
+# memory: the most layers that fit
+FIT = "fit"
 
 
 class CheckFailed(RuntimeError):
@@ -1795,8 +1845,8 @@ def ptxas_report(log: str, kernel: str) -> tuple[dict, list]:
 
 def phase_flash(np, torch):
     """The flash-attention kernel against its plain version on the card
-    in bf16 and f32; returns its record at the serving path's shape
-    (launch count filled in later)."""
+    in bf16 and f32; returns its records at the two serving shapes, hd
+    64 and hd 128 (launch counts filled in later)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import build, ops, ref
@@ -1820,10 +1870,11 @@ def phase_flash(np, torch):
           f"ptxas warns on the bf16 kernel: {warnings}")
     gen = torch.Generator(device="cuda").manual_seed(11)
 
-    def qkv(B, S, dtype):
-        return [torch.randn((B, h, S, FLASH_HD), generator=gen,
+    def qkv(B, S, dtype, heads=FLASH_HEADS, kv_heads=FLASH_KV_HEADS,
+            hd=FLASH_HD):
+        return [torch.randn((B, h, S, hd), generator=gen,
                             device="cuda").to(dtype)
-                for h in (FLASH_HEADS, FLASH_KV_HEADS, FLASH_KV_HEADS)]
+                for h in (heads, kv_heads, kv_heads)]
 
     def cost(q, k, causal):
         """(bytes of q, k, v and o, flops of the unmasked q-k pairs)."""
@@ -1870,67 +1921,81 @@ def phase_flash(np, torch):
               for dtype in ("bfloat16", "float32")
               for S, causal in ((4096, True), (4096, False), (1000, True))]
 
-    # the serving path's shape: 2 x 32 heads over 8 kv heads, S 32,768,
-    # causal bf16; every row held against the plain version, and the
-    # last BAND rows also against a plain computation of those rows alone
-    S, off = PREFILL_LEN, PREFILL_LEN - BAND
-    q, k, v = qkv(PREFILL_BATCH, S, torch.bfloat16)
-    got = ops.flash_attention(q, k, v)
-    want = ref.flash_attention_ref(q, k, v)
-    full_err, full_row = errs_of(got, want, f"bfloat16, S {S}, causal")
-    del want
-    got = got[:, :, off:]
-    want = ref.flash_attention_ref(q[:, :, off:], k, v, q_offset=off)
-    band_err, band_row = errs_of(got, want, f"bfloat16, S {S}, band")
-    # a planted fault: the band's output with the middle key tile (as
-    # many keys as the bf16 kernel stages at a time) skipped must fail the
-    # row check
-    bq, tile, stages = ops.BF16_TILES[FLASH_HD]
-    k0 = S // 2
-    kd, vd = (torch.cat([t[:, :, :k0], t[:, :, k0 + tile:]], 2)
-              for t in (k, v))
-    bad = ref.flash_attention_ref(q[:, :, off:], kd, vd, q_offset=off - tile)
-    bad_row = float(ref.row_errors(bad, want).max())
-    bad_abs = float((bad.float() - want.float()).abs().max())
-    if not bad_row > ref.ROW_RTOL[torch.bfloat16]:
-        failures.append(f"the row check passes a skipped key tile "
-                        f"({bad_row})")
-    del got, want, kd, vd, bad
-    b_ms, b_by = bound(*cost(q, k, True), BF16_FLOPS_PER_S)
-    # one exponential a query-key pair the causal mask keeps
-    exps = PREFILL_BATCH * FLASH_HEADS * S * (S + 1) // 2
-    ms, library_ms = paired_ms(
-        lambda: ops.flash_attention(q, k, v),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               enable_gqa=True))
-    record = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
-        "shape": [PREFILL_BATCH, FLASH_HEADS, FLASH_KV_HEADS, PREFILL_LEN,
-                  FLASH_HD],
-        "dtype": "bfloat16", "causal": True, "max_abs_err": full_err,
-        "max_row_err": full_row,
-        "ms": ms,
-        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-        "ms_over_library": ms / library_ms}
+    def serving_shape(name, heads, kv_heads, hd):
+        """A served prefill's attention: 2 x ``heads`` over ``kv_heads``,
+        S 32,768, causal bf16.  Every row is held against the plain
+        version (timed in the same run), and the last BAND rows also
+        against a plain computation of those rows alone; a planted
+        skipped key tile must fail the row check; the kernel is timed
+        against SDPA in alternating rounds.  Returns (kernels-line
+        record, phase record)."""
+        S, off = PREFILL_LEN, PREFILL_LEN - BAND
+        q, k, v = qkv(PREFILL_BATCH, S, torch.bfloat16, heads, kv_heads, hd)
+        got = ops.flash_attention(q, k, v)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = ref.flash_attention_ref(q, k, v)
+        b.record()
+        b.synchronize()
+        plain_ms = a.elapsed_time(b)
+        full = errs_of(got, want, f"hd {hd}, S {S}, causal")
+        del want
+        got = got[:, :, off:]
+        want = ref.flash_attention_ref(q[:, :, off:], k, v, q_offset=off)
+        band = errs_of(got, want, f"hd {hd}, S {S}, band")
+        # a planted fault: the band's output with the middle key tile (as
+        # many keys as the bf16 kernel stages at a time) skipped must fail
+        # the row check
+        bq, tile, stages = ops.BF16_TILES[hd]
+        k0 = S // 2
+        kd, vd = (torch.cat([t[:, :, :k0], t[:, :, k0 + tile:]], 2)
+                  for t in (k, v))
+        bad = ref.flash_attention_ref(q[:, :, off:], kd, vd,
+                                      q_offset=off - tile)
+        bad_row = float(ref.row_errors(bad, want).max())
+        bad_abs = float((bad.float() - want.float()).abs().max())
+        if not bad_row > ref.ROW_RTOL[torch.bfloat16]:
+            failures.append(f"the row check passes a skipped key tile at hd "
+                            f"{hd} ({bad_row})")
+        del got, want, kd, vd, bad
+        b_ms, b_by = bound(*cost(q, k, True), BF16_FLOPS_PER_S)
+        # one exponential a query-key pair the causal mask keeps
+        exps = PREFILL_BATCH * heads * S * (S + 1) // 2
+        ms, library_ms = paired_ms(
+            lambda: ops.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True))
+        record = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
+            "shape": [PREFILL_BATCH, heads, kv_heads, PREFILL_LEN, hd],
+            "dtype": "bfloat16", "causal": True, "max_abs_err": full[0],
+            "max_row_err": full[1], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "ms_over_library": ms / library_ms}
+        info = {"heads": [heads, kv_heads], "hd": hd,
+                "tiles": {"query_rows": bq, "keys": tile, "stages": stages},
+                "exponentials": exps, "exp_bound_ms": exps / EXP_PER_S * 1e3,
+                "full": {"S": S, "batch": PREFILL_BATCH,
+                         "max_abs_err": full[0], "max_row_err": full[1]},
+                "band": {"S": S, "rows": BAND, "max_abs_err": band[0],
+                         "max_row_err": band[1]},
+                "planted_skipped_tile": {"key_tile": [k0, k0 + tile],
+                                         "max_abs_err": bad_abs,
+                                         "max_row_err": bad_row}}
+        return record, info
+
+    record, info = serving_shape("flash_attention", FLASH_HEADS,
+                                 FLASH_KV_HEADS, FLASH_HD)
+    record128, info128 = serving_shape("flash_attention_hd128", *FLASH_HD128)
     emit({"phase": "kernels", "kernel": "flash_attention", "tol": FLASH_TOL,
           "row_tol": {str(d)[6:]: t for d, t in ref.ROW_RTOL.items()},
-          "heads": [FLASH_HEADS, FLASH_KV_HEADS], "hd": FLASH_HD,
-          "tiles": {"query_rows": bq, "keys": tile, "stages": stages},
-          "exponentials": exps, "exp_bound_ms": exps / EXP_PER_S * 1e3,
-          "checks": checks,
-          "full": {"S": S, "batch": PREFILL_BATCH, "max_abs_err": full_err,
-                   "max_row_err": full_row},
-          "band": {"S": S, "rows": BAND, "max_abs_err": band_err,
-                   "max_row_err": band_row},
-          "planted_skipped_tile": {"key_tile": [k0, k0 + tile],
-                                   "max_abs_err": bad_abs,
-                                   "max_row_err": bad_row}})
+          **info, "checks": checks, "hd128": info128})
     check(not failures, "; ".join(failures))
-    return record
+    return [record, record128]
 
 
 def ssd_inputs(torch, B, S, dtype, seed):
@@ -2128,8 +2193,9 @@ def device_profile(fn, top: int = 6, groups: dict | None = None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: tracing every host op as well costs
+    # tens of seconds of post-processing at a decode's launch counts
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2163,85 +2229,327 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_serve(np, torch):
-    """granite-3-2b serving at full width and depth; returns the flash
-    launches of the 32,768-token prefill.  The phase's record is printed
-    before its checks run, so a failed check still shows the numbers."""
+def all_finite(torch, t) -> bool:
+    """``torch.isfinite(t).all()`` 4,096 positions at a time, so that
+    the mask of a (B, S, V) logits tensor never exists whole."""
+    return all(bool(torch.isfinite(c).all()) for c in t.split(4096, dim=1))
+
+
+def draw_qkv_biases(torch, params, seed):
+    """Each layer's q/k/v biases drawn N(0, QKV_BIAS_STD) from ``seed``,
+    in place of the reference init's zeros, so that a check sees them."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    for lp in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            b = lp["attn"][name]
+            lp["attn"][name] = (torch.randn(b.shape, generator=gen)
+                                * QKV_BIAS_STD).to(b.device, b.dtype)
+
+
+def moe_patch(name, make):
+    """A context in which ``repro_torch.models.moe.<name>`` is
+    ``make(real)``, ``real`` being the function it replaces."""
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def patch():
+        real = getattr(moe, name)
+        setattr(moe, name, make(real))
+        try:
+            yield
+        finally:
+            setattr(moe, name, real)
+
+    return patch()
+
+
+def layers_that_fit(torch, cfg) -> tuple[int, dict]:
+    """The most of ``cfg``'s layers whose bf16 weights fit in the card's
+    free memory beside the embedding, the head and a 2 x 32,768-token
+    prefill, and the sizes that decided it."""
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.hd
+    layer_bytes = 2 * (D * qkv + cfg.num_heads * cfg.hd * D + 3 * D * F_
+                       + 2 * D + qkv)
+    head_bytes = 2 * (2 * V * D + D)
+    # the prefill's transient peak: the SwiGLU's four (B·S, F) bf16
+    # tensors (gate, up, silu, product), and a margin for the rest
+    reserve = 4 * PREFILL_BATCH * PREFILL_LEN * F_ * 2 + (6 << 30)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    layers = min(cfg.num_layers,
+                 int((free - head_bytes - reserve) // layer_bytes))
+    check(layers > 0, f"{cfg.name}: no layer fits in {free} free bytes")
+    return layers, {"layer_bytes": layer_bytes, "free_bytes_before": free,
+                    "total_bytes": total}
+
+
+def phase_serve(np, torch, arch, layers=None, prefill_only=False):
+    """``arch`` serving at full width, and at full depth unless
+    ``layers`` cuts it (``FIT``: the most layers that fit on the card);
+    returns the flash launches of the 32,768-token prefill by head dim.
+    ``prefill_only`` serves that prefill alone, with ``last_only`` (the
+    next-token logits a server needs).  The phase's record is printed
+    before its checks run, so a failed check still shows the numbers.
+
+    A MoE config runs its prefill at its own capacity factor (which
+    drops tokens at that length), and ``generate`` and the decode checks
+    drop-free (capacity factor E), so that decode, routed a token at a
+    time, may be held against prefill.  In bf16 the two route a token
+    apart where two experts' router logits lie within the rounding, so
+    the generate routes each prompt position to the experts the
+    prompt's prefill chose for it, layer by layer, with decode's own
+    router weights for them, and records where and by how much decode's
+    own choice would have differed.  One layer's MoE is run twice on the
+    prefill's shape and must repeat bit for bit."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import Model
+    from repro_torch.models.moe import moe_forward
     from repro_torch.serve import ServeEngine
 
-    cfg = get_arch("granite-3-2b")
+    t_phase = time.perf_counter()
+    laps, last_lap = {}, [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - last_lap[0]
+        last_lap[0] = now
+
+    full_cfg = get_arch(arch)
+    record = {"phase": f"serve {arch}", "arch": arch}
+    if layers == FIT:
+        layers, fit = layers_that_fit(torch, full_cfg)
+        record.update(fit, fit_to="the card's memory")
+    cfg = dataclasses.replace(full_cfg, num_layers=layers or
+                              full_cfg.num_layers)
     model = Model(cfg)
     params, init_s, _ = timed(lambda: model.init(SERVE_SEED))
     gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
     weights = list(_leaves(params))
     checks = []
+    record.update(layers=cfg.num_layers, reduced=cfg != full_cfg,
+                  params=sum(t.numel() for t in weights),
+                  weight_bytes=sum(t.numel() * t.element_size()
+                                   for t in weights),
+                  init_s=init_s)
+    if cfg != full_cfg:
+        record["cut"] = f"{full_cfg.num_layers} layers -> {cfg.num_layers}"
 
-    # 1. prefill_logits on 2 x 32,768 tokens: the counted run
+    # 1. the prefill on 2 x 32,768 tokens: the counted run
     toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN),
                          generator=gen, device="cuda")
     eng = ServeEngine(model, PREFILL_BATCH, PREFILL_LEN)
-    eng.prefill_logits(params, {"tokens": toks[:1, :GEN_PROMPT]})  # warm-up
+    if prefill_only:
+        run = lambda t: model.prefill(  # noqa: E731
+            params, {"tokens": t}, last_only=True)
+    else:
+        run = lambda t: eng.prefill_logits(params, {"tokens": t})  # noqa: E731
+    run(toks[:1, :GEN_PROMPT])                                     # warm-up
     ops.reset_launches()
-    logits, prefill_s, prefill_peak = timed(
-        lambda: eng.prefill_logits(params, {"tokens": toks}))
-    launches = dict(ops.LAUNCHES)
+    logits, prefill_s, prefill_peak = timed(lambda: run(toks))
+    launches = {cfg.hd: ops.LAUNCHES["flash_attention"]}
+    want_shape = (PREFILL_BATCH, 1 if prefill_only else PREFILL_LEN,
+                  cfg.vocab)
     checks += [
-        (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN, cfg.vocab),
-         f"prefill logits {tuple(logits.shape)}"),
-        (bool(torch.isfinite(logits).all()), "prefill logits not finite"),
-        (launches["flash_attention"] == cfg.num_layers,
-         f"{launches['flash_attention']} flash launches in a "
-         f"{cfg.num_layers}-layer prefill")]
+        (tuple(logits.shape) == want_shape, f"prefill logits "
+                                            f"{tuple(logits.shape)}"),
+        (all_finite(torch, logits), "prefill logits not finite"),
+        (launches[cfg.hd] == cfg.num_layers,
+         f"{launches[cfg.hd]} flash launches in a {cfg.num_layers}-layer "
+         f"prefill at hd {cfg.hd}")]
     del logits
-    # where the time goes: one more prefill under the profiler
-    prefill_prof = device_profile(
-        lambda: eng.prefill_logits(params, {"tokens": toks}))
+    prefill = {"batch": PREFILL_BATCH, "seq": PREFILL_LEN,
+               "cut": "global batch 32 -> 2 (one card)", "wall_s": prefill_s,
+               "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+               "peak_bytes": prefill_peak, "flash_launches": launches[cfg.hd]}
+    record["prefill"] = prefill
+    lap("prefill")
+    if prefill_only:
+        prefill["last_only"] = True
+        del params, toks, model, eng
+        return finish_serve(record, laps, t_phase, checks, launches)
+
+    # where the time goes: one more prefill under the profiler (for a
+    # MoE, counting the slots each layer dropped)
+    groups = {"flash": ("flash",), "bf16_gemm": ("nvjet", "gemm", "cutlass",
+                                                 "xmma")}
+    profile = lambda: device_profile(  # noqa: E731
+        lambda: run(toks), top=8, groups=groups)
+    if cfg.moe:
+        drops = []
+
+        def counting(real):
+            def dispatch(x, idx, C, E):
+                buf, rank = real(x, idx, C, E)
+                drops.append((rank >= C).sum())
+                return buf, rank
+            return dispatch
+
+        with moe_patch("_dispatch", counting):
+            prefill["profiled"] = profile()
+        drops = [int(d) for d in drops]
+        prefill.update(capacity_factor=cfg.moe.capacity_factor,
+                       dropped_slots_by_layer=drops)
+        checks.append((sum(drops) > 0, "the prefill dropped no token"))
+        lap("prefill_profile")
+        # the same seeded input routed twice: identical bits
+        h = torch.randn((PREFILL_BATCH, PREFILL_LEN, cfg.d_model),
+                        generator=gen, device="cuda").to(cfg.param_dtype())
+        y1, aux1 = moe_forward(params["layers"][0]["mlp"], cfg, h)
+        y2, aux2 = moe_forward(params["layers"][0]["mlp"], cfg, h)
+        same = torch.equal(y1, y2) and torch.equal(aux1, aux2)
+        record["moe_repeats_bit_for_bit"] = same
+        checks.append((same, "one layer's MoE gave other bits the second "
+                             "time on the same input"))
+        del h, y1, y2
+        lap("moe_repeat")
+    else:
+        prefill["profiled"] = profile()
+        lap("prefill_profile")
     del toks
 
     # 2. generate: prompts fed token by token through decode, then 16
     # greedy tokens; the decode logits at the last prompt position
-    # (cache path) against prefill_logits (kernel path)
+    # (cache path) against the prompts' prefill (kernel path), which
+    # runs first so that a MoE's decode can take its routing
+    cfg_gen = cfg
+    if cfg.moe:
+        cfg_gen = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        model = Model(cfg_gen)
+    L = cfg.num_layers
     prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT),
                             generator=gen, device="cuda")
     eng = ServeEngine(model, GEN_BATCH, GEN_PROMPT + GEN_STEPS)
-    (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
-        params, prompts, GEN_STEPS, return_logits=True))
-    decode_steps = GEN_PROMPT + GEN_STEPS - 1
+    prefilled = []                  # a MoE's (B, S0, k) expert ids a layer
+
+    def recording(real):
+        def route(probs, top_k):
+            w, idx = real(probs, top_k)
+            prefilled.append(idx)
+            return w, idx
+        return route
+
+    ops.reset_launches()
+    with (moe_patch("_route", recording) if cfg.moe
+          else contextlib.nullcontext()):
+        last, _, last_peak = timed(lambda: eng.prefill_logits(
+            params, {"tokens": prompts})[:, -1].float())
+    prompt_launches = ops.LAUNCHES["flash_attention"]
+    lap("prompt_prefill")
+
+    steps = GEN_PROMPT + GEN_STEPS - 1
+    n = [0]                         # _route calls of the generate
+    if cfg.moe:
+        # per prompt position, layer and row: the experts decode would
+        # have chosen (``_route``'s stable descending sort) and its k+1
+        # largest router probabilities, kept for after the run
+        k = cfg.moe.top_k
+        own = torch.empty((GEN_PROMPT, L, GEN_BATCH, k), dtype=torch.int64,
+                          device="cuda")
+        own_top = torch.empty((GEN_PROMPT, L, GEN_BATCH, k + 1),
+                              device="cuda")
+
+    def forcing(real):
+        def route(probs, top_k):
+            step, layer = divmod(n[0], L)
+            n[0] += 1
+            if step >= GEN_PROMPT:            # generated tokens route freely
+                return real(probs, top_k)
+            vals, order = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+            own[step, layer] = order[:, 0, :top_k]
+            own_top[step, layer] = vals[:, 0, :top_k + 1]
+            want = prefilled[layer][:, step:step + 1]          # (B, 1, k)
+            w = probs.gather(-1, want)
+            return w / torch.clamp(w.sum(dim=-1, keepdim=True),
+                                   min=1e-9), want
+        return route
+
+    with (moe_patch("_route", forcing) if cfg.moe
+          else contextlib.nullcontext()):
+        (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
+            params, prompts, GEN_STEPS, return_logits=True))
+    lap("generate")
+    # the decode rate, from steps run alone (no patch): one traced for
+    # where the time goes, then DECODE_TIMED_STEPS timed
     cache = eng.init_cache()
 
-    def decode_some():
-        for i in range(PROFILE_STEPS):
+    def decode_steps(first, count):
+        for i in range(first, first + count):
             model.decode_step(params, cache, {"tokens": prompts[:, i:i + 1]}, i)
 
-    decode_prof = device_profile(decode_some)
+    decode_prof = device_profile(lambda: decode_steps(0, PROFILE_STEPS))
+    _, decode_s, _ = timed(lambda: decode_steps(PROFILE_STEPS,
+                                                DECODE_TIMED_STEPS))
     del cache
-    ops.reset_launches()
-    last = eng.prefill_logits(params, {"tokens": prompts})[:, -1].float()
+    lap("decode_profile_and_rate")
     dec = chosen_from[:, 0].float()
-    dec_err = float((dec - last).abs().max())
+    row_err = (dec - last).abs().amax(dim=-1)
+    dec_err = float(row_err.max())
     top2 = last.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > DECODE_TOL
+    record["generate"] = {
+        "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new_tokens": GEN_STEPS,
+        "decode_steps": steps, "wall_s": gen_s,
+        "ms_per_decode_step": decode_s / DECODE_TIMED_STEPS * 1e3,
+        "timed_decode_steps": DECODE_TIMED_STEPS,
+        "peak_bytes": gen_peak, "prompt_prefill_peak_bytes": last_peak,
+        "profiled_steps": PROFILE_STEPS, "profiled": decode_prof,
+        "decode_vs_prefill_max_abs": dec_err,
+        "decode_vs_prefill_by_row": row_err.tolist(),
+        "prefill_logit_std": float(last.std()), "tol": DECODE_TOL,
+        "clear_argmax_rows": int(clear.sum())}
     checks += [
         (tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS),
          f"generated {tuple(out.shape)}"),
         (torch.equal(out[:, :GEN_PROMPT], prompts), "prompt not kept"),
-        (ops.LAUNCHES["flash_attention"] == cfg.num_layers,
+        (bool(torch.isfinite(chosen_from).all()), "decode logits not finite"),
+        (prompt_launches == L,
          "the 2,304-token prefill did not take the kernel"),
         (dec_err <= DECODE_TOL,
          f"decode logits differ from prefill's by {dec_err} > {DECODE_TOL}"),
         (bool((out[:, GEN_PROMPT] == last.argmax(-1))[clear].all()),
          "first generated token != prefill argmax where the gap is clear")]
-    del params, chosen_from, last, dec
+    if cfg.moe:
+        checks += [(n[0] == steps * L,
+                    f"{n[0]} routings in {steps} decode steps of {L} layers"),
+                   (len(prefilled) == L,
+                    f"{len(prefilled)} routings in an {L}-layer prefill")]
+        # where decode's own top k differ from the prefill's, and its
+        # gap between its k-th and (k+1)-th router logits (log-
+        # probabilities differ as the logits do)
+        pre = torch.stack(prefilled, dim=1).permute(2, 1, 0, 3)  # S0,L,B,k
+        flips = (own.sort(-1).values != pre.sort(-1).values).any(-1)
+        gaps = own_top[..., k - 1].log() - own_top[..., k].log()
+        at = gaps[flips]
+        record["generate"].update(
+            capacity_factor=cfg_gen.moe.capacity_factor,
+            routing="each prompt position's experts taken from the "
+                    "prompts' prefill, layer by layer; generated tokens "
+                    "route freely",
+            routing_flips_by_layer=flips.sum(dim=(0, 2)).tolist(),
+            positions=GEN_BATCH * GEN_PROMPT,
+            layer0_flips=int(flips[:, 0].sum()),
+            layer0_gap_at_flips_max=float(gaps[:, 0][flips[:, 0]].max())
+            if bool(flips[:, 0].any()) else None,
+            gap_at_flips_max=float(at.max()) if at.numel() else None,
+            gap_at_flips_median=float(at.median()) if at.numel() else None,
+            gap_median=float(gaps.median()))
+        del own, own_top, pre, flips, gaps, at
+    del params, chosen_from, last, dec, model, eng, prefilled
+    lap("generate_checks")
 
-    # 3. the card against the CPU: full width, 2 layers, f32, TF32 off
+    # 3. the card against the CPU: full width, 2 layers, f32, TF32 off,
+    # nonzero q/k/v biases
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     m_gpu, m_cpu = Model(cfg32), Model(cfg32, device="cpu")
     p_gpu = m_gpu.init(SERVE_SEED)
+    if cfg.qkv_bias:
+        draw_qkv_biases(torch, p_gpu, SERVE_SEED)
     t32 = torch.randint(0, cfg.vocab, (1, GEN_PROMPT), generator=gen,
                         device="cuda")
     ops.reset_launches()
@@ -2257,33 +2565,39 @@ def phase_serve(np, torch):
          "the f32 prefill did not take the kernel"),
         (f32_err <= F32_RTOL * f32_scale,
          f"f32 logits: card != CPU by {f32_err} (max |logit| {f32_scale})")]
+    # decode against prefill in f32 (a MoE drop-free): the prompt less
+    # its last token written to the cache in one call, then the last
+    # token alone, against the prefill's last position (the kernel)
+    m_dec = Model(dataclasses.replace(cfg32, moe=cfg_gen.moe)
+                  if cfg.moe else cfg32)
+    cache = m_dec.init_cache(1, GEN_PROMPT)
+    m_dec.decode_step(p_gpu, cache, {"tokens": t32[:, :-1]}, 0)
+    dec32 = m_dec.decode_step(p_gpu, cache, {"tokens": t32[:, -1:]},
+                              GEN_PROMPT - 1)[0][:, -1]
+    pre32 = m_dec.prefill(p_gpu, {"tokens": t32}, last_only=True)[:, -1]
+    dec32_err = float((dec32 - pre32).abs().max())
+    dec32_scale = float(pre32.abs().max())
+    checks.append((dec32_err <= F32_RTOL * dec32_scale,
+                   f"f32 decode logits != prefill's by {dec32_err} (max "
+                   f"|logit| {dec32_scale})"))
+    record["card_vs_cpu_f32"] = {
+        "layers": 2, "batch": 1, "seq": GEN_PROMPT, "tf32": False,
+        "qkv_bias_std": QKV_BIAS_STD if cfg.qkv_bias else None,
+        "max_abs": f32_err, "max_abs_logit": f32_scale, "rtol": F32_RTOL,
+        "flash_launches": f32_launches, "cpu_s": cpu_s,
+        "decode_vs_prefill_max_abs": dec32_err,
+        "decode_vs_prefill_max_abs_logit": dec32_scale}
+    del m_gpu, p_gpu, on_card, on_cpu, m_dec, cache
+    lap("card_vs_cpu_f32")
+    return finish_serve(record, laps, t_phase, checks, launches)
 
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-          "params": sum(t.numel() for t in weights),
-          "weight_bytes": sum(t.numel() * t.element_size() for t in weights),
-          "init_s": init_s,
-          "prefill": {"batch": PREFILL_BATCH, "seq": PREFILL_LEN,
-                      "cut": "global batch 32 -> 2 (one card)",
-                      "wall_s": prefill_s,
-                      "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
-                      "peak_bytes": prefill_peak,
-                      "flash_launches": launches["flash_attention"],
-                      "profiled": prefill_prof},
-          "generate": {"batch": GEN_BATCH, "prompt": GEN_PROMPT,
-                       "new_tokens": GEN_STEPS, "decode_steps": decode_steps,
-                       "wall_s": gen_s,
-                       "ms_per_decode_step": gen_s / decode_steps * 1e3,
-                       "peak_bytes": gen_peak,
-                       "profiled_steps": PROFILE_STEPS,
-                       "profiled": decode_prof,
-                       "decode_vs_prefill_max_abs": dec_err,
-                       "tol": DECODE_TOL,
-                       "clear_argmax_rows": int(clear.sum())},
-          "card_vs_cpu_f32": {"layers": 2, "batch": 1, "seq": GEN_PROMPT,
-                              "tf32": False, "max_abs": f32_err,
-                              "max_abs_logit": f32_scale, "rtol": F32_RTOL,
-                              "flash_launches": f32_launches,
-                              "cpu_s": cpu_s}})
+
+def finish_serve(record, laps, t_phase, checks, launches):
+    """Print a serving phase's record, then run its checks; returns its
+    flash launches by head dim."""
+    record["seconds_by_step"] = laps
+    record["seconds"] = time.perf_counter() - t_phase
+    emit(record)
     for ok, msg in checks:
         check(ok, msg)
     return launches
@@ -2302,16 +2616,27 @@ def mamba2_dt_bias(torch, params, seed):
         lp["mixer"]["dt_bias"] = torch.log(torch.expm1(u)).to(bias.device)
 
 
-def phase_serve_mamba2(np, torch):
-    """mamba2-1.3b serving at full width and depth; returns the SSD
-    launches of the 32,768-token prefill.  The phase's record is printed
-    before its checks run, so a failed check still shows the numbers."""
+def phase_serve_mamba2(np, torch, layers=None):
+    """mamba2-1.3b serving at full width, and at full depth unless
+    ``layers`` cuts it; returns the SSD launches of the 32,768-token
+    prefill.  The phase's record is printed before its checks run, so a
+    failed check still shows the numbers."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.ssd import ops
     from repro_torch.models import Model
     from repro_torch.serve import ServeEngine
 
-    cfg = get_arch("mamba2-1.3b")
+    t_phase = time.perf_counter()
+    laps, last_lap = {}, [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - last_lap[0]
+        last_lap[0] = now
+
+    full_cfg = get_arch("mamba2-1.3b")
+    cfg = dataclasses.replace(full_cfg, num_layers=layers or
+                              full_cfg.num_layers)
     model = Model(cfg)
     params, init_s, _ = timed(lambda: model.init(SERVE_SEED))
     mamba2_dt_bias(torch, params, SERVE_SEED)
@@ -2340,19 +2665,22 @@ def phase_serve_mamba2(np, torch):
          f"{launches['ssd_intra_chunk']} SSD launches in a "
          f"{cfg.num_layers}-layer prefill")]
     del logits
+    lap("prefill")
     prefill_prof = device_profile(
         lambda: eng.prefill_logits(params, {"tokens": toks}), top=10,
         groups=groups)
     del toks
+    lap("prefill_profile")
 
     # 2. generate: prompts fed token by token through decode (conv and
     # state caches), then 16 greedy tokens; the decode logits at the last
-    # prompt position against prefill_logits (the kernel, 48 launches)
+    # prompt position against prefill_logits (the kernel, a launch a layer)
     prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, M2_GEN_PROMPT),
                             generator=gen, device="cuda")
     eng = ServeEngine(model, GEN_BATCH, M2_GEN_PROMPT + GEN_STEPS)
     (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
         params, prompts, GEN_STEPS, return_logits=True))
+    lap("generate")
     decode_steps = M2_GEN_PROMPT + GEN_STEPS - 1
     cache = eng.init_cache()
 
@@ -2382,6 +2710,7 @@ def phase_serve_mamba2(np, torch):
          "first generated token != prefill argmax where the gap is clear")]
     logit_std = float(last.std())
     del params, chosen_from, last, dec
+    lap("decode_profile_and_checks")
 
     # 3. the card against the CPU: full width, 2 layers, f32, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2407,7 +2736,9 @@ def phase_serve_mamba2(np, torch):
          f"f32 logits: card != CPU by {f32_err} (max |logit| {f32_scale})")]
 
     emit({"phase": "serve_mamba2", "arch": cfg.name,
-          "layers": cfg.num_layers,
+          "layers": cfg.num_layers, "reduced": cfg != full_cfg,
+          **({"cut": f"{full_cfg.num_layers} layers -> {cfg.num_layers}"}
+             if cfg != full_cfg else {}),
           "params": sum(t.numel() for t in weights),
           "weight_bytes": sum(t.numel() * t.element_size() for t in weights),
           "init_s": init_s, "dt_bias": f"softplus^-1(log-uniform {DT_RANGE})",
@@ -2433,7 +2764,10 @@ def phase_serve_mamba2(np, torch):
                               "tf32": False, "max_abs": f32_err,
                               "max_abs_logit": f32_scale, "rtol": F32_RTOL,
                               "ssd_launches": f32_launches,
-                              "cpu_s": cpu_s}})
+                              "cpu_s": cpu_s},
+          "seconds_by_step": {**laps, "card_vs_cpu_f32":
+                              time.perf_counter() - last_lap[0]},
+          "seconds": time.perf_counter() - t_phase})
     for ok, msg in checks:
         check(ok, msg)
     return launches
@@ -2467,31 +2801,57 @@ def main() -> int:
     import numpy as np
 
     t0 = time.perf_counter()
-    card = phase_build()
-    records = phase_kernels(np, torch) + [phase_flash(np, torch),
-                                          phase_ssd(np, torch)]
-    phase_anchor(np)
-    launches = phase_full_scale(np, torch)
-    launches["murmur_hash_grid"] += phase_fig3(np, torch)["murmur_hash_grid"]
-    strat_records, strat = phase_strategies(np, torch)
+    seconds = {}
+
+    def timed_phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t
+        emit({"phase_seconds": name, "seconds": seconds[name]})
+        return out
+
+    card = timed_phase("build", phase_build)
+    records = (timed_phase("kernels", phase_kernels, np, torch)
+               + timed_phase("flash", phase_flash, np, torch)
+               + [timed_phase("ssd", phase_ssd, np, torch)])
+    timed_phase("anchor", phase_anchor, np)
+    launches = timed_phase("full_scale", phase_full_scale, np, torch)
+    launches["murmur_hash_grid"] += timed_phase(
+        "fig3", phase_fig3, np, torch)["murmur_hash_grid"]
+    strat_records, strat = timed_phase("strategies", phase_strategies, np,
+                                       torch)
     records[2:2] = strat_records
     records[0]["f7"]["launches"] = strat.pop("murmur_hash_grid_f7")
     check(records[0]["f7"]["launches"] > 0, "no sprayed walk at 7 fields")
     launches["murmur_hash_grid"] += strat.pop("murmur_hash_grid")
     launches.update(strat)
-    drain_record, timeline = phase_timeline(np, torch)
+    drain_record, timeline = timed_phase("timeline", phase_timeline, np,
+                                         torch)
     records[4:4] = [drain_record]
     records[0]["f7"]["launches"] += timeline.pop("murmur_hash_grid_f7")
     launches["departure_drain"] = timeline.pop("departure_drain")
     for name, count in timeline.items():
         launches[name] += count
-    launches.update(phase_serve(np, torch))
-    launches.update(phase_serve_mamba2(np, torch))
+    # the served paths' flash launches, by head dim
+    flash = {}
+    for name, fn, args in (
+            ("serve granite-3-2b", phase_serve, ("granite-3-2b",
+                                                 GRANITE_LAYERS)),
+            ("serve glm4-9b", phase_serve, ("glm4-9b",)),
+            ("serve qwen2-moe-a2.7b", phase_serve, ("qwen2-moe-a2.7b",)),
+            ("serve qwen2-72b", phase_serve, ("qwen2-72b", FIT, True))):
+        for hd, n in timed_phase(name, fn, np, torch, *args).items():
+            flash[hd] = flash.get(hd, 0) + n
+    check(set(flash) == {64, 128}, f"flash launches by head dim {flash}")
+    launches["flash_attention"] = flash[64]
+    launches["flash_attention_hd128"] = flash[128]
+    launches.update(timed_phase("serve mamba2-1.3b", phase_serve_mamba2, np,
+                                torch, MAMBA2_LAYERS))
     for r in records:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"its path never launched {r['name']}")
     emit({"kernels": records})
-    emit({"phase": "done", "card": card,
+    emit({"phase": "done", "card": card, "phase_seconds": seconds,
           "seconds": time.perf_counter() - t0})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

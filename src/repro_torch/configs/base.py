@@ -87,6 +87,15 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """May run the long_500k cell (SSM / hybrid with windowed attn)."""
+        return self.family in ("ssm", "hybrid")
+
     def param_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
@@ -137,6 +146,10 @@ class ShapeConfig:
     global_batch: int
     kind: str                        # train | prefill | decode
 
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
 
 TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
 PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
@@ -146,3 +159,12 @@ LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
 SHAPES: dict[str, ShapeConfig] = {
     s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 }
+
+
+def applicable_shapes(arch: ArchConfig) -> list[ShapeConfig]:
+    """The assigned cells for this arch: long_500k only for
+    sub-quadratic families."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if arch.sub_quadratic:
+        shapes.append(LONG_500K)
+    return shapes

@@ -157,7 +157,9 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
     """The port's LM weights from the JAX package's parameter pytree as
     numpy arrays: ``{"embed", "final_norm", "lm_head" (untied configs),
     "layers": {...}}`` with every layer leaf stacked on a leading
-    (num_layers,) axis.  Each leaf keeps its (in, out) layout and becomes
+    (num_layers,) axis, nested dicts included (the q/k/v biases ``bq``,
+    ``bk``, ``bv``; a MoE's ``router``, (E, D, F) experts and
+    ``shared`` expert).  Each leaf keeps its (in, out) layout and becomes
     ``cfg.param_dtype()`` on ``device`` (the card unless ``"cpu"``),
     except the f32 constants of ``F32_LEAVES``, which stay f32; the
     stack becomes one dict per layer."""

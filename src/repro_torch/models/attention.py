@@ -1,6 +1,6 @@
-"""Grouped-query attention with RoPE: the port of the GQA half of
-``repro/models/attention.py`` (MLA and cross-attention wait for the
-families that use them).
+"""Grouped-query attention with RoPE and optional q/k/v biases: the port
+of the GQA half of ``repro/models/attention.py`` (MLA and
+cross-attention wait for the families that use them).
 
 Three ways to attend, routed by ``attention_any`` as the reference
 routes them:
@@ -28,7 +28,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
-from .common import InitCtx, apply_rope
+from .common import InitCtx, apply_rope, rope_tables
 
 NEG_INF = -1e30
 #: self-attention longer than this takes the flash op (the reference's
@@ -48,20 +48,32 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return mask
 
 
+def cache_mask(cache_index: int, S: int, max_len: int, window: int,
+               device) -> torch.Tensor:
+    """(S, max_len) mask of S queries written from slot ``cache_index``
+    over a cache of ``max_len`` slots: causal, which also masks the
+    slots not written yet.  A decode step computes it once for all its
+    layers."""
+    return _mask(cache_index + torch.arange(S, device=device),
+                 torch.arange(max_len, device=device), causal=True,
+                 window=window)
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, q_offset: int,
-                    window: int = 0) -> torch.Tensor:
+                    causal: bool, q_offset: int, window: int = 0,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Materialised-scores attention.  q: (B, Sq, H, hd); k, v: (B, Sk,
     Hkv, hd).  ``q_offset`` is the absolute position of q[:, 0] for the
-    causal mask."""
+    causal mask; ``mask``, where given, is that (Sq, Sk) mask."""
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
     scores = scores * (1.0 / math.sqrt(hd))
-    mask = _mask(q_offset + torch.arange(Sq, device=q.device),
-                 torch.arange(k.shape[1], device=q.device),
-                 causal=causal, window=window)
+    if mask is None:
+        mask = _mask(q_offset + torch.arange(Sq, device=q.device),
+                     torch.arange(k.shape[1], device=q.device),
+                     causal=causal, window=window)
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
@@ -117,12 +129,17 @@ def attention_any(q, k, v, *, causal, q_offset=0, window=0):
 
 def init_gqa(ctx: InitCtx, cfg: ArchConfig) -> dict:
     hd, H, Hkv, D = cfg.hd, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
-    return {
+    p = {
         "wq": ctx.make((D, H * hd)),
         "wk": ctx.make((D, Hkv * hd)),
         "wv": ctx.make((D, Hkv * hd)),
         "wo": ctx.make((H * hd, D)),
     }
+    if cfg.qkv_bias:                        # zero at init, as the reference
+        p["bq"] = ctx.make((H * hd,), zero=True)
+        p["bk"] = ctx.make((Hkv * hd,), zero=True)
+        p["bv"] = ctx.make((Hkv * hd,), zero=True)
+    return p
 
 
 def gqa_forward(
@@ -131,9 +148,13 @@ def gqa_forward(
     window: int = 0,
     cache: Optional[dict] = None,            # {"k","v"}: (B, Smax, Hkv, hd)
     cache_index: Optional[int] = None,       # first slot this call writes
+    rope: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Causal self-attention.  x: (B, S, D) -> (B, S, D), and the cache
-    when one is given.
+    when one is given.  ``rope`` (``rope_tables`` of ``positions``) and,
+    with a cache, ``mask`` (``cache_mask``) are computed here unless the
+    caller computed them once for all layers.
 
     The cache is written in place (the reference's engine donates it, so
     its update is in place on the device too) and the same dict comes
@@ -142,11 +163,18 @@ def gqa_forward(
     """
     B, S, _ = x.shape
     hd, H, Hkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        # the product rounds to x's type before the bias is added, as in
+        # the reference (a fused bias epilogue would add it in f32 first)
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+    if rope is None:
+        rope = rope_tables(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, tables=rope)
+    k = apply_rope(k, positions, cfg.rope_theta, tables=rope)
 
     if cache is None:
         out = attention_any(q, k, v, causal=True, window=window)
@@ -163,6 +191,6 @@ def gqa_forward(
         # causal with q_offset doubles as the valid-length mask: slots
         # past cache_index + S - 1 hold stale data and stay masked
         out = plain_attention(q, cache["k"], cache["v"], causal=True,
-                              q_offset=cache_index, window=window)
+                              q_offset=cache_index, window=window, mask=mask)
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, cache

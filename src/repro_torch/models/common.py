@@ -1,7 +1,7 @@
 """Shared model components: RMSNorm, the SwiGLU MLP, rotary embeddings
 and the initializer (random, zero and constant parameters).  The port of
-``repro/models/common.py`` (M-RoPE, layer norm and the GELU MLP wait for
-the families that use them).
+``repro/models/common.py``, with ``count_params`` (M-RoPE, layer norm
+and the GELU MLP wait for the families that use them).
 
 Rounding follows the reference: ``rms_norm`` takes f32 statistics but
 normalises in x's type, and ``apply_rope`` rotates in f32 and casts back.
@@ -37,18 +37,35 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0,
     return 1.0 / (theta ** exps)
 
 
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of ``apply_rope`` at ``positions``, each (..., S, 1,
+    hd) in f32, laid out for the whole head: cos twice, and -sin then
+    sin.  A forward computes them once for all its layers."""
+    inv = rope_frequencies(head_dim, theta, device=positions.device)
+    ang = positions[..., :, None].float() * inv              # (..., S, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return (torch.cat([cos, cos], dim=-1)[..., None, :],
+            torch.cat([-sin, sin], dim=-1)[..., None, :])
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
+               theta: float = 10000.0, *,
+               tables: tuple[torch.Tensor, torch.Tensor] | None = None
+               ) -> torch.Tensor:
     """Rotary position embedding, rotate-half convention.
 
-    x: (..., S, H, hd); positions: broadcastable to (..., S) integers.
+    x: (..., S, H, hd); positions: broadcastable to (..., S) integers;
+    ``tables``: ``rope_tables`` of these positions, where computed once.
+    The halves are [x1 cos - x2 sin, x2 cos + x1 sin] in f32, each
+    term rounded as the reference rounds it (a - b is a + (-b) exactly).
     """
-    inv = rope_frequencies(x.shape[-1], theta, device=x.device)
-    ang = positions[..., :, None].float() * inv              # (..., S, hd/2)
-    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, hd/2)
-    sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if tables is None:
+        tables = rope_tables(positions, x.shape[-1], theta)
+    cos, sin = tables
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    out = xf * cos + torch.cat([x2, x1], dim=-1) * sin
     return out.to(x.dtype)
 
 
@@ -90,3 +107,12 @@ class InitCtx:
         dtype (f32 for those three), not the parameter dtype, as in the
         reference."""
         return value.to(self.generator.device)
+
+
+def count_params(params) -> int:
+    """Number of parameters in a nested dict / list of tensors."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return params.numel()

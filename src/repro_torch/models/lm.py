@@ -1,5 +1,5 @@
-"""The decoder-only LM, dense and SSM branches: the port of the dense
-and Mamba-2 parts of ``repro/models/lm.py``.
+"""The decoder-only LM, dense, MoE and SSM branches: the port of the
+dense, uniform-MoE and Mamba-2 parts of ``repro/models/lm.py``.
 
 Parameters are plain nested dicts of tensors in the reference's (in,
 out) layout, so ``x @ w`` is the reference's einsum.  Where the reference
@@ -18,48 +18,61 @@ from typing import Optional
 import torch
 
 from ..configs.base import ArchConfig
-from .attention import gqa_forward, init_gqa
-from .common import InitCtx, rms_norm, swiglu
+from .attention import cache_mask, gqa_forward, init_gqa
+from .common import InitCtx, rms_norm, rope_tables, swiglu
+from .moe import init_moe, moe_forward
 from .ssm import init_mamba2, mamba2_cache_spec, mamba2_forward
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port runs dense GQA LMs with RoPE and tied embeddings, and
-    Mamba-2 (SSD) LMs with an untied lm_head."""
+    """The port runs decoder-only GQA LMs with RoPE (family 'dense', with
+    or without q/k/v biases, tied or untied embeddings), their MoE
+    variant (family 'moe': every layer's MLP a routed MoE), and Mamba-2
+    (SSD) LMs with an untied lm_head."""
     if cfg.family == "ssm":
         if cfg.ssm is None or cfg.ssm.variant != "ssd" or cfg.tie_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: the port runs SSM LMs of the Mamba-2 (ssd) "
                 f"variant with an untied lm_head")
         return
-    if (cfg.family != "dense" or cfg.moe or cfg.mla or cfg.qkv_bias
-            or cfg.mrope_sections or not cfg.tie_embeddings):
+    if cfg.family not in ("dense", "moe") or cfg.mla or cfg.mrope_sections:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA LMs with tied embeddings "
-            f"(family 'dense', no MoE, MLA, qkv bias or M-RoPE) and Mamba-2 "
-            f"SSM LMs")
+            f"{cfg.name}: the port runs dense and MoE GQA LMs with RoPE and "
+            f"Mamba-2 SSM LMs; not family {cfg.family!r}, MLA or M-RoPE")
+    if (cfg.family == "moe") != (cfg.moe is not None) or (cfg.moe and (
+            cfg.moe.every_k_layers != 1 or cfg.moe.first_dense_layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs family 'moe' with a routed MoE on "
+            f"every layer, and family 'dense' without one")
 
 
 def _dense_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
     D, F = cfg.d_model, cfg.d_ff
-    return {
+    p = {
         "ln1": ctx.make((D,), scale="embed"),
         "ln2": ctx.make((D,), scale="embed"),
         "attn": init_gqa(ctx, cfg),
-        "mlp": {"w_gate": ctx.make((D, F)), "w_up": ctx.make((D, F)),
-                "w_down": ctx.make((F, D))},
     }
+    if cfg.moe:
+        p["mlp"] = init_moe(ctx, cfg)
+    else:
+        p["mlp"] = {"w_gate": ctx.make((D, F)), "w_up": ctx.make((D, F)),
+                    "w_down": ctx.make((F, D))}
+    return p
 
 
 def _dense_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *, positions,
-                 cache=None, cache_index=None, window=0) -> torch.Tensor:
+                 rope, mask=None, cache=None, cache_index=None,
+                 window=0) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     attn_out, _ = gqa_forward(p["attn"], cfg, h, positions=positions,
                               window=window, cache=cache,
-                              cache_index=cache_index)
+                              cache_index=cache_index, rope=rope, mask=mask)
     x = x + attn_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
+    if cfg.moe:                 # the aux loss feeds only training's loss
+        return x + moe_forward(m, cfg, h, with_aux=False)[0]
     return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
 
 
@@ -115,13 +128,20 @@ def lm_forward(
     start = 0 if cache_index is None else cache_index
     positions = start + torch.arange(S, device=x.device)
     window = window_override or 0
+    rope = mask = None
+    if cfg.family != "ssm":     # the same for every layer: made once
+        rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+        if caches is not None:
+            mask = cache_mask(start, S, caches["k"].shape[2], window,
+                              x.device)
     for i, lp in enumerate(params["layers"]):
         lc = None if caches is None else {k: c[i] for k, c in caches.items()}
         if cfg.family == "ssm":                  # cache_index plays no part
             x = _ssm_layer(lp, cfg, x, cache=lc)
         else:
-            x = _dense_layer(lp, cfg, x, positions=positions, cache=lc,
-                             cache_index=cache_index, window=window)
+            x = _dense_layer(lp, cfg, x, positions=positions, rope=rope,
+                             mask=mask, cache=lc, cache_index=cache_index,
+                             window=window)
     if last_only:
         x = x[:, -1:, :]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -866,6 +866,94 @@ def test_model_and_serving_on_card_equal_cpu(card):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,kv_heads", [(32, 2), (64, 8), (16, 16)])
+def test_flash_kernel_at_hd128_serving_groups(card, dtype, heads, kv_heads):
+    """hd 128 at the groupings the served configs give it: glm4-9b's 32
+    query heads over 2 (G 16), qwen2-72b's 64 over 8 (G 8) and
+    qwen2-moe-a2.7b's 16 over 16 (G 1), causal, S 2,176."""
+    S, hd = 2176, 128
+    rng = np.random.default_rng(heads * kv_heads)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(card, dtype) for sh in
+               ((1, heads, S, hd), (1, kv_heads, S, hd), (1, kv_heads, S, hd)))
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {"flash_attention": 1}
+    want = fa_ref.flash_attention_ref(q, k, v)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert float(fa_ref.row_errors(got, want).max()) <= fa_ref.ROW_RTOL[dtype]
+
+
+def _with_biases(params, seed):
+    """Each layer's q/k/v biases drawn N(0, 0.5), where the init makes
+    them zero."""
+    gen = torch.Generator().manual_seed(seed)
+    for lp in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            lp["attn"][name] = 0.5 * torch.randn(lp["attn"][name].shape,
+                                                 generator=gen)
+    return params
+
+
+@pytest.mark.parametrize("name", ["glm4-9b", "codeqwen1.5-7b",
+                                  "qwen2-moe-a2.7b"])
+def test_biased_and_moe_models_on_card_equal_cpu(card, name):
+    """Reduced glm4-9b, codeqwen1.5-7b and qwen2-moe-a2.7b in f32 with
+    nonzero q/k/v biases: a 2,176-token prefill (the flash kernel; the
+    MoE at its capacity factor, which drops tokens there) and greedy
+    generation on the card against the CPU."""
+    import dataclasses
+    cfg = dataclasses.replace(ARCHS[name].reduced(), dtype="float32")
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    params = _with_biases(cpu.init(0), 1)
+    params_gpu = _to(params, card)
+    toks = torch.from_numpy(
+        (np.arange(2 * 2176).reshape(2, 2176) * 7 % cfg.vocab))
+    want = cpu.prefill(params, {"tokens": toks})
+    fa_ops.reset_launches()
+    got = gpu.prefill(params_gpu, {"tokens": toks.to(card)})
+    assert fa_ops.LAUNCHES == {"flash_attention": cfg.num_layers}
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    prompt = toks[:, :5]
+    want = ServeEngine(cpu, 2, 12).generate(params, prompt, steps=7)
+    got = ServeEngine(gpu, 2, 12).generate(params_gpu, prompt, steps=7)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_moe_repeats_bit_for_bit_and_combines_as_the_cpu(card):
+    """bf16 qwen2-moe-a2.7b (reduced): one layer's MoE on the same input
+    three times gives the same bits; its combine (gathers, products and
+    adds in ascending expert id, no atomics) gives the CPU's bits on the
+    same expert outputs."""
+    from repro_torch.models import moe
+    cfg = ARCHS["qwen2-moe-a2.7b"].reduced()
+    params = Model(cfg).init(0)
+    mlp = params["layers"][0]["mlp"]
+    gen = torch.Generator(device=card).manual_seed(3)
+    # a component shared by every token skews the routing, so that the
+    # most favoured experts overflow their capacity
+    x = (torch.randn((2, 4096, cfg.d_model), generator=gen, device=card)
+         + 3 * torch.randn(cfg.d_model, generator=gen, device=card)
+         ).to(torch.bfloat16)
+    runs = [moe.moe_forward(mlp, cfg, x) for _ in range(3)]
+    for y, aux in runs[1:]:
+        assert torch.equal(y, runs[0][0]) and torch.equal(aux, runs[0][1])
+
+    probs = torch.softmax((x @ mlp["router"]).float(), dim=-1)
+    w, idx = moe._route(probs, cfg.moe.top_k)
+    C = moe.capacity(cfg, x.shape[1])
+    buf, rank = moe._dispatch(x, idx, C, cfg.moe.num_experts)
+    assert int((rank >= C).sum()) > 0
+    out = torch.randn(buf.shape, generator=gen, device=card).to(buf.dtype)
+    on_card = moe._combine(out, w, idx, rank, C)
+    on_cpu = moe._combine(out.cpu(), w.cpu(), idx.cpu(), rank.cpu(), C)
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
 SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
 

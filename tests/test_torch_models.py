@@ -22,13 +22,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_lm import (  # noqa: E402
+    B, assert_rel, cfgs, numpy_params, tokens,
+)
+from _torch_lm import both_models as _both_models  # noqa: E402
 from repro.configs import ARCHS as J_ARCHS  # noqa: E402
 from repro.configs import SHAPES as J_SHAPES  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro.models import attention as JAtt  # noqa: E402
 from repro.models import common as JCom  # noqa: E402
 from repro.serve import ServeEngine as JServe  # noqa: E402
-from repro_torch.configs import ARCHS, SHAPES, get_arch  # noqa: E402
+from repro_torch.configs import ARCHS, SHAPES, MLAConfig, get_arch  # noqa: E402
 from repro_torch.interop import lm_params_from_numpy  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import attention as TAtt  # noqa: E402
@@ -36,60 +40,15 @@ from repro_torch.models import common as TCom  # noqa: E402
 from repro_torch.models.lm import cache_specs  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
-RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
-B = 2
+NAME = "granite-3-2b"
 
 
 def _cfgs(dtype="float32", **kw):
-    j = dataclasses.replace(J_ARCHS["granite-3-2b"].reduced(), dtype=dtype, **kw)
-    t = dataclasses.replace(ARCHS["granite-3-2b"].reduced(), dtype=dtype, **kw)
-    return j, t
-
-
-def numpy_params(cfg, seed=0) -> dict:
-    """The JAX package's parameter pytree (layer leaves stacked on L),
-    drawn with numpy at each weight's own fan-in."""
-    rng = np.random.default_rng(seed)
-    L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
-    Hq, Hk = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
-
-    def n(shape, std):
-        return (rng.standard_normal(shape) * std).astype(np.float32)
-
-    return {
-        "embed": n((cfg.vocab, D), 0.02), "final_norm": n((D,), 1.0),
-        "layers": {
-            "ln1": n((L, D), 1.0), "ln2": n((L, D), 1.0),
-            "attn": {"wq": n((L, D, Hq), D ** -0.5),
-                     "wk": n((L, D, Hk), D ** -0.5),
-                     "wv": n((L, D, Hk), D ** -0.5),
-                     "wo": n((L, Hq, D), Hq ** -0.5)},
-            "mlp": {"w_gate": n((L, D, F), D ** -0.5),
-                    "w_up": n((L, D, F), D ** -0.5),
-                    "w_down": n((L, F, D), F ** -0.5)}},
-    }
+    return cfgs(NAME, dtype, **kw)
 
 
 def both_models(dtype="float32", seed=0, **kw):
-    """(JAX model, JAX params, port model, port params) on the same
-    weights (rounded once to the working type, then carried across)."""
-    jcfg, tcfg = _cfgs(dtype, **kw)
-    jparams = jax.tree.map(lambda a: jnp.asarray(a, jcfg.param_dtype()),
-                           numpy_params(tcfg, seed))
-    tparams = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
-                                   device="cpu")
-    return JModel(jcfg), jparams, Model(tcfg, device="cpu"), tparams
-
-
-def tokens(S, vocab, mult=7):
-    return (np.arange(B * S).reshape(B, S) * mult % vocab).astype(np.int32)
-
-
-def assert_rel(got, want, dtype):
-    got = np.asarray(got, np.float32)
-    want = np.asarray(want, np.float32)
-    err = float(np.abs(got - want).max())
-    assert err <= RTOL[dtype] * float(np.abs(want).max()), err
+    return _both_models(NAME, dtype, seed, **kw)
 
 
 # -- configs -----------------------------------------------------------------
@@ -108,13 +67,25 @@ def test_config_fields_equal_the_jax_config():
 
 
 def test_registry_holds_only_what_the_port_runs():
-    assert sorted(ARCHS) == ["granite-3-2b", "mamba2-1.3b"]
+    assert sorted(ARCHS) == ["codeqwen1.5-7b", "glm4-9b", "granite-3-2b",
+                             "mamba2-1.3b", "qwen2-72b", "qwen2-moe-a2.7b"]
     assert sorted(ARCHS) == sorted({get_arch(n).name for n in ARCHS})
     with pytest.raises(KeyError):
         get_arch("jamba-1.5-large-398b")        # family "hybrid", unported
-    with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(ARCHS["granite-3-2b"], family="hybrid"),
-              device="cpu")
+    with pytest.raises(KeyError):
+        get_arch("deepseek-v2-lite-16b")        # MLA, unported
+    for bad in (dict(family="hybrid"), dict(family="vlm"),
+                dict(mrope_sections=(4, 6, 6))):
+        with pytest.raises(NotImplementedError):
+            Model(dataclasses.replace(ARCHS["granite-3-2b"], **bad),
+                  device="cpu")
+    moe = ARCHS["qwen2-moe-a2.7b"]
+    for bad in (dict(mla=MLAConfig()),
+                dict(moe=dataclasses.replace(moe.moe, first_dense_layers=1)),
+                dict(moe=dataclasses.replace(moe.moe, every_k_layers=2)),
+                dict(moe=None)):
+        with pytest.raises(NotImplementedError):
+            Model(dataclasses.replace(moe, **bad), device="cpu")
 
 
 # -- components --------------------------------------------------------------
