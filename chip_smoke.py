@@ -23,7 +23,8 @@ once) and then:
    32,768 (every row, and the last 256 rows against a plain computation
    of those rows alone; a planted skipped key tile of the bf16 kernel's
    width must fail the row limit; the same at the hd-128 serving shape,
-   32 query heads over 2, with its own row on the ``kernels`` line; the
+   32 query heads over 2, with its own row on the ``kernels`` line, and
+   at qwen2-vl-72b's 64 query heads over 8, timed on the phase's line; the
    ``-Xptxas -v`` report must show one bf16 instance a head dim, with the tiles ``ops.BF16_TILES`` names, no
    spills and no serialised ``wgmma``), the SSD
    intra-chunk kernel (the ``-Xptxas -v`` report must show the bf16
@@ -125,31 +126,61 @@ once) and then:
    last token against its prefill;
 9. drives glm4-9b serving the same way at full width and depth (40
    layers, q/k/v biases, 32 query heads over 2 kv heads: 40 flash
-   launches at hd 128), the 2-layer f32 checks with nonzero biases
-   drawn from the seed;
+   launches at hd 128), its ``generate`` and decode checks at
+   ``GEN_LAYERS_CUT`` (8) of the 40 layers (printed with ``reduced``),
+   the 2-layer f32 checks with nonzero biases drawn from the seed;
 10. drives qwen2-moe-a2.7b the same way at full width and depth (24
    layers, 60 experts, top 4, a shared expert, 16 heads over 16 at hd
    128): the prefill at the config's capacity factor, which drops
    tokens (the drops of each layer printed); ``generate`` and the
-   decode checks drop-free (capacity factor 60), each prompt position
-   of the generate routed, layer by layer, to the experts the prompts'
-   prefill chose for it (decode's own choice would differ where two
-   experts' router logits tie within the bf16 rounding: the differing
-   positions of each layer and decode's gap between its k-th and
-   (k+1)-th logits there are printed), so that its bf16 decode is held
-   against the prefill as granite's is; one layer's MoE on the
-   prefill's shape run twice with identical bits;
+   decode checks drop-free (capacity factor 60) at ``GEN_LAYERS_CUT``
+   (8) layers, each prompt position of the generate routed, layer by
+   layer, to the experts the prompts' prefill chose for it (decode's
+   own choice would differ where two experts' router logits tie within
+   the bf16 rounding: the differing positions of each layer and
+   decode's gap between its k-th and (k+1)-th logits there are
+   printed), so that its bf16 decode is held against the prefill as
+   granite's is; one layer's MoE on the prefill's shape run twice with
+   identical bits;
 11. drives qwen2-72b at full width and the most layers that fit beside
    a 2 x 32,768-token prefill (printed, with ``reduced``):
    ``Model.prefill`` with ``last_only`` (a flash launch at hd 128 a
    layer, 64 query heads over 8);
-12. drives mamba2-1.3b serving at full width and ``MAMBA2_LAYERS``
+12. drives deepseek-v2-lite-16b (MLA) the same way at full width and
+   depth (27 layers: a dense first layer, then 26 MoE layers of 64
+   experts, top 6, two shared): the 2 x 32,768-token prefill at the
+   capacity factor, its MLA attention (q/k of 192, v of 128) in
+   ``chunked_attention`` with no flash launch, and that function's
+   time in the profiled prefill; ``generate`` for 4 x 520-token prompts
+   through the absorbed decode over the latent cache, forced to the
+   prefill's experts (26 routings a step); and the 2-layer f32 model
+   (the dense layer and one MoE layer) at 2,304 tokens, card against
+   CPU, then its absorbed decode of the last token against its
+   decompressed prefill;
+13. drives qwen2-vl-72b (M-RoPE) at full width and the most layers that
+   fit beside a 2 x 32,768-position prefill (printed, with
+   ``reduced``): ``Model.prefill`` with ``last_only`` on patch and
+   token embeddings drawn from the seed and three M-RoPE position
+   streams of one 64 x 64 image between two runs of text (a flash
+   launch at hd 128 a layer, 64 query heads over 8); one full-width
+   layer in f32 on the card against the CPU at 512 positions, with the
+   CPU's seconds;
+14. drives whisper-large-v3 (the encoder-decoder) at full width and
+   depth (32 encoder and 32 decoder layers, 20 heads at hd 64):
+   ``Model.encode`` over 32 clips of 1,500 seeded frame embeddings
+   (frames/s), ``generate`` for 4 requests of 64-token decoder prompts
+   and 16 greedy tokens with ``extra_batch={"enc_memory": ...}``, the
+   decode logits held against the decoder prefill's, and 2 + 2 layers
+   in f32 on the card against the CPU with every layer-norm and MLP
+   bias drawn nonzero; no flash launch (both attentions stay under
+   2,048);
+15. drives mamba2-1.3b serving at full width and ``MAMBA2_LAYERS``
    (24) of its 48 layers, printed with ``reduced`` (bf16, Mamba-2's
    dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (an SSD
    launch a layer), ``generate`` for 4 x 520-token prompts and
    16 greedy tokens with the decode logits checked against the
    prefill's, and a 2-layer f32 prefill on the card against the CPU;
-13. prints the ``kernels`` record, each phase's seconds and, last, the
+16. prints the ``kernels`` record, each phase's seconds and, last, the
    one-line result.
 
 Each serving phase prints its seconds by step, and its decode rate
@@ -167,8 +198,10 @@ the ``kernels`` line's counts).  The flow hash's launches are counted
 by the width they hashed: the ``kernels`` line gives the 5-field
 launches on the murmur row and the 7-field ones under its ``f7``.  The
 flash kernel's are counted by the head dim of the config that launched
-them: the hd-64 row counts granite's prefills, the hd-128 row those of
-glm4-9b, qwen2-moe-a2.7b and qwen2-72b.
+them: the hd-64 row counts granite's prefills (whisper-large-v3, at hd
+64, launches none), the hd-128 row those of glm4-9b, qwen2-moe-a2.7b,
+qwen2-72b and qwen2-vl-72b (deepseek-v2-lite-16b, at hd 128, launches
+none: its prefill takes ``chunked_attention``).
 
 Every check raises, so any failure exits non-zero before the result
 line.  Without a CUDA card, or without the repository around it, the
@@ -374,8 +407,10 @@ FLOWS_PER_PAIR = 800           # 128 directed host pairs -> 102,400 flows
 # to that row's size (ref.row_errors, ref.ROW_RTOL: bf16 2e-2, f32 1e-4)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-6}
 FLASH_HEADS, FLASH_KV_HEADS, FLASH_HD = 32, 8, 64
-# the hd-128 serving shape: glm4-9b's 32 query heads over 2 kv heads
+# the hd-128 serving shape: glm4-9b's 32 query heads over 2 kv heads;
+# qwen2-vl-72b's 64 over 8
 FLASH_HD128 = (32, 2, 128)
+FLASH_HD128_G8 = (64, 8, 128)
 BAND = 256                     # query rows held at S = 32,768
 # serving: granite-3-2b; the repo's prefill_32k length with the global
 # batch of 32 cut to 2 for one card
@@ -415,9 +450,12 @@ M2_GEN_PROMPT = 520
 # the top-2 gap above which the first generated token must be the
 # prefill's argmax
 M2_DECODE_TOL = 0.5
-# the q/k/v biases of the f32 card-against-CPU checks, N(0, std), where
-# the reference's init makes them zero
-QKV_BIAS_STD = 0.5
+# the biases of the f32 card-against-CPU checks, N(0, std), where the
+# reference's init makes them zero: q/k/v, the GELU MLP's and the layer
+# norms'
+BIAS_STD = 0.5
+BIASES = ("bq", "bk", "bv", "b_in", "b_out", "ln1b", "ln2b", "lnxb",
+          "final_norm_b", "enc_final_norm_b")
 # granite-3-2b's and mamba2-1.3b's serving depths, cut from 40 and 48
 # so that the script keeps inside 600 s beside the hd-128 paths: their
 # generates are host-bound, about 1.1 to 1.5 ms a layer a decode step
@@ -425,6 +463,22 @@ QKV_BIAS_STD = 0.5
 # next
 GRANITE_LAYERS = 8
 MAMBA2_LAYERS = 24
+# glm4-9b's and qwen2-moe-a2.7b's generate and decode checks, cut from
+# 40 and 24 layers (their 2 x 32,768-token prefills stay at full depth)
+# so that the script keeps inside 600 s beside deepseek-v2-lite-16b,
+# qwen2-vl-72b and whisper-large-v3
+GEN_LAYERS_CUT = 8
+# qwen2-vl-72b: one 64 x 64 block of merged patches after 1,024 text
+# positions of the 32,768 (text positions before, side); its f32
+# card-against-CPU check at 512 positions (a 16 x 16 block after 64),
+# where one full-width layer's CPU prefill takes seconds
+VLM_IMAGE = (1_024, 64)
+VLM_F32_LEN, VLM_F32_IMAGE = 512, (64, 16)
+VLM_FRAGMENTATION_BYTES = 8 << 30
+# whisper-large-v3: the encoder over a global batch of 32 clips of 1,500
+# frames; generate's decoder prompts
+ENC_BATCH = 32
+WHISPER_PROMPT = 64
 # phase_serve's depth for a config whose full depth exceeds the card's
 # memory: the most layers that fit
 FIT = "fit"
@@ -1991,9 +2045,16 @@ def phase_flash(np, torch):
     record, info = serving_shape("flash_attention", FLASH_HEADS,
                                  FLASH_KV_HEADS, FLASH_HD)
     record128, info128 = serving_shape("flash_attention_hd128", *FLASH_HD128)
+    # qwen2-vl-72b's (and qwen2-72b's) grouping, held and timed the same
+    # way; it is the hd-128 instance, so it has no row of its own on the
+    # kernels line
+    g8, info_g8 = serving_shape("flash_attention_hd128_g8", *FLASH_HD128_G8)
     emit({"phase": "kernels", "kernel": "flash_attention", "tol": FLASH_TOL,
           "row_tol": {str(d)[6:]: t for d, t in ref.ROW_RTOL.items()},
-          **info, "checks": checks, "hd128": info128})
+          **info, "checks": checks, "hd128": info128,
+          "hd128_g8": {**info_g8, **{k: g8[k] for k in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "ms_over_library")}}})
     check(not failures, "; ".join(failures))
     return [record, record128]
 
@@ -2235,38 +2296,44 @@ def all_finite(torch, t) -> bool:
     return all(bool(torch.isfinite(c).all()) for c in t.split(4096, dim=1))
 
 
-def draw_qkv_biases(torch, params, seed):
-    """Each layer's q/k/v biases drawn N(0, QKV_BIAS_STD) from ``seed``,
-    in place of the reference init's zeros, so that a check sees them."""
+def draw_biases(torch, params, seed):
+    """Every bias the reference's init makes zero (``BIASES``: q/k/v, the
+    GELU MLP's and the layer norms') drawn N(0, BIAS_STD) from ``seed``,
+    walking the tree in its order, so that a check sees them."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    for lp in params["layers"]:
-        for name in ("bq", "bk", "bv"):
-            b = lp["attn"][name]
-            lp["attn"][name] = (torch.randn(b.shape, generator=gen)
-                                * QKV_BIAS_STD).to(b.device, b.dtype)
+
+    def walk(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif k in BIASES:
+                tree[k] = (torch.randn(v.shape, generator=gen)
+                           * BIAS_STD).to(v.device, v.dtype)
+    walk(params)
 
 
-def moe_patch(name, make):
-    """A context in which ``repro_torch.models.moe.<name>`` is
-    ``make(real)``, ``real`` being the function it replaces."""
-    from repro_torch.models import moe
+def patched(module, name, make):
+    """A context in which ``module.<name>`` is ``make(real)``, ``real``
+    being the function it replaces."""
 
     @contextlib.contextmanager
     def patch():
-        real = getattr(moe, name)
-        setattr(moe, name, make(real))
+        real = getattr(module, name)
+        setattr(module, name, make(real))
         try:
             yield
         finally:
-            setattr(moe, name, real)
+            setattr(module, name, real)
 
     return patch()
 
 
-def layers_that_fit(torch, cfg) -> tuple[int, dict]:
+def layers_that_fit(torch, cfg, extra_bytes: int = 0) -> tuple[int, dict]:
     """The most of ``cfg``'s layers whose bf16 weights fit in the card's
-    free memory beside the embedding, the head and a 2 x 32,768-token
-    prefill, and the sizes that decided it."""
+    free memory beside the embedding, the head, a 2 x 32,768-token
+    prefill and ``extra_bytes`` of inputs, and the sizes that decided
+    it."""
     D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab
     qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.hd
     layer_bytes = 2 * (D * qkv + cfg.num_heads * cfg.hd * D + 3 * D * F_
@@ -2277,20 +2344,45 @@ def layers_that_fit(torch, cfg) -> tuple[int, dict]:
     reserve = 4 * PREFILL_BATCH * PREFILL_LEN * F_ * 2 + (6 << 30)
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
-    layers = min(cfg.num_layers,
-                 int((free - head_bytes - reserve) // layer_bytes))
+    layers = min(cfg.num_layers, int((free - head_bytes - reserve
+                                      - extra_bytes) // layer_bytes))
     check(layers > 0, f"{cfg.name}: no layer fits in {free} free bytes")
     return layers, {"layer_bytes": layer_bytes, "free_bytes_before": free,
-                    "total_bytes": total}
+                    "total_bytes": total, "input_bytes": extra_bytes}
 
 
-def phase_serve(np, torch, arch, layers=None, prefill_only=False):
+def flash_expected(cfg, seq: int, layers: int) -> int:
+    """Flash launches of a ``layers``-layer prefill of ``seq`` tokens:
+    one a layer past ``LONG_SEQ``, none for MLA (its prefill takes
+    ``chunked_attention``)."""
+    from repro_torch.models.attention import LONG_SEQ
+    return 0 if cfg.mla or seq <= LONG_SEQ else layers
+
+
+class Laps:
+    """Seconds of a phase's steps: ``laps.lap(name)`` closes a step."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def lap(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+
+
+def phase_serve(np, torch, arch, layers=None, prefill_only=False,
+                gen_layers=None, prompt_len=GEN_PROMPT):
     """``arch`` serving at full width, and at full depth unless
     ``layers`` cuts it (``FIT``: the most layers that fit on the card);
     returns the flash launches of the 32,768-token prefill by head dim.
     ``prefill_only`` serves that prefill alone, with ``last_only`` (the
-    next-token logits a server needs).  The phase's record is printed
-    before its checks run, so a failed check still shows the numbers.
+    next-token logits a server needs).  ``gen_layers`` cuts the depth of
+    the generate and its decode checks alone (printed with ``reduced``),
+    and ``prompt_len`` is the generate's prompt length.  The phase's
+    record is printed before its checks run, so a failed check still
+    shows the numbers.
 
     A MoE config runs its prefill at its own capacity factor (which
     drops tokens at that length), and ``generate`` and the decode checks
@@ -2298,24 +2390,19 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
     time, may be held against prefill.  In bf16 the two route a token
     apart where two experts' router logits lie within the rounding, so
     the generate routes each prompt position to the experts the
-    prompt's prefill chose for it, layer by layer, with decode's own
+    prompt's prefill chose for it, layer by layer (the MoE layers: an
+    MLA config's dense first layer routes nothing), with decode's own
     router weights for them, and records where and by how much decode's
     own choice would have differed.  One layer's MoE is run twice on the
-    prefill's shape and must repeat bit for bit."""
+    prefill's shape and must repeat bit for bit.  An MLA config's long
+    prefill takes ``chunked_attention`` (no flash launch); its time
+    there is measured in the profiled prefill."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models import Model
-    from repro_torch.models.moe import moe_forward
+    from repro_torch.models import Model, attention, moe
     from repro_torch.serve import ServeEngine
 
-    t_phase = time.perf_counter()
-    laps, last_lap = {}, [t_phase]
-
-    def lap(name):
-        now = time.perf_counter()
-        laps[name] = now - last_lap[0]
-        last_lap[0] = now
-
+    laps = Laps()
     full_cfg = get_arch(arch)
     record = {"phase": f"serve {arch}", "arch": arch}
     if layers == FIT:
@@ -2349,33 +2436,56 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
     ops.reset_launches()
     logits, prefill_s, prefill_peak = timed(lambda: run(toks))
     launches = {cfg.hd: ops.LAUNCHES["flash_attention"]}
+    want_flash = flash_expected(cfg, PREFILL_LEN, cfg.num_layers)
     want_shape = (PREFILL_BATCH, 1 if prefill_only else PREFILL_LEN,
                   cfg.vocab)
     checks += [
         (tuple(logits.shape) == want_shape, f"prefill logits "
                                             f"{tuple(logits.shape)}"),
         (all_finite(torch, logits), "prefill logits not finite"),
-        (launches[cfg.hd] == cfg.num_layers,
+        (launches[cfg.hd] == want_flash,
          f"{launches[cfg.hd]} flash launches in a {cfg.num_layers}-layer "
-         f"prefill at hd {cfg.hd}")]
+         f"prefill at hd {cfg.hd}, not {want_flash}")]
     del logits
     prefill = {"batch": PREFILL_BATCH, "seq": PREFILL_LEN,
                "cut": "global batch 32 -> 2 (one card)", "wall_s": prefill_s,
                "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
                "peak_bytes": prefill_peak, "flash_launches": launches[cfg.hd]}
     record["prefill"] = prefill
-    lap("prefill")
+    laps.lap("prefill")
     if prefill_only:
         prefill["last_only"] = True
         del params, toks, model, eng
-        return finish_serve(record, laps, t_phase, checks, launches)
+        return finish_serve(record, laps, checks, launches)
 
     # where the time goes: one more prefill under the profiler (for a
-    # MoE, counting the slots each layer dropped)
+    # MoE, counting the slots each layer dropped; for MLA, timing
+    # chunked_attention's calls between synchronisations)
     groups = {"flash": ("flash",), "bf16_gemm": ("nvjet", "gemm", "cutlass",
                                                  "xmma")}
-    profile = lambda: device_profile(  # noqa: E731
-        lambda: run(toks), top=8, groups=groups)
+    chunked = [0.0, 0]
+
+    def timing(real):
+        def chunked_attention(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            chunked[0] += time.perf_counter() - t
+            chunked[1] += 1
+            return out
+        return chunked_attention
+
+    def profile():
+        with (patched(attention, "chunked_attention", timing) if cfg.mla
+              else contextlib.nullcontext()):
+            out = device_profile(lambda: run(toks), top=8, groups=groups)
+        if cfg.mla:
+            out.update(chunked_attention_s=chunked[0],
+                       chunked_attention_calls=chunked[1],
+                       chunked_attention_share=chunked[0] / out["host_s"])
+        return out
+
     if cfg.moe:
         drops = []
 
@@ -2386,42 +2496,53 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
                 return buf, rank
             return dispatch
 
-        with moe_patch("_dispatch", counting):
+        with patched(moe, "_dispatch", counting):
             prefill["profiled"] = profile()
         drops = [int(d) for d in drops]
         prefill.update(capacity_factor=cfg.moe.capacity_factor,
                        dropped_slots_by_layer=drops)
         checks.append((sum(drops) > 0, "the prefill dropped no token"))
-        lap("prefill_profile")
+        laps.lap("prefill_profile")
         # the same seeded input routed twice: identical bits
         h = torch.randn((PREFILL_BATCH, PREFILL_LEN, cfg.d_model),
                         generator=gen, device="cuda").to(cfg.param_dtype())
-        y1, aux1 = moe_forward(params["layers"][0]["mlp"], cfg, h)
-        y2, aux2 = moe_forward(params["layers"][0]["mlp"], cfg, h)
+        y1, aux1 = moe.moe_forward(params["layers"][0]["mlp"], cfg, h)
+        y2, aux2 = moe.moe_forward(params["layers"][0]["mlp"], cfg, h)
         same = torch.equal(y1, y2) and torch.equal(aux1, aux2)
         record["moe_repeats_bit_for_bit"] = same
         checks.append((same, "one layer's MoE gave other bits the second "
                              "time on the same input"))
         del h, y1, y2
-        lap("moe_repeat")
+        laps.lap("moe_repeat")
     else:
         prefill["profiled"] = profile()
-        lap("prefill_profile")
+        laps.lap("prefill_profile")
+    if cfg.mla:
+        checks.append((chunked[1] == cfg.num_layers,
+                       f"{chunked[1]} chunked_attention calls in a "
+                       f"{cfg.num_layers}-layer MLA prefill"))
     del toks
 
     # 2. generate: prompts fed token by token through decode, then 16
     # greedy tokens; the decode logits at the last prompt position
-    # (cache path) against the prompts' prefill (kernel path), which
-    # runs first so that a MoE's decode can take its routing
-    cfg_gen = cfg
+    # (cache path) against the prompts' prefill, which runs first so
+    # that a MoE's decode can take its routing.  ``gen_layers`` cuts
+    # the depth here.
+    L = gen_layers or cfg.num_layers
+    cfg_gen = dataclasses.replace(cfg, num_layers=L)
     if cfg.moe:
-        cfg_gen = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg_gen = dataclasses.replace(cfg_gen, moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
-        model = Model(cfg_gen)
-    L = cfg.num_layers
-    prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT),
-                            generator=gen, device="cuda")
-    eng = ServeEngine(model, GEN_BATCH, GEN_PROMPT + GEN_STEPS)
+    p_gen = params
+    if L != cfg.num_layers:
+        first = cfg.moe.first_dense_layers if cfg.moe else 0
+        p_gen = {**params, "layers": params["layers"][:L - first]}
+    model = Model(cfg_gen)
+    n_moe = L - (cfg.moe.first_dense_layers if cfg.moe else 0)
+    S0 = prompt_len
+    prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, S0), generator=gen,
+                            device="cuda")
+    eng = ServeEngine(model, GEN_BATCH, S0 + GEN_STEPS)
     prefilled = []                  # a MoE's (B, S0, k) expert ids a layer
 
     def recording(real):
@@ -2432,30 +2553,29 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
         return route
 
     ops.reset_launches()
-    with (moe_patch("_route", recording) if cfg.moe
+    with (patched(moe, "_route", recording) if cfg.moe
           else contextlib.nullcontext()):
         last, _, last_peak = timed(lambda: eng.prefill_logits(
-            params, {"tokens": prompts})[:, -1].float())
+            p_gen, {"tokens": prompts})[:, -1].float())
     prompt_launches = ops.LAUNCHES["flash_attention"]
-    lap("prompt_prefill")
+    laps.lap("prompt_prefill")
 
-    steps = GEN_PROMPT + GEN_STEPS - 1
+    steps = S0 + GEN_STEPS - 1
     n = [0]                         # _route calls of the generate
     if cfg.moe:
-        # per prompt position, layer and row: the experts decode would
+        # per prompt position, MoE layer and row: the experts decode would
         # have chosen (``_route``'s stable descending sort) and its k+1
         # largest router probabilities, kept for after the run
         k = cfg.moe.top_k
-        own = torch.empty((GEN_PROMPT, L, GEN_BATCH, k), dtype=torch.int64,
+        own = torch.empty((S0, n_moe, GEN_BATCH, k), dtype=torch.int64,
                           device="cuda")
-        own_top = torch.empty((GEN_PROMPT, L, GEN_BATCH, k + 1),
-                              device="cuda")
+        own_top = torch.empty((S0, n_moe, GEN_BATCH, k + 1), device="cuda")
 
     def forcing(real):
         def route(probs, top_k):
-            step, layer = divmod(n[0], L)
+            step, layer = divmod(n[0], n_moe)
             n[0] += 1
-            if step >= GEN_PROMPT:            # generated tokens route freely
+            if step >= S0:                    # generated tokens route freely
                 return real(probs, top_k)
             vals, order = torch.sort(probs, dim=-1, descending=True,
                                      stable=True)
@@ -2467,31 +2587,32 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
                                    min=1e-9), want
         return route
 
-    with (moe_patch("_route", forcing) if cfg.moe
+    with (patched(moe, "_route", forcing) if cfg.moe
           else contextlib.nullcontext()):
         (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
-            params, prompts, GEN_STEPS, return_logits=True))
-    lap("generate")
+            p_gen, prompts, GEN_STEPS, return_logits=True))
+    laps.lap("generate")
     # the decode rate, from steps run alone (no patch): one traced for
     # where the time goes, then DECODE_TIMED_STEPS timed
     cache = eng.init_cache()
 
     def decode_steps(first, count):
         for i in range(first, first + count):
-            model.decode_step(params, cache, {"tokens": prompts[:, i:i + 1]}, i)
+            model.decode_step(p_gen, cache, {"tokens": prompts[:, i:i + 1]}, i)
 
     decode_prof = device_profile(lambda: decode_steps(0, PROFILE_STEPS))
     _, decode_s, _ = timed(lambda: decode_steps(PROFILE_STEPS,
                                                 DECODE_TIMED_STEPS))
     del cache
-    lap("decode_profile_and_rate")
+    laps.lap("decode_profile_and_rate")
     dec = chosen_from[:, 0].float()
     row_err = (dec - last).abs().amax(dim=-1)
     dec_err = float(row_err.max())
     top2 = last.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > DECODE_TOL
     record["generate"] = {
-        "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new_tokens": GEN_STEPS,
+        "batch": GEN_BATCH, "prompt": S0, "new_tokens": GEN_STEPS,
+        "layers": L, "reduced": L != full_cfg.num_layers,
         "decode_steps": steps, "wall_s": gen_s,
         "ms_per_decode_step": decode_s / DECODE_TIMED_STEPS * 1e3,
         "timed_decode_steps": DECODE_TIMED_STEPS,
@@ -2501,22 +2622,29 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
         "decode_vs_prefill_by_row": row_err.tolist(),
         "prefill_logit_std": float(last.std()), "tol": DECODE_TOL,
         "clear_argmax_rows": int(clear.sum())}
+    if L != cfg.num_layers:
+        record["generate"]["cut"] = (f"{full_cfg.num_layers} layers -> {L} "
+                                     f"for the generate and its checks")
+    want_prompt_flash = flash_expected(cfg, S0, L)
     checks += [
-        (tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS),
+        (tuple(out.shape) == (GEN_BATCH, S0 + GEN_STEPS),
          f"generated {tuple(out.shape)}"),
-        (torch.equal(out[:, :GEN_PROMPT], prompts), "prompt not kept"),
+        (torch.equal(out[:, :S0], prompts), "prompt not kept"),
         (bool(torch.isfinite(chosen_from).all()), "decode logits not finite"),
-        (prompt_launches == L,
-         "the 2,304-token prefill did not take the kernel"),
+        (prompt_launches == want_prompt_flash,
+         f"{prompt_launches} flash launches in the {S0}-token prefill, not "
+         f"{want_prompt_flash}"),
         (dec_err <= DECODE_TOL,
          f"decode logits differ from prefill's by {dec_err} > {DECODE_TOL}"),
-        (bool((out[:, GEN_PROMPT] == last.argmax(-1))[clear].all()),
+        (bool((out[:, S0] == last.argmax(-1))[clear].all()),
          "first generated token != prefill argmax where the gap is clear")]
     if cfg.moe:
-        checks += [(n[0] == steps * L,
-                    f"{n[0]} routings in {steps} decode steps of {L} layers"),
-                   (len(prefilled) == L,
-                    f"{len(prefilled)} routings in an {L}-layer prefill")]
+        checks += [(n[0] == steps * n_moe,
+                    f"{n[0]} routings in {steps} decode steps of {n_moe} "
+                    f"MoE layers"),
+                   (len(prefilled) == n_moe,
+                    f"{len(prefilled)} routings in a prefill of {n_moe} MoE "
+                    f"layers")]
         # where decode's own top k differ from the prefill's, and its
         # gap between its k-th and (k+1)-th router logits (log-
         # probabilities differ as the logits do)
@@ -2530,7 +2658,7 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
                     "prompts' prefill, layer by layer; generated tokens "
                     "route freely",
             routing_flips_by_layer=flips.sum(dim=(0, 2)).tolist(),
-            positions=GEN_BATCH * GEN_PROMPT,
+            positions=GEN_BATCH * S0,
             layer0_flips=int(flips[:, 0].sum()),
             layer0_gap_at_flips_max=float(gaps[:, 0][flips[:, 0]].max())
             if bool(flips[:, 0].any()) else None,
@@ -2538,36 +2666,43 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
             gap_at_flips_median=float(at.median()) if at.numel() else None,
             gap_median=float(gaps.median()))
         del own, own_top, pre, flips, gaps, at
-    del params, chosen_from, last, dec, model, eng, prefilled
-    lap("generate_checks")
+    del params, p_gen, chosen_from, last, dec, model, eng, prefilled
+    laps.lap("generate_checks")
 
-    # 3. the card against the CPU: full width, 2 layers, f32, TF32 off,
-    # nonzero q/k/v biases
+    # 3. the card against the CPU: full width, 2 layers (an MLA config's
+    # dense first layer and one MoE layer), f32, TF32 off, nonzero q/k/v
+    # biases
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     m_gpu, m_cpu = Model(cfg32), Model(cfg32, device="cpu")
     p_gpu = m_gpu.init(SERVE_SEED)
-    if cfg.qkv_bias:
-        draw_qkv_biases(torch, p_gpu, SERVE_SEED)
+    draw_biases(torch, p_gpu, SERVE_SEED)
     t32 = torch.randint(0, cfg.vocab, (1, GEN_PROMPT), generator=gen,
                         device="cuda")
+    chunked[1] = 0
     ops.reset_launches()
-    on_card = m_gpu.prefill(p_gpu, {"tokens": t32}).cpu()
-    f32_launches = ops.LAUNCHES["flash_attention"]
+    with patched(attention, "chunked_attention", timing):
+        on_card = m_gpu.prefill(p_gpu, {"tokens": t32}).cpu()
+    f32_launches, f32_chunked = ops.LAUNCHES["flash_attention"], chunked[1]
     t = time.perf_counter()
     on_cpu = m_cpu.prefill(_to(p_gpu, "cpu"), {"tokens": t32.cpu()})
     cpu_s = time.perf_counter() - t
     f32_err = float((on_card - on_cpu).abs().max())
     f32_scale = float(on_cpu.abs().max())
+    want_f32_flash = flash_expected(cfg, GEN_PROMPT, cfg32.num_layers)
     checks += [
-        (f32_launches == cfg32.num_layers,
-         "the f32 prefill did not take the kernel"),
+        (f32_launches == want_f32_flash,
+         f"{f32_launches} flash launches in the f32 prefill, not "
+         f"{want_f32_flash}"),
+        (f32_chunked == (cfg32.num_layers if cfg.mla else 0),
+         f"{f32_chunked} chunked_attention calls in the f32 prefill"),
         (f32_err <= F32_RTOL * f32_scale,
          f"f32 logits: card != CPU by {f32_err} (max |logit| {f32_scale})")]
     # decode against prefill in f32 (a MoE drop-free): the prompt less
     # its last token written to the cache in one call, then the last
-    # token alone, against the prefill's last position (the kernel)
+    # token alone, against the prefill's last position (the kernel; for
+    # MLA the absorbed decode against the decompressed prefill)
     m_dec = Model(dataclasses.replace(cfg32, moe=cfg_gen.moe)
                   if cfg.moe else cfg32)
     cache = m_dec.init_cache(1, GEN_PROMPT)
@@ -2582,25 +2717,304 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False):
                    f"|logit| {dec32_scale})"))
     record["card_vs_cpu_f32"] = {
         "layers": 2, "batch": 1, "seq": GEN_PROMPT, "tf32": False,
-        "qkv_bias_std": QKV_BIAS_STD if cfg.qkv_bias else None,
+        "bias_std": BIAS_STD if cfg.qkv_bias else None,
         "max_abs": f32_err, "max_abs_logit": f32_scale, "rtol": F32_RTOL,
-        "flash_launches": f32_launches, "cpu_s": cpu_s,
-        "decode_vs_prefill_max_abs": dec32_err,
+        "flash_launches": f32_launches, "chunked_attention_calls": f32_chunked,
+        "cpu_s": cpu_s, "decode_vs_prefill_max_abs": dec32_err,
         "decode_vs_prefill_max_abs_logit": dec32_scale}
     del m_gpu, p_gpu, on_card, on_cpu, m_dec, cache
-    lap("card_vs_cpu_f32")
-    return finish_serve(record, laps, t_phase, checks, launches)
+    laps.lap("card_vs_cpu_f32")
+    return finish_serve(record, laps, checks, launches)
 
 
-def finish_serve(record, laps, t_phase, checks, launches):
+def finish_serve(record, laps, checks, launches):
     """Print a serving phase's record, then run its checks; returns its
     flash launches by head dim."""
-    record["seconds_by_step"] = laps
-    record["seconds"] = time.perf_counter() - t_phase
+    record["seconds_by_step"] = laps.seconds
+    record["seconds"] = time.perf_counter() - laps.start
     emit(record)
     for ok, msg in checks:
         check(ok, msg)
     return launches
+
+
+def mrope_positions(torch, S, before, side, batch):
+    """(3, batch, S) M-RoPE positions as Qwen2-VL lays out one image
+    between two runs of text: ``before`` text positions, equal in all
+    three streams; a ``side`` x ``side`` block of merged patches at
+    temporal index ``before``, with its own height and width indexes
+    (``before`` + row, ``before`` + column); then text again from the
+    block's largest index + 1."""
+    n = side * side
+    pos = torch.empty((3, S), dtype=torch.int64)
+    pos[:, :before] = torch.arange(before)
+    row, col = torch.arange(n) // side, torch.arange(n) % side
+    pos[0, before:before + n] = before
+    pos[1, before:before + n] = before + row
+    pos[2, before:before + n] = before + col
+    pos[:, before + n:] = before + side + torch.arange(S - before - n)
+    return pos[:, None].expand(3, batch, S).contiguous().to("cuda")
+
+
+def phase_serve_vlm(np, torch):
+    """qwen2-vl-72b's backbone at full width and the most layers that
+    fit beside a 2 x 32,768-position prefill (printed, with
+    ``reduced``): ``Model.prefill`` with ``last_only`` on patch and
+    token embeddings drawn from the seed and M-RoPE positions of one
+    64 x 64 image between two runs of text (a flash launch at hd 128 a
+    layer, 64 query heads over 8); then 1 layer in f32 on the card
+    against the CPU at full width, at ``VLM_F32_LEN`` positions (the
+    card takes ``plain_attention`` there; the kernel at G 8 is held in
+    the flash phase).  Returns the prefill's flash launches by head
+    dim."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import Model
+
+    laps = Laps()
+    full_cfg = get_arch("qwen2-vl-72b")
+    record = {"phase": "serve qwen2-vl-72b", "arch": full_cfg.name}
+    B, S, D = PREFILL_BATCH, PREFILL_LEN, full_cfg.d_model
+    # the bf16 embeddings, and room for the allocator's fragmentation:
+    # with layers_that_fit's margin alone the prefill ran out of memory
+    # with 6.7 GiB reserved but unallocated
+    layers, fit = layers_that_fit(torch, full_cfg,
+                                  B * S * D * 2 + VLM_FRAGMENTATION_BYTES)
+    record.update(fit, fit_to="the card's memory")
+    cfg = dataclasses.replace(full_cfg, num_layers=layers)
+    model = Model(cfg)
+    params, init_s, _ = timed(lambda: model.init(SERVE_SEED))
+    weights = list(_leaves(params))
+    record.update(layers=cfg.num_layers, reduced=cfg != full_cfg,
+                  params=sum(t.numel() for t in weights),
+                  weight_bytes=sum(t.numel() * t.element_size()
+                                   for t in weights), init_s=init_s)
+    if cfg != full_cfg:
+        record["cut"] = f"{full_cfg.num_layers} layers -> {cfg.num_layers}"
+    del weights
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
+    batch = {"embeds": torch.randn((B, S, D), generator=gen, device="cuda"
+                                   ).to(cfg.param_dtype()),
+             "mrope_positions": mrope_positions(torch, S, *VLM_IMAGE, B)}
+    pos = batch["mrope_positions"]
+    streams_differ = bool((pos[0] != pos[1]).any() and
+                          (pos[1] != pos[2]).any())
+
+    def run(b):
+        return model.prefill(params, b, last_only=True)
+
+    run({"embeds": batch["embeds"][:1, :GEN_PROMPT],
+         "mrope_positions": pos[:, :1, :GEN_PROMPT]})              # warm-up
+    ops.reset_launches()
+    logits, prefill_s, peak = timed(lambda: run(batch))
+    launches = {cfg.hd: ops.LAUNCHES["flash_attention"]}
+    checks = [
+        (tuple(logits.shape) == (B, 1, cfg.vocab),
+         f"prefill logits {tuple(logits.shape)}"),
+        (all_finite(torch, logits), "prefill logits not finite"),
+        (streams_differ, "the three M-RoPE streams do not differ"),
+        (launches[cfg.hd] == cfg.num_layers,
+         f"{launches[cfg.hd]} flash launches in a {cfg.num_layers}-layer "
+         f"prefill at hd {cfg.hd}")]
+    record["prefill"] = {
+        "batch": B, "seq": S, "cut": "global batch 32 -> 2 (one card)",
+        "inputs": "embeds (B, S, d_model) from the seed, M-RoPE positions "
+                  f"of {VLM_IMAGE[1]} x {VLM_IMAGE[1]} patches after "
+                  f"{VLM_IMAGE[0]} text positions",
+        "last_only": True, "wall_s": prefill_s, "positions_per_s": B * S /
+        prefill_s, "peak_bytes": peak, "flash_launches": launches[cfg.hd]}
+    del logits, params, model, batch, pos
+    laps.lap("prefill")
+
+    # the card against the CPU: full width, 1 layer, f32, TF32 off,
+    # nonzero q/k/v biases, M-RoPE positions that differ by stream
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    m_gpu, m_cpu = Model(cfg32), Model(cfg32, device="cpu")
+    p_gpu = m_gpu.init(SERVE_SEED)
+    draw_biases(torch, p_gpu, SERVE_SEED)
+    S32 = VLM_F32_LEN
+    b32 = {"embeds": torch.randn((1, S32, D), generator=gen, device="cuda"),
+           "mrope_positions": mrope_positions(torch, S32, *VLM_F32_IMAGE, 1)}
+    ops.reset_launches()
+    on_card = m_gpu.prefill(p_gpu, b32).cpu()
+    f32_launches = ops.LAUNCHES["flash_attention"]
+    p_cpu = _to(p_gpu, "cpu")
+    del p_gpu
+    t = time.perf_counter()
+    on_cpu = m_cpu.prefill(p_cpu, _to(b32, "cpu"))
+    cpu_s = time.perf_counter() - t
+    f32_err = float((on_card - on_cpu).abs().max())
+    f32_scale = float(on_cpu.abs().max())
+    checks += [
+        (f32_launches == 0, "the f32 prefill launched the flash kernel"),
+        (f32_err <= F32_RTOL * f32_scale,
+         f"f32 logits: card != CPU by {f32_err} (max |logit| {f32_scale})")]
+    record["card_vs_cpu_f32"] = {
+        "layers": 1, "batch": 1, "seq": S32, "image": list(VLM_F32_IMAGE),
+        "tf32": False, "bias_std": BIAS_STD, "max_abs": f32_err,
+        "max_abs_logit": f32_scale, "rtol": F32_RTOL,
+        "flash_launches": f32_launches, "cpu_s": cpu_s}
+    del m_gpu, p_cpu, on_card, on_cpu
+    laps.lap("card_vs_cpu_f32")
+    return finish_serve(record, laps, checks, launches)
+
+
+def phase_serve_whisper(np, torch):
+    """whisper-large-v3 at full width and depth (32 encoder and 32
+    decoder layers, 20 heads at hd 64; bf16, weights from a seeded
+    generator on the card): ``Model.encode`` over ``ENC_BATCH`` clips of
+    1,500 seeded frame embeddings; ``generate`` for 4 requests (their
+    encoder memory, ``WHISPER_PROMPT``-token decoder prompts, 16 greedy
+    tokens) with ``extra_batch={"enc_memory": ...}``, its decode logits
+    held against the decoder prefill's; then 2 + 2 layers in f32 on the
+    card against the CPU with nonzero layer-norm and MLP biases, and
+    their cached decode against their prefill.  Both the encoder's 1,500
+    frames and the decoder's context stay under ``LONG_SEQ``, so no
+    flash launch.  Returns the flash launches by head dim."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+
+    laps = Laps()
+    cfg = get_arch("whisper-large-v3")
+    Se, D = cfg.encdec.encoder_seq, cfg.d_model
+    model = Model(cfg)
+    params, init_s, _ = timed(lambda: model.init(SERVE_SEED))
+    weights = list(_leaves(params))
+    record = {"phase": "serve whisper-large-v3", "arch": cfg.name,
+              "layers": cfg.num_layers,
+              "encoder_layers": cfg.encdec.num_encoder_layers,
+              "reduced": False, "params": sum(t.numel() for t in weights),
+              "weight_bytes": sum(t.numel() * t.element_size()
+                                  for t in weights), "init_s": init_s}
+    del weights
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
+    frames = torch.randn((ENC_BATCH, Se, D), generator=gen, device="cuda"
+                         ).to(cfg.param_dtype())
+    checks = []
+
+    # 1. the encoder over the global batch of clips: the counted run
+    model.encode(params, frames[:1])                               # warm-up
+    ops.reset_launches()
+    memory, enc_s, enc_peak = timed(lambda: model.encode(params, frames))
+    launches = {cfg.hd: ops.LAUNCHES["flash_attention"]}
+    checks += [(tuple(memory.shape) == (ENC_BATCH, Se, D),
+                f"encoder memory {tuple(memory.shape)}"),
+               (all_finite(torch, memory), "encoder memory not finite")]
+    record["encode"] = {
+        "clips": ENC_BATCH, "frames_per_clip": Se, "wall_s": enc_s,
+        "frames_per_s": ENC_BATCH * Se / enc_s, "peak_bytes": enc_peak,
+        "profiled": device_profile(lambda: model.encode(params, frames),
+                                   top=8)}
+    memory = memory[:GEN_BATCH].clone()
+    del frames
+    laps.lap("encode")
+
+    # 2. generate: 4 requests' memory, prompts fed token by token, then
+    # 16 greedy tokens; decode at the last prompt position against the
+    # decoder's prefill over the same memory
+    S0 = WHISPER_PROMPT
+    prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, S0), generator=gen,
+                            device="cuda")
+    eng = ServeEngine(model, GEN_BATCH, S0 + GEN_STEPS)
+    extra = {"enc_memory": memory}
+    ops.reset_launches()
+    last = eng.prefill_logits(params, {"tokens": prompts, **extra}
+                              )[:, -1].float()
+    (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
+        params, prompts, GEN_STEPS, extra_batch=extra, return_logits=True))
+    launches[cfg.hd] += ops.LAUNCHES["flash_attention"]
+    laps.lap("generate")
+    cache = eng.init_cache()
+
+    def decode_steps(first, count):
+        for i in range(first, first + count):
+            model.decode_step(params, cache,
+                              {"tokens": prompts[:, i:i + 1], **extra}, i)
+
+    decode_prof = device_profile(lambda: decode_steps(0, PROFILE_STEPS))
+    _, decode_s, _ = timed(lambda: decode_steps(PROFILE_STEPS,
+                                                DECODE_TIMED_STEPS))
+    del cache
+    laps.lap("decode_profile_and_rate")
+    row_err = (chosen_from[:, 0].float() - last).abs().amax(dim=-1)
+    dec_err = float(row_err.max())
+    top2 = last.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > DECODE_TOL
+    record["generate"] = {
+        "batch": GEN_BATCH, "prompt": S0, "new_tokens": GEN_STEPS,
+        "encoder_frames": Se, "decode_steps": S0 + GEN_STEPS - 1,
+        "wall_s": gen_s,
+        "ms_per_decode_step": decode_s / DECODE_TIMED_STEPS * 1e3,
+        "timed_decode_steps": DECODE_TIMED_STEPS, "peak_bytes": gen_peak,
+        "profiled_steps": PROFILE_STEPS, "profiled": decode_prof,
+        "decode_vs_prefill_max_abs": dec_err,
+        "decode_vs_prefill_by_row": row_err.tolist(),
+        "prefill_logit_std": float(last.std()), "tol": DECODE_TOL,
+        "clear_argmax_rows": int(clear.sum())}
+    checks += [
+        (tuple(out.shape) == (GEN_BATCH, S0 + GEN_STEPS),
+         f"generated {tuple(out.shape)}"),
+        (torch.equal(out[:, :S0], prompts), "prompt not kept"),
+        (bool(torch.isfinite(chosen_from).all()), "decode logits not finite"),
+        (dec_err <= DECODE_TOL,
+         f"decode logits differ from prefill's by {dec_err} > {DECODE_TOL}"),
+        (bool((out[:, S0] == last.argmax(-1))[clear].all()),
+         "first generated token != prefill argmax where the gap is clear")]
+    del params, model, eng, memory, extra, chosen_from, last
+    laps.lap("generate_checks")
+
+    # 3. the card against the CPU: full width, 2 encoder + 2 decoder
+    # layers, f32, TF32 off, every bias drawn nonzero; then the cached
+    # decode of the last prompt token against the prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                encdec=dataclasses.replace(
+                                    cfg.encdec, num_encoder_layers=2))
+    m_gpu, m_cpu = Model(cfg32), Model(cfg32, device="cpu")
+    p_gpu = m_gpu.init(SERVE_SEED)
+    draw_biases(torch, p_gpu, SERVE_SEED)
+    b32 = {"tokens": torch.randint(0, cfg.vocab, (1, S0), generator=gen,
+                                   device="cuda"),
+           "enc_embeds": torch.randn((1, Se, D), generator=gen,
+                                     device="cuda")}
+    ops.reset_launches()
+    on_card = m_gpu.prefill(p_gpu, b32).cpu()
+    t = time.perf_counter()
+    on_cpu = m_cpu.prefill(_to(p_gpu, "cpu"), _to(b32, "cpu"))
+    cpu_s = time.perf_counter() - t
+    f32_err = float((on_card - on_cpu).abs().max())
+    f32_scale = float(on_cpu.abs().max())
+    mem32 = m_gpu.encode(p_gpu, b32["enc_embeds"])
+    cache = m_gpu.init_cache(1, S0)
+    t32 = b32["tokens"]
+    m_gpu.decode_step(p_gpu, cache, {"tokens": t32[:, :-1],
+                                     "enc_memory": mem32}, 0)
+    dec32 = m_gpu.decode_step(p_gpu, cache, {"tokens": t32[:, -1:],
+                                             "enc_memory": mem32},
+                              S0 - 1)[0][:, -1]
+    dec32_err = float((dec32.cpu() - on_card[:, -1]).abs().max())
+    launches[cfg.hd] += ops.LAUNCHES["flash_attention"]
+    checks += [
+        (f32_err <= F32_RTOL * f32_scale,
+         f"f32 logits: card != CPU by {f32_err} (max |logit| {f32_scale})"),
+        (dec32_err <= F32_RTOL * f32_scale,
+         f"f32 decode logits != prefill's by {dec32_err} (max |logit| "
+         f"{f32_scale})"),
+        (launches[cfg.hd] == 0,
+         f"{launches[cfg.hd]} flash launches: whisper's attention is short")]
+    record["card_vs_cpu_f32"] = {
+        "encoder_layers": 2, "layers": 2, "batch": 1, "frames": Se,
+        "seq": S0, "tf32": False, "bias_std": BIAS_STD, "max_abs": f32_err,
+        "max_abs_logit": f32_scale, "rtol": F32_RTOL, "cpu_s": cpu_s,
+        "decode_vs_prefill_max_abs": dec32_err}
+    del m_gpu, p_gpu, on_card, on_cpu, mem32, cache
+    laps.lap("card_vs_cpu_f32")
+    return finish_serve(record, laps, checks, launches)
 
 
 def mamba2_dt_bias(torch, params, seed):
@@ -2626,14 +3040,7 @@ def phase_serve_mamba2(np, torch, layers=None):
     from repro_torch.models import Model
     from repro_torch.serve import ServeEngine
 
-    t_phase = time.perf_counter()
-    laps, last_lap = {}, [t_phase]
-
-    def lap(name):
-        now = time.perf_counter()
-        laps[name] = now - last_lap[0]
-        last_lap[0] = now
-
+    laps = Laps()
     full_cfg = get_arch("mamba2-1.3b")
     cfg = dataclasses.replace(full_cfg, num_layers=layers or
                               full_cfg.num_layers)
@@ -2665,12 +3072,12 @@ def phase_serve_mamba2(np, torch, layers=None):
          f"{launches['ssd_intra_chunk']} SSD launches in a "
          f"{cfg.num_layers}-layer prefill")]
     del logits
-    lap("prefill")
+    laps.lap("prefill")
     prefill_prof = device_profile(
         lambda: eng.prefill_logits(params, {"tokens": toks}), top=10,
         groups=groups)
     del toks
-    lap("prefill_profile")
+    laps.lap("prefill_profile")
 
     # 2. generate: prompts fed token by token through decode (conv and
     # state caches), then 16 greedy tokens; the decode logits at the last
@@ -2680,7 +3087,7 @@ def phase_serve_mamba2(np, torch, layers=None):
     eng = ServeEngine(model, GEN_BATCH, M2_GEN_PROMPT + GEN_STEPS)
     (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
         params, prompts, GEN_STEPS, return_logits=True))
-    lap("generate")
+    laps.lap("generate")
     decode_steps = M2_GEN_PROMPT + GEN_STEPS - 1
     cache = eng.init_cache()
 
@@ -2710,7 +3117,7 @@ def phase_serve_mamba2(np, torch, layers=None):
          "first generated token != prefill argmax where the gap is clear")]
     logit_std = float(last.std())
     del params, chosen_from, last, dec
-    lap("decode_profile_and_checks")
+    laps.lap("decode_profile_and_checks")
 
     # 3. the card against the CPU: full width, 2 layers, f32, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2765,9 +3172,9 @@ def phase_serve_mamba2(np, torch, layers=None):
                               "max_abs_logit": f32_scale, "rtol": F32_RTOL,
                               "ssd_launches": f32_launches,
                               "cpu_s": cpu_s},
-          "seconds_by_step": {**laps, "card_vs_cpu_f32":
-                              time.perf_counter() - last_lap[0]},
-          "seconds": time.perf_counter() - t_phase})
+          "seconds_by_step": {**laps.seconds, "card_vs_cpu_f32":
+                              time.perf_counter() - laps.last},
+          "seconds": time.perf_counter() - laps.start})
     for ok, msg in checks:
         check(ok, msg)
     return launches
@@ -2834,13 +3241,18 @@ def main() -> int:
         launches[name] += count
     # the served paths' flash launches, by head dim
     flash = {}
-    for name, fn, args in (
+    cut = dict(gen_layers=GEN_LAYERS_CUT)
+    for name, fn, args, kw in (
             ("serve granite-3-2b", phase_serve, ("granite-3-2b",
-                                                 GRANITE_LAYERS)),
-            ("serve glm4-9b", phase_serve, ("glm4-9b",)),
-            ("serve qwen2-moe-a2.7b", phase_serve, ("qwen2-moe-a2.7b",)),
-            ("serve qwen2-72b", phase_serve, ("qwen2-72b", FIT, True))):
-        for hd, n in timed_phase(name, fn, np, torch, *args).items():
+                                                 GRANITE_LAYERS), {}),
+            ("serve glm4-9b", phase_serve, ("glm4-9b",), cut),
+            ("serve qwen2-moe-a2.7b", phase_serve, ("qwen2-moe-a2.7b",), cut),
+            ("serve qwen2-72b", phase_serve, ("qwen2-72b", FIT, True), {}),
+            ("serve deepseek-v2-lite-16b", phase_serve,
+             ("deepseek-v2-lite-16b",), dict(prompt_len=M2_GEN_PROMPT)),
+            ("serve qwen2-vl-72b", phase_serve_vlm, (), {}),
+            ("serve whisper-large-v3", phase_serve_whisper, (), {})):
+        for hd, n in timed_phase(name, fn, np, torch, *args, **kw).items():
             flash[hd] = flash.get(hd, 0) + n
     check(set(flash) == {64, 128}, f"flash launches by head dim {flash}")
     launches["flash_attention"] = flash[64]

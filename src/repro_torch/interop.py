@@ -155,35 +155,51 @@ F32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
 def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
                          device=None) -> dict:
     """The port's LM weights from the JAX package's parameter pytree as
-    numpy arrays: ``{"embed", "final_norm", "lm_head" (untied configs),
-    "layers": {...}}`` with every layer leaf stacked on a leading
-    (num_layers,) axis, nested dicts included (the q/k/v biases ``bq``,
-    ``bk``, ``bv``; a MoE's ``router``, (E, D, F) experts and
-    ``shared`` expert).  Each leaf keeps its (in, out) layout and becomes
+    numpy arrays.  Top-level leaves (``embed``, ``final_norm``,
+    ``lm_head`` of untied configs, the encoder-decoder's
+    ``enc_final_norm_b`` and ``final_norm_b``) cross as they are, and so
+    does ``layer0``, the unrolled dense first layer of an MLA config.
+    ``layers`` stacks every leaf on a leading axis of the stacked layers
+    (``num_layers`` less the unrolled one), nested dicts included (the
+    q/k/v biases, the MLA leaves, a MoE's router, experts and shared
+    expert, cross-attention and the layer norms' biases), and
+    ``encoder`` on one of ``num_encoder_layers``; each stack becomes one
+    dict per layer.  Each leaf keeps its (in, out) layout and becomes
     ``cfg.param_dtype()`` on ``device`` (the card unless ``"cpu"``),
-    except the f32 constants of ``F32_LEAVES``, which stay f32; the
-    stack becomes one dict per layer."""
+    except the f32 constants of ``F32_LEAVES``, which stay f32."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype()
-    L = cfg.num_layers
 
-    def layer(sub: dict, i: int) -> dict:
+    def leaf(k: str, v) -> torch.Tensor:
+        return _tensor(v, torch.float32 if k in F32_LEAVES else dt, dev)
+
+    def whole(sub: dict) -> dict:
+        return {k: whole(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in sub.items()}
+
+    def layer(sub: dict, i: int, L: int, stack: str) -> dict:
         out = {}
         for k, v in sub.items():
             if isinstance(v, dict):
-                out[k] = layer(v, i)
+                out[k] = layer(v, i, L, stack)
             elif np.shape(v)[0] != L:
-                raise ValueError(f"layer leaf {k!r} stacks {np.shape(v)[0]} "
+                raise ValueError(f"{stack} leaf {k!r} stacks {np.shape(v)[0]} "
                                  f"layers, {cfg.name} has {L}")
             else:
-                out[k] = _tensor(np.asarray(v)[i],
-                                 torch.float32 if k in F32_LEAVES else dt, dev)
+                out[k] = leaf(k, np.asarray(v)[i])
         return out
 
-    params = {"embed": _tensor(tree["embed"], dt, dev),
-              "final_norm": _tensor(tree["final_norm"], dt, dev)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _tensor(tree["lm_head"], dt, dev)
-    params["layers"] = [layer(tree["layers"], i) for i in range(L)]
+    stacks = {"layers": cfg.num_layers - (cfg.moe.first_dense_layers
+                                          if cfg.moe else 0)}
+    if cfg.encdec:
+        stacks["encoder"] = cfg.encdec.num_encoder_layers
+    params = {}
+    for k, v in tree.items():
+        if k in stacks:
+            params[k] = [layer(v, i, stacks[k], k) for i in range(stacks[k])]
+        elif isinstance(v, dict):
+            params[k] = whole(v)
+        else:
+            params[k] = leaf(k, v)
     return params

@@ -1,18 +1,22 @@
-"""Grouped-query attention with RoPE and optional q/k/v biases: the port
-of the GQA half of ``repro/models/attention.py`` (MLA and
-cross-attention wait for the families that use them).
+"""Attention: grouped-query attention with RoPE or M-RoPE and optional
+q/k/v biases, DeepSeek-V2's multi-head latent attention (MLA, with the
+absorbed decode) and the encoder-decoder's cross-attention.  The port
+of ``repro/models/attention.py``.
 
 Three ways to attend, routed by ``attention_any`` as the reference
 routes them:
 
-* long windowless self-attention goes to the flash-attention op
-  (``kernels/flash_attention``: the CUDA kernel on a CUDA tensor, its
-  plain version on a CPU tensor), where the reference runs its XLA twin
-  of the Pallas kernel, ``chunked_attention``;
-* long windowed self-attention goes to ``chunked_attention``, which the
-  kernel does not take;
-* everything else — decode against a cache, short sequences — goes to
-  ``plain_attention``.
+* long windowless self-attention with one head dim for q, k and v goes
+  to the flash-attention op (``kernels/flash_attention``: the CUDA
+  kernel on a CUDA tensor, its plain version on a CPU tensor), where
+  the reference runs its XLA twin of the Pallas kernel,
+  ``chunked_attention``;
+* long self-attention that the kernel does not take goes to
+  ``chunked_attention``: windowed, or with a v head dim other than
+  q's and k's (MLA's prefill: 192 against 128), as the reference runs
+  it;
+* everything else — decode against a cache, short sequences, the
+  encoder's 1,500 frames, cross-attention — goes to ``plain_attention``.
 
 ``plain_attention`` and ``chunked_attention`` copy the reference's
 rounding points: in bf16 the q·k scores round to bf16 before the f32
@@ -28,7 +32,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
-from .common import InitCtx, apply_rope, rope_tables
+from .common import InitCtx, apply_rope, mrope_tables, rms_norm, rope_tables
 
 NEG_INF = -1e30
 #: self-attention longer than this takes the flash op (the reference's
@@ -114,10 +118,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_any(q, k, v, *, causal, q_offset=0, window=0):
-    """Long self-attention to the flash op (or, windowed, to
-    ``chunked_attention``); everything else to ``plain_attention``."""
+    """Long self-attention to the flash op (or, windowed or with v's head
+    dim apart from q's, to ``chunked_attention``); everything else to
+    ``plain_attention``."""
     if q.shape[1] > 1 and k.shape[1] > LONG_SEQ and q.shape[1] == k.shape[1]:
-        if window > 0:
+        if window > 0 or v.shape[-1] != q.shape[-1]:
             return chunked_attention(q, k, v, causal=causal, window=window)
         # (B, S, H, hd) views as (B, H, S, hd): the kernel reads strides
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -125,6 +130,28 @@ def attention_any(q, k, v, *, causal, q_offset=0, window=0):
         return out.transpose(1, 2)
     return plain_attention(q, k, v, causal=causal, q_offset=q_offset,
                            window=window)
+
+
+def rotary_tables(cfg: ArchConfig, positions: torch.Tensor,
+                  mrope_positions: Optional[torch.Tensor],
+                  head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (cos, sin) tables a layer rotates by: M-RoPE's where the
+    config has sections and the batch gives their positions (3, B, S),
+    else 1-D RoPE's at ``positions``, over ``head_dim``."""
+    if cfg.mrope_sections and mrope_positions is not None:
+        return mrope_tables(mrope_positions, cfg.mrope_sections, head_dim,
+                            cfg.rope_theta)
+    return rope_tables(positions, head_dim, cfg.rope_theta)
+
+
+def _check_write(cache_index: Optional[int], S: int, max_len: int) -> None:
+    """A cached call names the slot it writes, and its S tokens fit."""
+    if cache_index is None:
+        raise ValueError("a cached call needs cache_index")
+    if not 0 <= cache_index <= max_len - S:
+        raise ValueError(
+            f"cache write of {S} token(s) at {cache_index} runs past "
+            f"max_len {max_len}")
 
 
 def init_gqa(ctx: InitCtx, cfg: ArchConfig) -> dict:
@@ -145,16 +172,20 @@ def init_gqa(ctx: InitCtx, cfg: ArchConfig) -> dict:
 def gqa_forward(
     p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     positions: torch.Tensor,                 # (S,) or (B, S) absolute positions
+    causal: bool = True,
     window: int = 0,
+    mrope_positions: Optional[torch.Tensor] = None,   # (3, B, S)
     cache: Optional[dict] = None,            # {"k","v"}: (B, Smax, Hkv, hd)
     cache_index: Optional[int] = None,       # first slot this call writes
     rope: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
-    """Causal self-attention.  x: (B, S, D) -> (B, S, D), and the cache
-    when one is given.  ``rope`` (``rope_tables`` of ``positions``) and,
-    with a cache, ``mask`` (``cache_mask``) are computed here unless the
-    caller computed them once for all layers.
+    """Self-attention, causal unless ``causal=False`` (the encoder).
+    x: (B, S, D) -> (B, S, D), and the cache when one is given.  A config
+    with M-RoPE sections given ``mrope_positions`` rotates by those, as
+    the reference does, else by ``positions``.  ``rope`` (the rotation's
+    tables) and, with a cache, ``mask`` (``cache_mask``) are computed
+    here unless the caller computed them once for all layers.
 
     The cache is written in place (the reference's engine donates it, so
     its update is in place on the device too) and the same dict comes
@@ -172,20 +203,14 @@ def gqa_forward(
     k = k.reshape(B, S, Hkv, hd)
     v = v.reshape(B, S, Hkv, hd)
     if rope is None:
-        rope = rope_tables(positions, hd, cfg.rope_theta)
+        rope = rotary_tables(cfg, positions, mrope_positions, hd)
     q = apply_rope(q, positions, cfg.rope_theta, tables=rope)
     k = apply_rope(k, positions, cfg.rope_theta, tables=rope)
 
     if cache is None:
-        out = attention_any(q, k, v, causal=True, window=window)
+        out = attention_any(q, k, v, causal=causal, window=window)
     else:
-        if cache_index is None:
-            raise ValueError("a cached call needs cache_index")
-        max_len = cache["k"].shape[1]
-        if not 0 <= cache_index <= max_len - S:
-            raise ValueError(
-                f"cache write of {S} token(s) at {cache_index} runs past "
-                f"max_len {max_len}")
+        _check_write(cache_index, S, cache["k"].shape[1])
         cache["k"][:, cache_index:cache_index + S] = k
         cache["v"][:, cache_index:cache_index + S] = v
         # causal with q_offset doubles as the valid-length mask: slots
@@ -194,3 +219,113 @@ def gqa_forward(
                               q_offset=cache_index, window=window, mask=mask)
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, cache
+
+
+def init_mla(ctx: InitCtx, cfg: ArchConfig) -> dict:
+    """MLA's weights: q (D, H·(nope + rope)), the KV down-projection to
+    the latent and the shared rotary key (D, lora + rope), the latent's
+    RMS scale, the per-head up-projections of k and v from the latent,
+    and the output."""
+    m = cfg.mla
+    H, D = cfg.num_heads, cfg.d_model
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq": ctx.make((D, H * qk)),
+        "w_dkv": ctx.make((D, m.kv_lora_rank + m.qk_rope_dim)),
+        "kv_norm": ctx.make((m.kv_lora_rank,), scale="embed"),
+        "w_uk": ctx.make((m.kv_lora_rank, H * m.qk_nope_dim)),
+        "w_uv": ctx.make((m.kv_lora_rank, H * m.v_head_dim)),
+        "wo": ctx.make((H * m.v_head_dim, D)),
+    }
+
+
+def mla_forward(
+    p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+    positions: torch.Tensor,                 # (S,) absolute positions
+    cache: Optional[dict] = None,            # {"latent": (B, Smax, lora + rope)}
+    cache_index: Optional[int] = None,
+    rope: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """DeepSeek-V2's multi-head latent attention, causal.  RoPE turns the
+    ``qk_rope_dim`` dims of q and the one rotary key shared by all heads
+    (``rope``: ``rope_tables`` at that width, not ``cfg.hd``).
+
+    Without a cache (prefill) the latent is decompressed per head and q,
+    k of nope + rope (192) attend over v of ``v_head_dim`` (128) through
+    ``attention_any``, which sends a long one to ``chunked_attention``.
+    With a cache (decode) the absorbed form: the cache holds latent ++
+    rotary key (B, Smax, lora + rope), ``w_uk`` is folded into q, the
+    weighted sum is taken over the latent and ``w_uv`` applied after it.
+    Its rounding points are the reference's: the two score products are
+    summed in x's type and only then cast to f32, the scale is 1/√(nope
+    + rope), and the probabilities are cast to x's type before the
+    latent product.  ``mask``: ``cache_mask`` (windowless), where made
+    once for all layers.
+    """
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rd, dv, lora = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+                          m.kv_lora_rank)
+    if rope is None:
+        rope = rope_tables(positions, rd, cfg.rope_theta)
+    q = (x @ p["wq"]).reshape(B, S, H, nope + rd)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, tables=rope)
+    dkv = x @ p["w_dkv"]                                   # (B, S, lora + rope)
+    latent = rms_norm(dkv[..., :lora], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, lora:], positions, tables=rope)
+
+    if cache is None:
+        k_nope = (latent @ p["w_uk"]).reshape(B, S, H, nope)
+        v = (latent @ p["w_uv"]).reshape(B, S, H, dv)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+        out = attention_any(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                            causal=True)
+        return out.reshape(B, S, H * dv) @ p["wo"], None
+
+    cl = cache["latent"]
+    _check_write(cache_index, S, cl.shape[1])
+    cl[:, cache_index:cache_index + S] = torch.cat([latent, k_rope[:, :, 0]],
+                                                   dim=-1)
+    c_lat, c_rope = cl[..., :lora], cl[..., lora:]
+    q_lat = torch.einsum("bshn,lhn->bshl", q_nope,
+                         p["w_uk"].reshape(lora, H, nope))
+    scores = (torch.einsum("bshl,btl->bhst", q_lat, c_lat)
+              + torch.einsum("bshr,btr->bhst", q_rope, c_rope)).float()
+    scores = scores * (1.0 / math.sqrt(nope + rd))
+    if mask is None:
+        mask = cache_mask(cache_index, S, cl.shape[1], 0, x.device)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx_lat = torch.einsum("bhst,btl->bshl", probs, c_lat)   # (B, S, H, lora)
+    out = torch.einsum("bshl,lhv->bshv", ctx_lat,
+                       p["w_uv"].reshape(lora, H, dv))
+    return out.reshape(B, S, H * dv) @ p["wo"], cache
+
+
+def init_cross(ctx: InitCtx, cfg: ArchConfig) -> dict:
+    hd, H, D = cfg.hd, cfg.num_heads, cfg.d_model
+    return {
+        "wq": ctx.make((D, H * hd)),
+        "wk": ctx.make((D, H * hd)),
+        "wv": ctx.make((D, H * hd)),
+        "wo": ctx.make((H * hd, D)),
+    }
+
+
+def cross_forward(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                  memory: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of the decoder states x (B, S, D) over the
+    encoder's memory (B, Se, D), not causal, no rotation.  K and V are
+    projected from the memory on every call: the reference caches
+    neither."""
+    B, S, _ = x.shape
+    Se = memory.shape[1]
+    hd, H = cfg.hd, cfg.num_heads
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (memory @ p["wk"]).reshape(B, Se, H, hd)
+    v = (memory @ p["wv"]).reshape(B, Se, H, hd)
+    out = plain_attention(q, k, v, causal=False, q_offset=0)
+    return out.reshape(B, S, H * hd) @ p["wo"]

@@ -1,10 +1,12 @@
-"""Shared model components: RMSNorm, the SwiGLU MLP, rotary embeddings
-and the initializer (random, zero and constant parameters).  The port of
-``repro/models/common.py``, with ``count_params`` (M-RoPE, layer norm
-and the GELU MLP wait for the families that use them).
+"""Shared model components: RMSNorm, layer norm, the SwiGLU and GELU
+MLPs, rotary embeddings (1-D and Qwen2-VL's M-RoPE) and the initializer
+(random, zero and constant parameters).  The port of
+``repro/models/common.py``, with ``count_params``.
 
-Rounding follows the reference: ``rms_norm`` takes f32 statistics but
-normalises in x's type, and ``apply_rope`` rotates in f32 and casts back.
+Rounding follows the reference: ``rms_norm`` and ``layer_norm`` take f32
+statistics but normalise in x's type (``F.layer_norm`` would normalise
+in f32 and round once), a bias is added to a product already rounded to
+x's type, and ``apply_rope`` rotates in f32 and casts back.
 """
 
 from __future__ import annotations
@@ -23,10 +25,29 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return x * inv * scale.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Two-pass layer norm: f32 row mean, ``d = x - mu`` in x's type, f32
+    variance of d, then ``d * inv * scale + bias`` in x's type."""
+    mu = x.float().mean(dim=-1, keepdim=True)
+    d = x - mu.to(x.dtype)
+    var = d.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return d * inv * scale.to(x.dtype) + bias.to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down(silu(x @ gate) * (x @ up)); weights (in, out)."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """Tanh-GELU MLP: gelu(x @ w_in + b_in) @ w_out + b_out, each bias
+    added after its product rounds to x's type (not a fused epilogue)."""
+    h = F.gelu((x @ w_in) + b_in, approximate="tanh")
+    return (h @ w_out) + b_out
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
@@ -47,6 +68,39 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     cos, sin = torch.cos(ang), torch.sin(ang)
     return (torch.cat([cos, cos], dim=-1)[..., None, :],
             torch.cat([-sin, sin], dim=-1)[..., None, :])
+
+
+def mrope_tables(positions: torch.Tensor, sections: tuple[int, ...],
+                 head_dim: int, theta: float = 1000000.0
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rope_tables`` for M-RoPE (Qwen2-VL): the rotary half-dims are cut
+    into ``sections`` (temporal, height, width), each turned by its own
+    stream of ``positions`` (3, B, S).  Returns (cos, sin), each (B, S,
+    1, hd) in f32, in ``rope_tables``' layout, for ``apply_rope``."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim / 2 = {head_dim // 2}")
+    inv = rope_frequencies(head_dim, theta, device=positions.device)
+    stream = torch.repeat_interleave(
+        torch.arange(len(sections), device=positions.device),
+        torch.tensor(sections, device=positions.device))     # (hd/2,)
+    pos = positions.float()[stream]                          # (hd/2, B, S)
+    ang = pos.movedim(0, -1) * inv                           # (B, S, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return (torch.cat([cos, cos], dim=-1)[..., None, :],
+            torch.cat([-sin, sin], dim=-1)[..., None, :])
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...], theta: float = 1000000.0, *,
+                tables: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """Multimodal RoPE.  x: (B, S, H, hd); positions: (3, B, S);
+    ``tables``: ``mrope_tables`` of these positions, where computed
+    once for all layers."""
+    if tables is None:
+        tables = mrope_tables(positions, sections, x.shape[-1], theta)
+    return apply_rope(x, positions, theta, tables=tables)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

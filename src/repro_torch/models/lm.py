@@ -1,25 +1,39 @@
-"""The decoder-only LM, dense, MoE and SSM branches: the port of the
-dense, uniform-MoE and Mamba-2 parts of ``repro/models/lm.py``.
+"""The LM: the port of ``repro/models/lm.py`` for every family but the
+hybrid — dense, MoE (uniform, or DeepSeek-V2's MLA with a dense first
+layer), the VLM backbone (M-RoPE), Mamba-2, and the encoder-decoder.
 
 Parameters are plain nested dicts of tensors in the reference's (in,
 out) layout, so ``x @ w`` is the reference's einsum.  Where the reference
 stacks layers on a leading L axis and scans them, the port keeps one dict
-per layer in a list and loops in Python.  The decode caches keep the
-reference's stacked layouts, and each layer writes its slice in place:
-dense {"k", "v"}: (L, B, Smax, Hkv, hd); SSM {"conv_x", "conv_B",
+per layer in a list and loops in Python; the encoder-decoder keeps its
+encoder and decoder layers in two lists (``encoder``, ``layers``), and a
+config with ``first_dense_layers`` its unrolled first layer apart
+(``layer0``).  The decode caches keep the reference's stacked layouts,
+and each layer writes its slice in place: dense and the decoder {"k",
+"v"}: (L, B, Smax, Hkv, hd); MLA {"layer0": {"latent": (B, Smax, lora +
+rope)}, "layers": {"latent": (L - 1, ...)}}; SSM {"conv_x", "conv_B",
 "conv_C"}: (L, B, K-1, ·) in the parameter type and "state": (L, B, H,
 N, hd) in f32.
+
+Batch keys, as in the reference: ``tokens`` (B, S), or ``embeds`` (B, S,
+D) in their place; ``mrope_positions`` (3, B, S) for M-RoPE; for the
+encoder-decoder ``enc_embeds`` (B, Se, D), or the encoder's output
+``enc_memory`` in their place, which skips the encoder.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from ..configs.base import ArchConfig
-from .attention import cache_mask, gqa_forward, init_gqa
-from .common import InitCtx, rms_norm, rope_tables, swiglu
+from .attention import (
+    cache_mask, cross_forward, gqa_forward, init_cross, init_gqa, init_mla,
+    mla_forward, rotary_tables,
+)
+from .common import InitCtx, gelu_mlp, layer_norm, rms_norm, swiglu
 from .moe import init_moe, moe_forward
 from .ssm import init_mamba2, mamba2_cache_spec, mamba2_forward
 
@@ -27,23 +41,49 @@ from .ssm import init_mamba2, mamba2_cache_spec, mamba2_forward
 def check_supported(cfg: ArchConfig) -> None:
     """The port runs decoder-only GQA LMs with RoPE (family 'dense', with
     or without q/k/v biases, tied or untied embeddings), their MoE
-    variant (family 'moe': every layer's MLP a routed MoE), and Mamba-2
-    (SSD) LMs with an untied lm_head."""
+    variant (family 'moe': a routed MoE on every layer, or with MLA one
+    dense first layer and the MoE on the rest), the VLM backbone (family
+    'vlm', M-RoPE over three position streams), Mamba-2 (SSD) LMs with an
+    untied lm_head, and the encoder-decoder (family 'encdec').  The
+    hybrid (Jamba) waits for its slice."""
     if cfg.family == "ssm":
         if cfg.ssm is None or cfg.ssm.variant != "ssd" or cfg.tie_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: the port runs SSM LMs of the Mamba-2 (ssd) "
                 f"variant with an untied lm_head")
         return
-    if cfg.family not in ("dense", "moe") or cfg.mla or cfg.mrope_sections:
+    if cfg.family not in ("dense", "moe", "vlm", "encdec") or cfg.hybrid:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense and MoE GQA LMs with RoPE and "
-            f"Mamba-2 SSM LMs; not family {cfg.family!r}, MLA or M-RoPE")
-    if (cfg.family == "moe") != (cfg.moe is not None) or (cfg.moe and (
-            cfg.moe.every_k_layers != 1 or cfg.moe.first_dense_layers)):
+            f"{cfg.name}: the port runs families dense, moe, vlm, ssm and "
+            f"encdec; not family {cfg.family!r} (the hybrid is not ported)")
+    if (cfg.family == "moe") != (cfg.moe is not None):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs family 'moe' with a routed MoE on "
-            f"every layer, and family 'dense' without one")
+            f"{cfg.name}: the port runs family 'moe' with a routed MoE, and "
+            f"no other family with one")
+    if cfg.moe and cfg.moe.every_k_layers != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs a MoE on every layer, not every "
+            f"{cfg.moe.every_k_layers}")
+    if cfg.mla and not cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs MLA on a MoE config (DeepSeek-V2), "
+            f"not on family {cfg.family!r}")
+    if cfg.moe and cfg.moe.first_dense_layers not in (0, 1):
+        raise NotImplementedError(
+            f"{cfg.name}: the port unrolls one dense first layer, as the "
+            f"reference does, not {cfg.moe.first_dense_layers}")
+    if (cfg.family == "encdec") != (cfg.encdec is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: family 'encdec' needs an EncDecConfig, and no "
+            f"other family takes one")
+    if cfg.mrope_sections and sum(cfg.mrope_sections) != cfg.hd // 2:
+        raise NotImplementedError(
+            f"{cfg.name}: M-RoPE sections {cfg.mrope_sections} must sum to "
+            f"head_dim / 2 = {cfg.hd // 2}")
+
+
+def _first_dense(cfg: ArchConfig) -> int:
+    return cfg.moe.first_dense_layers if cfg.moe else 0
 
 
 def _dense_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
@@ -51,7 +91,7 @@ def _dense_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
     p = {
         "ln1": ctx.make((D,), scale="embed"),
         "ln2": ctx.make((D,), scale="embed"),
-        "attn": init_gqa(ctx, cfg),
+        "attn": init_mla(ctx, cfg) if cfg.mla else init_gqa(ctx, cfg),
     }
     if cfg.moe:
         p["mlp"] = init_moe(ctx, cfg)
@@ -62,12 +102,19 @@ def _dense_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
 
 
 def _dense_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *, positions,
-                 rope, mask=None, cache=None, cache_index=None,
-                 window=0) -> torch.Tensor:
+                 rope, mrope_positions=None, mask=None, cache=None,
+                 cache_index=None, window=0) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    attn_out, _ = gqa_forward(p["attn"], cfg, h, positions=positions,
-                              window=window, cache=cache,
-                              cache_index=cache_index, rope=rope, mask=mask)
+    if cfg.mla:
+        attn_out, _ = mla_forward(p["attn"], cfg, h, positions=positions,
+                                  cache=cache, cache_index=cache_index,
+                                  rope=rope, mask=mask)
+    else:
+        attn_out, _ = gqa_forward(p["attn"], cfg, h, positions=positions,
+                                  window=window,
+                                  mrope_positions=mrope_positions,
+                                  cache=cache, cache_index=cache_index,
+                                  rope=rope, mask=mask)
     x = x + attn_out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
@@ -88,9 +135,40 @@ def _ssm_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     return x + out
 
 
+def _gelu_mlp_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    return {"w_in": ctx.make((D, F)), "b_in": ctx.make((F,), zero=True),
+            "w_out": ctx.make((F, D)), "b_out": ctx.make((D,), zero=True)}
+
+
+def _norm_params(ctx: InitCtx, cfg: ArchConfig, *names: str) -> dict:
+    """A layer norm's scale (ones-scale draw) and bias (zero) per name."""
+    D = cfg.d_model
+    out = {}
+    for n in names:
+        out[n] = ctx.make((D,), scale="embed")
+        out[n + "b"] = ctx.make((D,), zero=True)
+    return out
+
+
+def _encoder_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
+    return {"attn": init_gqa(ctx, cfg), "mlp": _gelu_mlp_params(ctx, cfg),
+            **_norm_params(ctx, cfg, "ln1", "ln2")}
+
+
+def _decoder_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
+    return {"attn": init_gqa(ctx, cfg), "cross": init_cross(ctx, cfg),
+            "mlp": _gelu_mlp_params(ctx, cfg),
+            **_norm_params(ctx, cfg, "ln1", "lnx", "ln2")}
+
+
+def _mlp(p: dict, h: torch.Tensor) -> torch.Tensor:
+    return gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+
+
 def init_lm(cfg: ArchConfig, generator: torch.Generator) -> dict:
     """Random weights at the reference's scales, drawn on the
-    generator's device."""
+    generator's device, in the reference's tree."""
     check_supported(cfg)
     ctx = InitCtx(generator=generator, dtype=cfg.param_dtype())
     params = {
@@ -99,12 +177,29 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = ctx.make((cfg.d_model, cfg.vocab))
-    layer = _ssm_layer_params if cfg.family == "ssm" else _dense_layer_params
-    params["layers"] = [layer(ctx, cfg) for _ in range(cfg.num_layers)]
+    if cfg.family == "ssm":
+        params["layers"] = [_ssm_layer_params(ctx, cfg)
+                            for _ in range(cfg.num_layers)]
+    elif cfg.family == "encdec":
+        params["encoder"] = [_encoder_layer_params(ctx, cfg)
+                             for _ in range(cfg.encdec.num_encoder_layers)]
+        params["layers"] = [_decoder_layer_params(ctx, cfg)
+                            for _ in range(cfg.num_layers)]
+        params["enc_final_norm_b"] = ctx.make((cfg.d_model,), zero=True)
+        params["final_norm_b"] = ctx.make((cfg.d_model,), zero=True)
+    else:
+        first = _first_dense(cfg)
+        if first:
+            params["layer0"] = _dense_layer_params(
+                ctx, dataclasses.replace(cfg, moe=None))
+        params["layers"] = [_dense_layer_params(ctx, cfg)
+                            for _ in range(cfg.num_layers - first)]
     return params
 
 
-def _embed(params: dict, batch: dict) -> torch.Tensor:
+def _embed(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    if "embeds" in batch:
+        return batch["embeds"].to(cfg.param_dtype())
     return params["embed"][batch["tokens"]]
 
 
@@ -112,6 +207,43 @@ def _unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["lm_head"]
+
+
+def run_encoder(params: dict, cfg: ArchConfig,
+                enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over frame embeddings (B, Se, D): non-causal
+    self-attention and the GELU MLP, pre-LN.  Its final norm borrows the
+    decoder's ``final_norm`` scale with its own bias
+    ``enc_final_norm_b``, as the reference's does."""
+    x = enc_embeds.to(cfg.param_dtype())
+    positions = torch.arange(x.shape[1], device=x.device)
+    rope = rotary_tables(cfg, positions, None, cfg.hd)
+    for lp in params["encoder"]:
+        h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
+        out, _ = gqa_forward(lp["attn"], cfg, h, positions=positions,
+                             causal=False, rope=rope)
+        x = x + out
+        h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
+        x = x + _mlp(lp["mlp"], h)
+    return layer_norm(x, params["final_norm"], params["enc_final_norm_b"],
+                      cfg.norm_eps)
+
+
+def _decoder_layer(lp: dict, cfg: ArchConfig, x: torch.Tensor, memory, *,
+                   positions, rope, mask, cache, cache_index) -> torch.Tensor:
+    h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
+    out, _ = gqa_forward(lp["attn"], cfg, h, positions=positions,
+                         cache=cache, cache_index=cache_index, rope=rope,
+                         mask=mask)
+    x = x + out
+    h = layer_norm(x, lp["lnx"], lp["lnxb"], cfg.norm_eps)
+    x = x + cross_forward(lp["cross"], cfg, h, memory)
+    h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
+    return x + _mlp(lp["mlp"], h)
+
+
+def _layer_caches(caches: dict, i: int) -> dict:
+    return {k: c[i] for k, c in caches.items()}
 
 
 def lm_forward(
@@ -123,43 +255,94 @@ def lm_forward(
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Returns (logits (B, S, V), caches | None); the caches are updated
     in place.  last_only: unembed only the final position."""
-    x = _embed(params, batch)
+    x = _embed(params, cfg, batch)
     S = x.shape[1]
     start = 0 if cache_index is None else cache_index
     positions = start + torch.arange(S, device=x.device)
-    window = window_override or 0
+    # MLA and the encoder-decoder's self-attention take no window, as in
+    # the reference
+    window = 0 if cfg.mla or cfg.encdec else (window_override or 0)
     rope = mask = None
     if cfg.family != "ssm":     # the same for every layer: made once
-        rope = rope_tables(positions, cfg.hd, cfg.rope_theta)
+        rope = rotary_tables(cfg, positions, batch.get("mrope_positions"),
+                             cfg.mla.qk_rope_dim if cfg.mla else cfg.hd)
         if caches is not None:
-            mask = cache_mask(start, S, caches["k"].shape[2], window,
+            mask = cache_mask(start, S, _cache_len(cfg, caches), window,
                               x.device)
-    for i, lp in enumerate(params["layers"]):
-        lc = None if caches is None else {k: c[i] for k, c in caches.items()}
-        if cfg.family == "ssm":                  # cache_index plays no part
-            x = _ssm_layer(lp, cfg, x, cache=lc)
-        else:
-            x = _dense_layer(lp, cfg, x, positions=positions, rope=rope,
-                             mask=mask, cache=lc, cache_index=cache_index,
-                             window=window)
+    if cfg.family == "ssm":                      # cache_index plays no part
+        for i, lp in enumerate(params["layers"]):
+            x = _ssm_layer(lp, cfg, x, cache=None if caches is None
+                           else _layer_caches(caches, i))
+    elif cfg.family == "encdec":
+        memory = batch.get("enc_memory")
+        if memory is None:
+            memory = run_encoder(params, cfg, batch["enc_embeds"])
+        for i, lp in enumerate(params["layers"]):
+            x = _decoder_layer(lp, cfg, x, memory, positions=positions,
+                               rope=rope, mask=mask,
+                               cache=None if caches is None
+                               else _layer_caches(caches, i),
+                               cache_index=cache_index)
+    else:
+        kw = dict(positions=positions, rope=rope,
+                  mrope_positions=batch.get("mrope_positions"), mask=mask,
+                  cache_index=cache_index, window=window)
+        stack = caches
+        if _first_dense(cfg):
+            x = _dense_layer(params["layer0"],
+                             dataclasses.replace(cfg, moe=None), x,
+                             cache=None if caches is None
+                             else caches["layer0"], **kw)
+            stack = None if caches is None else caches["layers"]
+        for i, lp in enumerate(params["layers"]):
+            x = _dense_layer(lp, cfg, x, cache=None if stack is None
+                             else _layer_caches(stack, i), **kw)
     if last_only:
         x = x[:, -1:, :]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.family == "encdec":
+        x = layer_norm(x, params["final_norm"], params["final_norm_b"],
+                       cfg.norm_eps)
+    else:
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x), caches
 
 
-def cache_specs(cfg: ArchConfig, batch: int,
-                max_len: int) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """{name: (shape, dtype)} of the decode cache, the reference's
-    stacked layout (an SSM's does not grow with ``max_len``)."""
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """The decode cache's tree of (shape, dtype) leaves, in the
+    reference's stacked layout (an SSM's does not grow with
+    ``max_len``).  The encoder-decoder caches its decoder's
+    self-attention only: cross-attention's K and V are projected from
+    the memory on every step, as in the reference."""
+    check_supported(cfg)
+    dt = cfg.param_dtype()
     if cfg.family == "ssm":
-        return {k: ((cfg.num_layers, *shape), dt)
-                for k, (shape, dt) in mamba2_cache_spec(cfg, batch).items()}
+        return {k: ((cfg.num_layers, *shape), d)
+                for k, (shape, d) in mamba2_cache_spec(cfg, batch).items()}
+    if cfg.mla:
+        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
+        first = _first_dense(cfg)
+        layers = {"latent": ((cfg.num_layers - first, batch, max_len, width),
+                             dt)}
+        if first:
+            return {"layer0": {"latent": ((batch, max_len, width), dt)},
+                    "layers": layers}
+        return layers
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
-    return {"k": (shape, cfg.param_dtype()), "v": (shape, cfg.param_dtype())}
+    return {"k": (shape, dt), "v": (shape, dt)}
+
+
+def _cache_len(cfg: ArchConfig, caches: dict) -> int:
+    """The slots of an attention cache (``max_len``), read from the
+    config's own layout: axis 2 of every stacked leaf."""
+    stack = caches["layers"] if cfg.mla and _first_dense(cfg) else caches
+    return next(iter(stack.values())).shape[2]
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               device: torch.device) -> dict[str, torch.Tensor]:
-    return {name: torch.zeros(shape, dtype=dt, device=device)
-            for name, (shape, dt) in cache_specs(cfg, batch, max_len).items()}
+               device: torch.device) -> dict:
+    def zeros(spec):
+        if isinstance(spec, dict):
+            return {k: zeros(v) for k, v in spec.items()}
+        shape, dt = spec
+        return torch.zeros(shape, dtype=dt, device=device)
+    return zeros(cache_specs(cfg, batch, max_len))

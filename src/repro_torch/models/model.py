@@ -11,7 +11,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import generator as make_generator
 from ..device import resolve_device
-from .lm import check_supported, init_cache, init_lm, lm_forward
+from .lm import check_supported, init_cache, init_lm, lm_forward, run_encoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,11 +41,22 @@ class Model:
         return logits
 
     @torch.no_grad()
+    def encode(self, params: dict, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder-decoder's encoder over frame embeddings (B, Se, D):
+        the memory that ``batch["enc_memory"]`` hands to the decoder, so
+        that prefill and each decode step skip the encoder."""
+        if self.cfg.family != "encdec":
+            raise ValueError(f"{self.cfg.name} has no encoder")
+        return run_encoder(params, self.cfg, enc_embeds)
+
+    @torch.no_grad()
     def decode_step(self, params: dict, caches: dict, batch: dict,
                     cache_index: int, *, window: Optional[int] = None
                     ) -> tuple[torch.Tensor, dict]:
-        """One decode step.  batch["tokens"]: (B, 1).  Returns (logits
-        (B, 1, V), caches), the caches written in place."""
+        """One decode step.  batch["tokens"]: (B, 1), and every other
+        batch key (``enc_memory``, ``mrope_positions``) passed through.
+        Returns (logits (B, 1, V), caches), the caches written in
+        place."""
         win = window
         if win is None and self.cfg.sliding_window:
             win = self.cfg.sliding_window

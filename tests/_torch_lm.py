@@ -29,41 +29,89 @@ BIAS_STD = 0.3
 
 
 def numpy_params(cfg, seed=0) -> dict:
-    """The JAX package's parameter pytree for a dense or uniform-MoE
-    config (layer leaves stacked on L), drawn with numpy: the embedding,
-    the final norm, the layers, then an untied lm_head."""
+    """The JAX package's parameter pytree for ``cfg`` (layer leaves
+    stacked on L), drawn with numpy: the embedding, the final norm, the
+    layers, then an untied lm_head.  An MLA config's unrolled dense
+    ``layer0`` comes after the stack, and the encoder-decoder's encoder
+    stack, its decoder's cross-attention and every layer norm's and
+    GELU MLP's bias (nonzero, where the init makes them zero) after
+    that."""
     rng = np.random.default_rng(seed)
-    L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
-    Hq, Hk = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+    D, F = cfg.d_model, cfg.d_ff
 
     def n(shape, std):
         return (rng.standard_normal(shape) * std).astype(np.float32)
 
+    def attn(L, kind="self"):
+        st = () if L is None else (L,)
+        if cfg.mla and kind == "self":
+            m, H = cfg.mla, cfg.num_heads
+            qk, lora = m.qk_nope_dim + m.qk_rope_dim, m.kv_lora_rank
+            return {"wq": n((*st, D, H * qk), D ** -0.5),
+                    "w_dkv": n((*st, D, lora + m.qk_rope_dim), D ** -0.5),
+                    "kv_norm": n((*st, lora), 1.0),
+                    "w_uk": n((*st, lora, H * m.qk_nope_dim), lora ** -0.5),
+                    "w_uv": n((*st, lora, H * m.v_head_dim), lora ** -0.5),
+                    "wo": n((*st, H * m.v_head_dim, D),
+                            (H * m.v_head_dim) ** -0.5)}
+        Hq = cfg.num_heads * cfg.hd
+        Hk = Hq if kind == "cross" else cfg.num_kv_heads * cfg.hd
+        a = {"wq": n((*st, D, Hq), D ** -0.5), "wk": n((*st, D, Hk), D ** -0.5),
+             "wv": n((*st, D, Hk), D ** -0.5), "wo": n((*st, Hq, D), Hq ** -0.5)}
+        if cfg.qkv_bias and kind == "self":
+            a.update(bq=n((*st, Hq), BIAS_STD), bk=n((*st, Hk), BIAS_STD),
+                     bv=n((*st, Hk), BIAS_STD))
+        return a
+
+    def swiglu_mlp(L, width):
+        st = () if L is None else (L,)
+        return {"w_gate": n((*st, D, width), D ** -0.5),
+                "w_up": n((*st, D, width), D ** -0.5),
+                "w_down": n((*st, width, D), width ** -0.5)}
+
+    def gelu(L):
+        return {"w_in": n((L, D, F), D ** -0.5), "b_in": n((L, F), BIAS_STD),
+                "w_out": n((L, F, D), F ** -0.5), "b_out": n((L, D), BIAS_STD)}
+
+    def norms(L, *names):
+        out = {}
+        for name in names:
+            out[name] = n((L, D), 1.0)
+            out[name + "b"] = n((L, D), BIAS_STD)
+        return out
+
+    first = cfg.moe.first_dense_layers if cfg.moe else 0
+    L = cfg.num_layers - first
     tree = {"embed": n((cfg.vocab, D), 0.02), "final_norm": n((D,), 1.0)}
-    layers = {"ln1": n((L, D), 1.0), "ln2": n((L, D), 1.0)}
-    attn = {"wq": n((L, D, Hq), D ** -0.5), "wk": n((L, D, Hk), D ** -0.5),
-            "wv": n((L, D, Hk), D ** -0.5), "wo": n((L, Hq, D), Hq ** -0.5)}
-    if cfg.qkv_bias:
-        attn.update(bq=n((L, Hq), BIAS_STD), bk=n((L, Hk), BIAS_STD),
-                    bv=n((L, Hk), BIAS_STD))
+    layers = {} if cfg.encdec else {"ln1": n((L, D), 1.0),
+                                     "ln2": n((L, D), 1.0)}
     if cfg.moe:
         E, Fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        a = attn(L)
         mlp = {"router": n((L, D, E), D ** -0.5),
                "w_gate": n((L, E, D, Fe), D ** -0.5),
                "w_up": n((L, E, D, Fe), D ** -0.5),
                "w_down": n((L, E, Fe, D), Fe ** -0.5)}
         if cfg.moe.num_shared:
-            Fs = cfg.moe.num_shared * Fe
-            mlp["shared"] = {"w_gate": n((L, D, Fs), D ** -0.5),
-                             "w_up": n((L, D, Fs), D ** -0.5),
-                             "w_down": n((L, Fs, D), Fs ** -0.5)}
+            mlp["shared"] = swiglu_mlp(L, cfg.moe.num_shared * Fe)
+    elif cfg.encdec:
+        a, mlp = attn(L), gelu(L)
     else:
-        mlp = {"w_gate": n((L, D, F), D ** -0.5),
-               "w_up": n((L, D, F), D ** -0.5),
-               "w_down": n((L, F, D), F ** -0.5)}
-    tree["layers"] = {**layers, "attn": attn, "mlp": mlp}
+        a, mlp = attn(L), swiglu_mlp(L, F)
+    tree["layers"] = {**layers, "attn": a, "mlp": mlp}
     if not cfg.tie_embeddings:
         tree["lm_head"] = n((D, cfg.vocab), D ** -0.5)
+    if first:
+        tree["layer0"] = {"ln1": n((D,), 1.0), "ln2": n((D,), 1.0),
+                          "attn": attn(None), "mlp": swiglu_mlp(None, F)}
+    if cfg.encdec:
+        Le = cfg.encdec.num_encoder_layers
+        tree["layers"].update(cross=attn(L, "cross"),
+                              **norms(L, "ln1", "lnx", "ln2"))
+        tree["encoder"] = {"attn": attn(Le), "mlp": gelu(Le),
+                           **norms(Le, "ln1", "ln2")}
+        tree["enc_final_norm_b"] = n((D,), BIAS_STD)
+        tree["final_norm_b"] = n((D,), BIAS_STD)
     return tree
 
 
@@ -91,6 +139,24 @@ def tokens(S, vocab, mult=7):
 
 def to_torch(a, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def mrope_positions(S, before, side, batch=B) -> np.ndarray:
+    """(3, batch, S) M-RoPE positions as Qwen2-VL lays out one image
+    between two runs of text: ``before`` text positions, equal in all
+    three streams; a ``side`` x ``side`` block of merged patches at
+    temporal index ``before``, with its own height and width indexes
+    (``before`` + row, ``before`` + column); then text again from the
+    block's largest index + 1."""
+    n = side * side
+    pos = np.empty((3, S), np.int64)
+    pos[:, :before] = np.arange(before)
+    row, col = np.divmod(np.arange(n), side)
+    pos[0, before:before + n] = before
+    pos[1, before:before + n] = before + row
+    pos[2, before:before + n] = before + col
+    pos[:, before + n:] = before + side + np.arange(S - before - n)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, batch, S)))
 
 
 def assert_rel(got, want, dtype):

@@ -887,41 +887,140 @@ def test_flash_kernel_at_hd128_serving_groups(card, dtype, heads, kv_heads):
     assert float(fa_ref.row_errors(got, want).max()) <= fa_ref.ROW_RTOL[dtype]
 
 
+#: the biases the init makes zero: q/k/v, the GELU MLP's and the layer
+#: norms'
+BIASES = ("bq", "bk", "bv", "b_in", "b_out", "ln1b", "ln2b", "lnxb",
+          "final_norm_b", "enc_final_norm_b")
+
+
 def _with_biases(params, seed):
-    """Each layer's q/k/v biases drawn N(0, 0.5), where the init makes
-    them zero."""
+    """Every bias of ``BIASES`` drawn N(0, 0.5), where the init makes
+    them zero, walking the tree in its order."""
     gen = torch.Generator().manual_seed(seed)
-    for lp in params["layers"]:
-        for name in ("bq", "bk", "bv"):
-            lp["attn"][name] = 0.5 * torch.randn(lp["attn"][name].shape,
-                                                 generator=gen)
+
+    def walk(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            if isinstance(v, (dict, list)):
+                walk(v)
+            elif k in BIASES:
+                tree[k] = 0.5 * torch.randn(v.shape, generator=gen)
+    walk(params)
     return params
 
 
+def _mrope_positions(S, before, side, batch):
+    """(3, batch, S) M-RoPE positions of one image of ``side`` x ``side``
+    merged patches between two runs of text, as Qwen2-VL lays them
+    out."""
+    n = side * side
+    pos = torch.empty((3, S), dtype=torch.int64)
+    pos[:, :before] = torch.arange(before)
+    row, col = torch.arange(n) // side, torch.arange(n) % side
+    pos[0, before:before + n] = before
+    pos[1, before:before + n] = before + row
+    pos[2, before:before + n] = before + col
+    pos[:, before + n:] = before + side + torch.arange(S - before - n)
+    return pos[:, None].expand(3, batch, S).contiguous()
+
+
 @pytest.mark.parametrize("name", ["glm4-9b", "codeqwen1.5-7b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
+                                  "qwen2-vl-72b", "whisper-large-v3"])
 def test_biased_and_moe_models_on_card_equal_cpu(card, name):
-    """Reduced glm4-9b, codeqwen1.5-7b and qwen2-moe-a2.7b in f32 with
-    nonzero q/k/v biases: a 2,176-token prefill (the flash kernel; the
-    MoE at its capacity factor, which drops tokens there) and greedy
-    generation on the card against the CPU."""
+    """Reduced glm4-9b, codeqwen1.5-7b, qwen2-moe-a2.7b, deepseek-v2-lite-16b
+    (MLA), qwen2-vl-72b (M-RoPE, embeddings in) and whisper-large-v3
+    (the encoder-decoder) in f32 with nonzero biases: a 2,176-token
+    prefill (the flash kernel a layer, none for MLA, whose prefill takes
+    ``chunked_attention``; a MoE at its capacity factor, which drops
+    tokens there) and greedy generation on the card against the CPU."""
     import dataclasses
     cfg = dataclasses.replace(ARCHS[name].reduced(), dtype="float32")
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
     params = _with_biases(cpu.init(0), 1)
     params_gpu = _to(params, card)
+    S = 2176
     toks = torch.from_numpy(
-        (np.arange(2 * 2176).reshape(2, 2176) * 7 % cfg.vocab))
-    want = cpu.prefill(params, {"tokens": toks})
+        (np.arange(2 * S).reshape(2, S) * 7 % cfg.vocab))
+    gen = torch.Generator().manual_seed(2)
+    batch, extra = {"tokens": toks}, {}
+    if cfg.family == "vlm":
+        batch = {"embeds": torch.randn((2, S, cfg.d_model), generator=gen),
+                 "mrope_positions": _mrope_positions(S, 100, 32, 2)}
+        extra = {"mrope_positions": torch.tensor([3, 40, 70])[:, None, None]
+                 .expand(3, 2, 1).contiguous()}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn(
+            (2, cfg.encdec.encoder_seq, cfg.d_model), generator=gen)
+    want = cpu.prefill(params, batch)
     fa_ops.reset_launches()
-    got = gpu.prefill(params_gpu, {"tokens": toks.to(card)})
-    assert fa_ops.LAUNCHES == {"flash_attention": cfg.num_layers}
+    got = gpu.prefill(params_gpu, _to(batch, card))
+    assert fa_ops.LAUNCHES == {
+        "flash_attention": 0 if cfg.mla else cfg.num_layers}
     err = float((got.cpu() - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max()), err
+    extra_gpu = _to(extra, card)
+    if cfg.family == "encdec":
+        extra = {"enc_memory": cpu.encode(params, batch["enc_embeds"])}
+        extra_gpu = {"enc_memory": gpu.encode(params_gpu,
+                                              batch["enc_embeds"].to(card))}
     prompt = toks[:, :5]
-    want = ServeEngine(cpu, 2, 12).generate(params, prompt, steps=7)
-    got = ServeEngine(gpu, 2, 12).generate(params_gpu, prompt, steps=7)
+    want = ServeEngine(cpu, 2, 12).generate(params, prompt, steps=7,
+                                            extra_batch=extra)
+    got = ServeEngine(gpu, 2, 12).generate(params_gpu, prompt, steps=7,
+                                           extra_batch=extra_gpu)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_g8_hd128_after_mrope(card, dtype):
+    """qwen2-vl-72b's attention: 64 query heads over 8 (G 8) at hd 128,
+    q and k turned by M-RoPE with the config's sections (16, 24, 24)
+    over three position streams that differ, causal, S 2,176, through
+    the model's (B, S, H, hd) layout: the kernel against its plain
+    version."""
+    from repro_torch.models.common import apply_rope, mrope_tables
+    S, hd = 2176, 128
+    cfg = ARCHS["qwen2-vl-72b"]
+    gen = torch.Generator(device=card).manual_seed(8)
+    q, k, v = (torch.randn((1, S, h, hd), generator=gen, device=card)
+               for h in (64, 8, 8))
+    tables = mrope_tables(_mrope_positions(S, 300, 40, 1).to(card),
+                          cfg.mrope_sections, hd, cfg.rope_theta)
+    q, k = (apply_rope(t, None, tables=tables).to(dtype) for t in (q, k))
+    v = v.to(dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(qt, kt, vt)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {"flash_attention": 1}
+    want = fa_ref.flash_attention_ref(qt, kt, vt)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert float(fa_ref.row_errors(got, want).max()) <= fa_ref.ROW_RTOL[dtype]
+
+
+def test_attention_any_sends_mla_shapes_to_chunked_attention(card):
+    """MLA's long prefill on the card: q/k of 192 over v of 128 (the
+    full config's heads, S 2,176) takes ``chunked_attention`` by the
+    shape branch, with no flash launch, and equals the CPU's."""
+    from repro_torch.models import attention
+    S, H = 2176, 16
+    gen = torch.Generator().manual_seed(9)
+    q, k = (torch.randn((1, S, H, 192), generator=gen) for _ in range(2))
+    v = torch.randn((1, S, H, 128), generator=gen)
+    want = attention.attention_any(q, k, v, causal=True)
+    fa_ops.reset_launches()
+    got = attention.attention_any(q.to(card), k.to(card), v.to(card),
+                                  causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {"flash_attention": 0}
+    assert got.shape == (1, S, H, 128)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    with pytest.raises(ValueError):          # the op itself refuses it
+        fa_ops.flash_attention(*(t.to(card).transpose(1, 2)
+                                 for t in (q, k, v)))
 
 
 def test_moe_repeats_bit_for_bit_and_combines_as_the_cpu(card):

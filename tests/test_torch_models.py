@@ -67,21 +67,20 @@ def test_config_fields_equal_the_jax_config():
 
 
 def test_registry_holds_only_what_the_port_runs():
-    assert sorted(ARCHS) == ["codeqwen1.5-7b", "glm4-9b", "granite-3-2b",
-                             "mamba2-1.3b", "qwen2-72b", "qwen2-moe-a2.7b"]
+    assert sorted(ARCHS) == ["codeqwen1.5-7b", "deepseek-v2-lite-16b",
+                             "glm4-9b", "granite-3-2b", "mamba2-1.3b",
+                             "qwen2-72b", "qwen2-moe-a2.7b", "qwen2-vl-72b",
+                             "whisper-large-v3"]
     assert sorted(ARCHS) == sorted({get_arch(n).name for n in ARCHS})
     with pytest.raises(KeyError):
         get_arch("jamba-1.5-large-398b")        # family "hybrid", unported
-    with pytest.raises(KeyError):
-        get_arch("deepseek-v2-lite-16b")        # MLA, unported
-    for bad in (dict(family="hybrid"), dict(family="vlm"),
-                dict(mrope_sections=(4, 6, 6))):
+    for bad in (dict(family="hybrid"), dict(family="encdec"),
+                dict(mrope_sections=(4, 6, 6)), dict(mla=MLAConfig())):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(ARCHS["granite-3-2b"], **bad),
                   device="cpu")
     moe = ARCHS["qwen2-moe-a2.7b"]
-    for bad in (dict(mla=MLAConfig()),
-                dict(moe=dataclasses.replace(moe.moe, first_dense_layers=1)),
+    for bad in (dict(moe=dataclasses.replace(moe.moe, first_dense_layers=2)),
                 dict(moe=dataclasses.replace(moe.moe, every_k_layers=2)),
                 dict(moe=None)):
         with pytest.raises(NotImplementedError):
