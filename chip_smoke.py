@@ -2,16 +2,18 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile-scan
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (any
-card with ``nvcc`` for ``sm_90a``).  It builds the six kernel
+card with ``nvcc`` for ``sm_90a``).  It builds the seven kernel
 libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu``,
 ``src/repro_torch/kernels/placement/csrc/placement.cu``,
 ``src/repro_torch/kernels/loads/csrc/loads.cu``,
 ``src/repro_torch/kernels/drain/csrc/drain.cu``,
-``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`` and
-``src/repro_torch/kernels/ssd/csrc/ssd.cu``, six ``nvcc`` processes at
-once) and then:
+``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``,
+``src/repro_torch/kernels/ssd/csrc/ssd.cu`` and
+``src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu``, seven
+``nvcc`` processes at once) and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds every kernel wrapper against its plain PyTorch version on the
@@ -34,7 +36,15 @@ once) and then:
    at mamba2-1.3b's shape (B 2, S 32,768, 64 heads, N 128, hd 64, Q 256)
    and through the whole scan at S 32,768 and a ragged S 1,000, with dt
    from Mamba-2's init so the chunk decays carry signal (two planted
-   faults must fail the limits) — and times kernel, plain version and
+   faults must fail the limits), and Mamba-1's selective scan (the
+   ``-Xptxas -v`` report free of spills) in bf16 and f32 at jamba's
+   width (B 2, d_inner 16,384, N 16) over S 2,048 and a ragged S 1,000
+   against the plain step loop, y and the final state row by row within
+   ``ref.ROW_RTOL`` (1e-5), with dt from Mamba's init so that the
+   largest step decay exceeds 0.5 (two planted faults, the state reset
+   at each staged time tile and C read a step late, must fail the
+   limit), timed at the serving shape (S 32,768) — and times kernel,
+   plain version and
    (for attention, in alternating rounds with the kernel) SDPA with CUDA
    events (``bulk_hash``, a launch of a few microseconds, as a CUDA
    graph of back-to-back launches, beside the time of one wrapper
@@ -152,8 +162,10 @@ once) and then:
    capacity factor, its MLA attention (q/k of 192, v of 128) in
    ``chunked_attention`` with no flash launch, and that function's
    time in the profiled prefill; ``generate`` for 4 x 520-token prompts
-   through the absorbed decode over the latent cache, forced to the
-   prefill's experts (26 routings a step); and the 2-layer f32 model
+   through the absorbed decode over the latent cache at
+   ``GEN_LAYERS_CUT`` (8) of the 27 layers (printed with ``reduced``),
+   forced to the prefill's experts (3 routings a step); and the 2-layer
+   f32 model
    (the dense layer and one MoE layer) at 2,304 tokens, card against
    CPU, then its absorbed decode of the last token against its
    decompressed prefill;
@@ -174,13 +186,31 @@ once) and then:
    in f32 on the card against the CPU with every layer-norm and MLP
    bias drawn nonzero; no flash launch (both attentions stay under
    2,048);
-15. drives mamba2-1.3b serving at full width and ``MAMBA2_LAYERS``
+15. drives jamba-1.5-large-398b (the hybrid) at full width over one
+   period, 8 of its 72 sublayers (Mamba-1 at 0-6, GQA at 7 with 64 heads
+   over 8 at hd 128, a SwiGLU after even and a MoE of 16 experts, top 2,
+   after odd sublayers), its four MoE sublayers sharing one 16-expert
+   stack (both cuts printed), bf16 on seeded weights with Mamba's dt
+   init: ``Model.prefill`` with ``last_only`` on 2 x 32,768 tokens (7
+   selective-scan launches and one flash launch at hd 128, G 8; profiled
+   by kernel group, with the MoE's host seconds); ``generate`` for 4 x
+   256-token prompts and 16 greedy tokens, drop-free and forced to the
+   prefill's experts, the decode logits (the one-step recurrence, the
+   4,096-token window) held against the prefill's (the kernel) under
+   0.2, and that gap split: the prompts' prefill again with its scan in
+   the one-step recurrence, and their decode again with the prefill's
+   conv rounding, each block's difference at the last prompt position
+   printed; and the period in f32 at 256 positions, like sublayers
+   sharing weights, on the card against the CPU: each block (a
+   sublayer's mixer or FFN) fed the CPU's input within 1e-5 of its
+   largest output, the logits within 3e-5 of the largest logit;
+16. drives mamba2-1.3b serving at full width and ``MAMBA2_LAYERS``
    (24) of its 48 layers, printed with ``reduced`` (bf16, Mamba-2's
    dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (an SSD
    launch a layer), ``generate`` for 4 x 520-token prompts and
    16 greedy tokens with the decode logits checked against the
    prefill's, and a 2-layer f32 prefill on the card against the CPU;
-16. prints the ``kernels`` record, each phase's seconds and, last, the
+17. prints the ``kernels`` record, each phase's seconds and, last, the
    one-line result.
 
 Each serving phase prints its seconds by step, and its decode rate
@@ -200,12 +230,19 @@ launches on the murmur row and the 7-field ones under its ``f7``.  The
 flash kernel's are counted by the head dim of the config that launched
 them: the hd-64 row counts granite's prefills (whisper-large-v3, at hd
 64, launches none), the hd-128 row those of glm4-9b, qwen2-moe-a2.7b,
-qwen2-72b and qwen2-vl-72b (deepseek-v2-lite-16b, at hd 128, launches
-none: its prefill takes ``chunked_attention``).
+qwen2-72b, qwen2-vl-72b and jamba-1.5-large-398b (deepseek-v2-lite-16b,
+at hd 128, launches none: its prefill takes ``chunked_attention``).  The
+selective scan's launches are jamba's prefill's.
 
 Every check raises, so any failure exits non-zero before the result
 line.  Without a CUDA card, or without the repository around it, the
 script exits non-zero and prints no result.
+
+``--profile-scan`` runs none of the above but the builds and one
+full-width Mamba-1 sublayer's prefill on 2 x 32,768 tokens, its scan
+once in the plain loop and once in the kernel, each under the profiler
+(``profile_scan``): the evidence that the scan's time loop wants a
+kernel.
 """
 
 from __future__ import annotations
@@ -230,8 +267,8 @@ F64_FLOPS_PER_S = 34e12        # float64 peak outside the tensor cores (data she
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 FMA peak outside the tensor cores
 # exponentials of the special-function units: 16 per SM per clock, 132
-# SMs at 1.83 GHz
-EXP_PER_S = 3.9e12
+# SMs at the 1.98 GHz boost clock of the other peaks
+EXP_PER_S = 16 * 132 * 1.98e9
 #: integer operations of the murmur chain: per field fold, and fmix
 FOLD_OPS, FMIX_OPS = 9, 8
 
@@ -463,10 +500,10 @@ BIASES = ("bq", "bk", "bv", "b_in", "b_out", "ln1b", "ln2b", "lnxb",
 # next
 GRANITE_LAYERS = 8
 MAMBA2_LAYERS = 24
-# glm4-9b's and qwen2-moe-a2.7b's generate and decode checks, cut from
-# 40 and 24 layers (their 2 x 32,768-token prefills stay at full depth)
-# so that the script keeps inside 600 s beside deepseek-v2-lite-16b,
-# qwen2-vl-72b and whisper-large-v3
+# glm4-9b's, qwen2-moe-a2.7b's and deepseek-v2-lite-16b's generate and
+# decode checks, cut from 40, 24 and 27 layers (their 2 x 32,768-token
+# prefills stay at full depth) so that the script keeps inside 600 s
+# beside qwen2-vl-72b, whisper-large-v3 and jamba-1.5-large-398b
 GEN_LAYERS_CUT = 8
 # qwen2-vl-72b: one 64 x 64 block of merged patches after 1,024 text
 # positions of the 32,768 (text positions before, side); its f32
@@ -482,6 +519,27 @@ WHISPER_PROMPT = 64
 # phase_serve's depth for a config whose full depth exceeds the card's
 # memory: the most layers that fit
 FIT = "fit"
+# jamba-1.5-large-398b: one period (8 of its 72 sublayers) at full width,
+# its four MoE sublayers sharing one stack of 16 experts (19.3 GB in
+# bf16), so that the period's 32.5 GB of weights fit beside the prefill;
+# generate's prompts; the f32 card-against-CPU check's positions, with
+# like sublayers sharing weights: each block (a sublayer's mixer or FFN)
+# on the same input held to tests/_torch_lm.py's f32 limit, and the
+# logits, after 16 blocks of sums at widths of 8,192 to 24,576 taken in
+# other orders by the two BLAS libraries, to JAMBA_LOGIT_RTOL: 2.3 times
+# the 1.28e-5 an H100 gave with these seeds
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_PERIODS = 1
+JAMBA_PROMPT = 256
+JAMBA_F32_LEN = 256
+JAMBA_F32_RTOL = 1e-5
+JAMBA_LOGIT_RTOL = 3e-5
+# the selective scan's checks against its plain version (about 12
+# launches a step) at jamba's width, a whole and a ragged number of time
+# tiles, with dt from Mamba's init (DT_RANGE): the largest per-step decay
+# exp(dt A) must exceed SCAN_DECAY_MIN, so that a wrong carry shows
+SCAN_CHECK_S = (2_048, RAGGED_S)
+SCAN_DECAY_MIN = 0.5
 
 
 class CheckFailed(RuntimeError):
@@ -567,9 +625,10 @@ def phase_build():
     from repro_torch.kernels.flowhash import build as fh_build
     from repro_torch.kernels.loads import build as loads_build
     from repro_torch.kernels.placement import build as pl_build
+    from repro_torch.kernels.selective_scan import build as ss_build
     from repro_torch.kernels.ssd import build as ssd_build
     builds = (fh_build, pl_build, loads_build, drain_build, fa_build,
-              ssd_build)
+              ssd_build, ss_build)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         libs = list(pool.map(lambda b: b.build(), builds))
@@ -2281,13 +2340,17 @@ def device_profile(fn, top: int = 6, groups: dict | None = None) -> dict:
     return out
 
 
-def _to(tree, device):
-    """A nested dict / list of tensors moved to ``device``."""
+def _to(tree, device, moved=None):
+    """A nested dict / list of tensors moved to ``device``; a tensor that
+    several leaves share is moved once and stays shared."""
+    moved = {} if moved is None else moved
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: _to(v, device, moved) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
+        return [_to(v, device, moved) for v in tree]
+    if id(tree) not in moved:
+        moved[id(tree)] = tree.to(device)
+    return moved[id(tree)]
 
 
 def all_finite(torch, t) -> bool:
@@ -2370,6 +2433,82 @@ class Laps:
         now = time.perf_counter()
         self.seconds[name] = now - self.last
         self.last = now
+
+
+class ForcedRouting:
+    """A MoE's generate held against its prefill.  The prompts' prefill
+    records each MoE layer's experts (``recording``); the generate then
+    routes each prompt position, MoE layer by MoE layer, to those
+    experts with decode's own router weights for them (``forcing``),
+    keeping decode's own top k and its k+1 largest router probabilities
+    there; generated tokens route freely.  In bf16 decode and prefill
+    route a token apart where two experts' router logits lie within the
+    rounding, and the flips cascade through the layers."""
+
+    def __init__(self, n_moe: int, prompt_len: int, batch: int, top_k: int):
+        import torch
+        self.n_moe, self.prompt_len, self.k = n_moe, prompt_len, top_k
+        self.prefilled, self.calls = [], 0        # (B, S0, k) ids a layer
+        self.own = torch.empty((prompt_len, n_moe, batch, top_k),
+                               dtype=torch.int64, device="cuda")
+        self.own_top = torch.empty((prompt_len, n_moe, batch, top_k + 1),
+                                   device="cuda")
+
+    def recording(self, real):
+        def route(probs, top_k):
+            w, idx = real(probs, top_k)
+            self.prefilled.append(idx)
+            return w, idx
+        return route
+
+    def forcing(self, real):
+        import torch
+
+        def route(probs, top_k):
+            step, layer = divmod(self.calls, self.n_moe)
+            self.calls += 1
+            if step >= self.prompt_len:           # generated tokens
+                return real(probs, top_k)
+            vals, order = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+            self.own[step, layer] = order[:, 0, :top_k]
+            self.own_top[step, layer] = vals[:, 0, :top_k + 1]
+            want = self.prefilled[layer][:, step:step + 1]          # (B, 1, k)
+            w = probs.gather(-1, want)
+            return w / torch.clamp(w.sum(dim=-1, keepdim=True),
+                                   min=1e-9), want
+        return route
+
+    def checks(self, steps: int) -> list:
+        return [(self.calls == steps * self.n_moe,
+                 f"{self.calls} routings in {steps} decode steps of "
+                 f"{self.n_moe} MoE layers"),
+                (len(self.prefilled) == self.n_moe,
+                 f"{len(self.prefilled)} routings in a prefill of "
+                 f"{self.n_moe} MoE layers")]
+
+    def stats(self) -> dict:
+        """Where decode's own top k differ from the prefill's, and its gap
+        between its k-th and (k+1)-th router logits (log-probabilities
+        differ as the logits do)."""
+        import torch
+        k = self.k
+        pre = torch.stack(self.prefilled, dim=1).permute(2, 1, 0, 3)  # S0,L,B,k
+        flips = (self.own.sort(-1).values != pre.sort(-1).values).any(-1)
+        gaps = self.own_top[..., k - 1].log() - self.own_top[..., k].log()
+        at = gaps[flips]
+        return dict(
+            routing="each prompt position's experts taken from the "
+                    "prompts' prefill, layer by layer; generated tokens "
+                    "route freely",
+            routing_flips_by_layer=flips.sum(dim=(0, 2)).tolist(),
+            positions=flips.shape[0] * flips.shape[2],
+            layer0_flips=int(flips[:, 0].sum()),
+            layer0_gap_at_flips_max=float(gaps[:, 0][flips[:, 0]].max())
+            if bool(flips[:, 0].any()) else None,
+            gap_at_flips_max=float(at.max()) if at.numel() else None,
+            gap_at_flips_median=float(at.median()) if at.numel() else None,
+            gap_median=float(gaps.median()))
 
 
 def phase_serve(np, torch, arch, layers=None, prefill_only=False,
@@ -2543,17 +2682,11 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False,
     prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, S0), generator=gen,
                             device="cuda")
     eng = ServeEngine(model, GEN_BATCH, S0 + GEN_STEPS)
-    prefilled = []                  # a MoE's (B, S0, k) expert ids a layer
-
-    def recording(real):
-        def route(probs, top_k):
-            w, idx = real(probs, top_k)
-            prefilled.append(idx)
-            return w, idx
-        return route
+    routing = (ForcedRouting(n_moe, S0, GEN_BATCH, cfg.moe.top_k)
+               if cfg.moe else None)
 
     ops.reset_launches()
-    with (patched(moe, "_route", recording) if cfg.moe
+    with (patched(moe, "_route", routing.recording) if cfg.moe
           else contextlib.nullcontext()):
         last, _, last_peak = timed(lambda: eng.prefill_logits(
             p_gen, {"tokens": prompts})[:, -1].float())
@@ -2561,33 +2694,7 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False,
     laps.lap("prompt_prefill")
 
     steps = S0 + GEN_STEPS - 1
-    n = [0]                         # _route calls of the generate
-    if cfg.moe:
-        # per prompt position, MoE layer and row: the experts decode would
-        # have chosen (``_route``'s stable descending sort) and its k+1
-        # largest router probabilities, kept for after the run
-        k = cfg.moe.top_k
-        own = torch.empty((S0, n_moe, GEN_BATCH, k), dtype=torch.int64,
-                          device="cuda")
-        own_top = torch.empty((S0, n_moe, GEN_BATCH, k + 1), device="cuda")
-
-    def forcing(real):
-        def route(probs, top_k):
-            step, layer = divmod(n[0], n_moe)
-            n[0] += 1
-            if step >= S0:                    # generated tokens route freely
-                return real(probs, top_k)
-            vals, order = torch.sort(probs, dim=-1, descending=True,
-                                     stable=True)
-            own[step, layer] = order[:, 0, :top_k]
-            own_top[step, layer] = vals[:, 0, :top_k + 1]
-            want = prefilled[layer][:, step:step + 1]          # (B, 1, k)
-            w = probs.gather(-1, want)
-            return w / torch.clamp(w.sum(dim=-1, keepdim=True),
-                                   min=1e-9), want
-        return route
-
-    with (patched(moe, "_route", forcing) if cfg.moe
+    with (patched(moe, "_route", routing.forcing) if cfg.moe
           else contextlib.nullcontext()):
         (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
             p_gen, prompts, GEN_STEPS, return_logits=True))
@@ -2639,34 +2746,10 @@ def phase_serve(np, torch, arch, layers=None, prefill_only=False,
         (bool((out[:, S0] == last.argmax(-1))[clear].all()),
          "first generated token != prefill argmax where the gap is clear")]
     if cfg.moe:
-        checks += [(n[0] == steps * n_moe,
-                    f"{n[0]} routings in {steps} decode steps of {n_moe} "
-                    f"MoE layers"),
-                   (len(prefilled) == n_moe,
-                    f"{len(prefilled)} routings in a prefill of {n_moe} MoE "
-                    f"layers")]
-        # where decode's own top k differ from the prefill's, and its
-        # gap between its k-th and (k+1)-th router logits (log-
-        # probabilities differ as the logits do)
-        pre = torch.stack(prefilled, dim=1).permute(2, 1, 0, 3)  # S0,L,B,k
-        flips = (own.sort(-1).values != pre.sort(-1).values).any(-1)
-        gaps = own_top[..., k - 1].log() - own_top[..., k].log()
-        at = gaps[flips]
-        record["generate"].update(
-            capacity_factor=cfg_gen.moe.capacity_factor,
-            routing="each prompt position's experts taken from the "
-                    "prompts' prefill, layer by layer; generated tokens "
-                    "route freely",
-            routing_flips_by_layer=flips.sum(dim=(0, 2)).tolist(),
-            positions=GEN_BATCH * S0,
-            layer0_flips=int(flips[:, 0].sum()),
-            layer0_gap_at_flips_max=float(gaps[:, 0][flips[:, 0]].max())
-            if bool(flips[:, 0].any()) else None,
-            gap_at_flips_max=float(at.max()) if at.numel() else None,
-            gap_at_flips_median=float(at.median()) if at.numel() else None,
-            gap_median=float(gaps.median()))
-        del own, own_top, pre, flips, gaps, at
-    del params, p_gen, chosen_from, last, dec, model, eng, prefilled
+        checks += routing.checks(steps)
+        record["generate"].update(capacity_factor=cfg_gen.moe.capacity_factor,
+                                  **routing.stats())
+    del params, p_gen, chosen_from, last, dec, model, eng, routing
     laps.lap("generate_checks")
 
     # 3. the card against the CPU: full width, 2 layers (an MLA config's
@@ -3017,17 +3100,20 @@ def phase_serve_whisper(np, torch):
     return finish_serve(record, laps, checks, launches)
 
 
-def mamba2_dt_bias(torch, params, seed):
-    """Mamba-2's own dt init (arXiv:2405.21060, state-spaces/mamba's
-    dt_min/dt_max): each layer's dt_bias is softplus^-1 of a log-uniform
-    draw in DT_RANGE, in place of the reference init's zeros.  A choice
-    of weights, like the seed."""
+def mamba_dt_bias(torch, mixers, seed):
+    """Mamba's own dt init (state-spaces/mamba's dt_min/dt_max; Mamba-1,
+    arXiv:2312.00752, and Mamba-2, arXiv:2405.21060): each mixer's
+    dt_bias is softplus^-1 of a log-uniform draw in DT_RANGE, in place of
+    the reference init's zeros, under which the decays vanish within a
+    few steps (Mamba-1: exp(dt A) at most 0.5, near 1.6e-5 at the 16th
+    state) and a wrong carry of the state would not show.  A choice of
+    weights, like the seed."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     lo, hi = (float(v) for v in torch.log(torch.tensor(DT_RANGE)))
-    for lp in params["layers"]:
-        bias = lp["mixer"]["dt_bias"]
+    for mixer in mixers:
+        bias = mixer["dt_bias"]
         u = torch.exp(torch.empty(bias.shape).uniform_(lo, hi, generator=gen))
-        lp["mixer"]["dt_bias"] = torch.log(torch.expm1(u)).to(bias.device)
+        mixer["dt_bias"] = torch.log(torch.expm1(u)).to(bias.device)
 
 
 def phase_serve_mamba2(np, torch, layers=None):
@@ -3046,7 +3132,8 @@ def phase_serve_mamba2(np, torch, layers=None):
                               full_cfg.num_layers)
     model = Model(cfg)
     params, init_s, _ = timed(lambda: model.init(SERVE_SEED))
-    mamba2_dt_bias(torch, params, SERVE_SEED)
+    mamba_dt_bias(torch, [lp["mixer"] for lp in params["layers"]],
+                  SERVE_SEED)
     gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
     weights = list(_leaves(params))
     checks = []
@@ -3125,7 +3212,7 @@ def phase_serve_mamba2(np, torch, layers=None):
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     m_gpu, m_cpu = Model(cfg32), Model(cfg32, device="cpu")
     p_gpu = m_gpu.init(SERVE_SEED)
-    mamba2_dt_bias(torch, p_gpu, SERVE_SEED)
+    mamba_dt_bias(torch, [lp["mixer"] for lp in p_gpu["layers"]], SERVE_SEED)
     t32 = torch.randint(0, cfg.vocab, (1, M2_GEN_PROMPT), generator=gen,
                         device="cuda")
     ops.reset_launches()
@@ -3180,6 +3267,593 @@ def phase_serve_mamba2(np, torch, layers=None):
     return launches
 
 
+def scan_inputs(torch, B, S, D, dtype, seed, N=16, R=512):
+    """Selective-scan inputs on the card: x (B, S, D) and B, C (B, S, N)
+    in ``dtype``, B and C column slices of one (B, S, R + 2N) projection
+    as Mamba-1's x_proj makes them; dt log-uniform in DT_RANGE (Mamba's
+    init); A the reference's -exp(log(1..N))."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, S, D), generator=gen, device="cuda").to(dtype)
+    dbc = torch.randn((B, S, R + 2 * N), generator=gen,
+                      device="cuda").to(dtype)
+    _, Bm, Cm = dbc.split([R, N, N], dim=-1)
+    lo, hi = (float(v) for v in torch.log(torch.tensor(DT_RANGE)))
+    dt = torch.exp(torch.empty((B, S, D), device="cuda").uniform_(
+        lo, hi, generator=gen))
+    A = -torch.exp(torch.log(torch.arange(
+        1, N + 1, dtype=torch.float32, device="cuda"))).expand(D, N)
+    return x, dt, A.contiguous(), Bm, Cm
+
+
+def phase_selective_scan(np, torch):
+    """The selective-scan kernel against its plain version on the card at
+    jamba's width, in bf16 and f32; returns its record at the serving
+    path's shape (launch count filled in later)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.selective_scan import build, ops, ref
+    from repro_torch.models.ssm import mamba1_dims
+
+    cfg = get_arch(JAMBA)
+    D, N = mamba1_dims(cfg)[0], cfg.ssm.d_state
+    # registers and spills of each instance (bf16 and f32 inputs, N 16)
+    log = build.build().with_suffix(".log").read_text()
+    report = {dt: ptxas_report(log, f"selective_scan_kernelI{mangled}")[0]
+              for dt, mangled in (("bfloat16", "13__nv_bfloat16"),
+                                  ("float32", "f"))}
+    warnings = ptxas_report(log, "selective_scan")[1]
+    emit({"phase": "ptxas", "kernel": "selective_scan", "instances": report,
+          "warnings": warnings})
+    check(all(str(N) in r for r in report.values()),
+          f"selective_scan instances {report} lack N {N}")
+    for dt, insts in report.items():
+        for inst, r in insts.items():
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                  f"selective_scan_kernel<{dt}, {inst}> spills: {r}")
+    check(not [w for w in warnings if "selective_scan" in w],
+          f"ptxas warns on the selective scan: {warnings}")
+
+    failures, checks = [], []
+    B, tile = PREFILL_BATCH, ops.TILE_STEPS
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        for S in SCAN_CHECK_S:
+            x, dt, A, Bm, Cm = args = scan_inputs(torch, B, S, D, tdt, S)
+            y, h = ops.selective_scan(*args)
+            torch.cuda.synchronize()
+            y_p, h_p = ref.selective_scan_ref(*args)
+            rec = {"dtype": dtype, "B": B, "S": S, "D": D, "N": N,
+                   "max_step_decay": float(torch.exp(dt.amin() * A.amax())),
+                   "max_abs_err": float((y - y_p).abs().max()),
+                   "max_row_err": {"y": float(ref.row_errors(y, y_p).max()),
+                                   "state": float(ref.row_errors(h, h_p)
+                                                  .max())}}
+            for k, v in rec["max_row_err"].items():
+                if not v <= ref.ROW_RTOL:
+                    failures.append(f"selective_scan {k} ({dtype}, S {S}): "
+                                    f"a row differs by {v} > {ref.ROW_RTOL}")
+            if not rec["max_step_decay"] > SCAN_DECAY_MIN:
+                failures.append(f"largest step decay {rec['max_step_decay']}"
+                                f" <= {SCAN_DECAY_MIN}")
+            if dtype == "bfloat16" and S == SCAN_CHECK_S[0]:
+                # planted faults, each must break the row limit: the state
+                # set to 0 at each staged time tile, and y taken with C of
+                # the step before
+                y_reset = torch.cat([ref.selective_scan_ref(
+                    x[:, t:t + tile], dt[:, t:t + tile], A,
+                    Bm[:, t:t + tile], Cm[:, t:t + tile])[0]
+                    for t in range(0, S, tile)], dim=1)
+                c_late = torch.cat([Cm[:, :1], Cm[:, :-1]], dim=1)
+                y_late = ref.selective_scan_ref(x, dt, A, Bm, c_late)[0]
+                rec["planted_faults_max_row_err"] = faults = {
+                    "state_reset_each_tile": float(ref.row_errors(
+                        y_reset, y_p).max()),
+                    "c_one_step_late": float(ref.row_errors(
+                        y_late, y_p).max())}
+                for k, v in faults.items():
+                    if not v > ref.ROW_RTOL:
+                        failures.append(f"the row check passes the planted "
+                                        f"fault {k} ({v})")
+                rec["plain_ms"] = cuda_ms(
+                    lambda a=args: ref.selective_scan_ref(*a), 1)
+                checked = rec
+                del y_reset, y_late, c_late
+            checks.append(rec)
+            del x, dt, A, Bm, Cm, args, y, h, y_p, h_p
+
+    # the serving shape: one Mamba-1 sublayer's prefill of 2 x 32,768
+    S = PREFILL_LEN
+    args = scan_inputs(torch, B, S, D, torch.bfloat16, 7)
+    ms = cuda_ms(lambda: ops.selective_scan(*args), 5)
+    del args
+    moved = B * S * D * (2 + 4 + 4) + 2 * B * S * N * 2 + D * N * 4 \
+        + B * D * N * 4          # x bf16, dt and y f32, B and C, A, the state
+    b_ms, b_by = bound(moved, B * S * D * N, EXP_PER_S)
+    emit({"phase": "kernels", "kernel": "selective_scan",
+          "row_tol": ref.ROW_RTOL, "dt_range": DT_RANGE, "tile": tile,
+          "block_channels": ops.BLOCK_CHANNELS, "checks": checks})
+    check(not failures, "; ".join(failures))
+    inst = report["bfloat16"][str(N)]
+    return {"name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/selective_scan/csrc/"
+                      "selective_scan.cu",
+            "replaces": "src/repro/models/ssm.py:269",
+            "shape": [B, S, D, N], "dtype": "bfloat16",
+            "max_abs_err": checked["max_abs_err"],
+            "max_row_err": checked["max_row_err"]["y"], "ms": ms,
+            "plain_ms": checked["plain_ms"],
+            "plain_ms_at": f"S {checked['S']} (the plain loop is host-bound, "
+                           f"about 12 launches a step)",
+            "bound_ms": b_ms, "bound_by": b_by, "exp_per_s": EXP_PER_S,
+            "library_ms": None, "registers": inst["registers"],
+            "spill_bytes": inst["spill_stores"] + inst["spill_loads"]}
+
+
+def drawn_once(keep=()):
+    """A ``patched`` maker for an init function (``init_moe``,
+    ``init_mamba1``, ``_swiglu_params``): its first call draws the
+    parameters and every later call returns the same tensors, but for
+    the leaves named in ``keep``, drawn anew at the first call's shapes
+    and fan-in."""
+    def make(real):
+        first = {}
+
+        def init(ctx, cfg):
+            if not first:
+                first.update(real(ctx, cfg))
+                return dict(first)
+            return {**first, **{k: ctx.make(tuple(first[k].shape))
+                                for k in keep}}
+        return init
+    return make
+
+
+#: the functions of ``models/lm.py`` that compute a hybrid sublayer's
+#: mixer or FFN from its normalised input
+BLOCKS = ("mamba1_forward", "gqa_forward", "moe_forward", "swiglu")
+
+
+def first_output(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def watching_blocks(lm, see):
+    """A context in which each call of ``lm``'s ``BLOCKS`` also calls
+    ``see(name, the real function, its args, its kwargs, its output
+    tensor)``."""
+    stack = contextlib.ExitStack()
+    for name in BLOCKS:
+        def make(real, _name=name):
+            def block(*args, **kw):
+                out = real(*args, **kw)
+                see(_name, real, args, kw, first_output(out))
+                return out
+            return block
+        stack.enter_context(patched(lm, name, make))
+    return stack
+
+
+def recording_blocks(lm, calls):
+    """A context in which each of ``lm``'s ``BLOCKS`` appends (name, the
+    real function, its args and kwargs, its output tensor) to
+    ``calls``."""
+    return watching_blocks(lm, lambda *call: calls.append(call))
+
+
+def last_of_blocks(lm, kept, per_step=0, step=0):
+    """A context in which each of ``lm``'s ``BLOCKS`` appends (name, its
+    output at the last position in f32) to ``kept``; with ``per_step``
+    (the blocks a decode step calls), only the blocks of decode step
+    ``step``."""
+    calls = [0]
+
+    def see(name, real, args, kw, out):
+        if not per_step or calls[0] // per_step == step:
+            kept.append((name, out[:, -1].float()))
+        calls[0] += 1
+    return watching_blocks(lm, see)
+
+
+def block_gaps(got, want) -> list:
+    """Each block's max |difference| relative to its largest |output|."""
+    return [(name, float((g - w).abs().max()) / float(w.abs().max()))
+            for (name, g), (_, w) in zip(got, want)]
+
+
+def to_card(obj, card_of):
+    """Recorded CPU arguments on the card: a parameter as the card tensor
+    it was copied from (``card_of``, by id), any other tensor copied."""
+    if isinstance(obj, dict):
+        return {k: to_card(v, card_of) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_card(v, card_of) for v in obj)
+    if hasattr(obj, "is_cuda"):
+        return card_of[id(obj)] if id(obj) in card_of else obj.to("cuda")
+    return obj
+
+
+def unique_sizes(params) -> dict:
+    """Parameters and bytes of a tree, each tensor counted once however
+    many leaves share it."""
+    seen = {t.data_ptr(): t for t in _leaves(params)}
+    return {"params": sum(t.numel() for t in seen.values()),
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in seen.values())}
+
+
+def profile_scan(torch) -> None:
+    """One full-width Mamba-1 sublayer's prefill (jamba-1.5-large-398b's
+    mixer: d_model 8,192, d_inner 16,384, d_state 16, dt_rank 512; bf16
+    on seeded weights with Mamba's dt init) over 2 x 32,768 seeded
+    activations: ``models/ssm.py::mamba1_forward`` once with its scan in
+    ``ref.py`` (the reference's step loop in torch ops) and once with
+    the kernel, each under ``torch.profiler``
+    (device activity only).  Prints one line a run: the sublayer's host
+    and device seconds and launches, and the scan's own host seconds
+    (between synchronisations) and share of the sublayer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.selective_scan import ops, ref
+    from repro_torch.models import ssm
+    from repro_torch.models.common import InitCtx
+
+    cfg = get_arch(JAMBA)
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+    p = ssm.init_mamba1(InitCtx(generator=gen, dtype=cfg.param_dtype()), cfg)
+    mamba_dt_bias(torch, [p], SERVE_SEED)
+    xin = torch.randn((PREFILL_BATCH, PREFILL_LEN, cfg.d_model),
+                      generator=gen, device="cuda").to(cfg.param_dtype())
+    for name, scan in (("plain", ref.selective_scan_ref),
+                       ("kernel", ops.selective_scan)):
+        spent = [0.0, 0]
+
+        def timed_scan(real, _scan=scan):
+            def run(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _scan(*args)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t
+                spent[1] += 1
+                return out
+            return run
+
+        with patched(ssm, "selective_scan", timed_scan):
+            ssm.mamba1_forward(p, cfg, xin[:, :256])               # warm-up
+            spent[:] = [0.0, 0]
+            ops.reset_launches()
+            prof = device_profile(lambda: ssm.mamba1_forward(p, cfg, xin),
+                                  top=8, groups={"all": ("",)})
+        emit({"phase": "scan_profile", "scan": name,
+              "batch": PREFILL_BATCH, "seq": PREFILL_LEN,
+              "d_inner": ssm.mamba1_dims(cfg)[0],
+              "d_state": cfg.ssm.d_state,
+              "sublayer_host_s": prof["host_s"],
+              "sublayer_device_s": prof["device_s"],
+              "busy_share": prof["busy_share"], "scan_calls": spent[1],
+              "scan_host_s": spent[0], "scan_share": spent[0] / prof["host_s"],
+              "kernel_launches": ops.LAUNCHES["selective_scan"],
+              "device_launches": prof["groups"]["all"][1],
+              "top": prof["top"]})
+
+
+def split_decode_gap(torch, lm, moe, eng, params, prompts, routing, last,
+                     decoded, pre_blocks) -> dict:
+    """The bf16 decode-vs-prefill gap at the last prompt position, split.
+    The prompts' prefill again with its scan in ``ref.py`` (decode's
+    one-step update and y), forced to the experts that ``routing``
+    recorded for the first prefill (whose logits and blocks are ``last``
+    and ``pre_blocks``): against it, the scan's part (``scan_only``).
+    The prompts' decode again with the prefill's conv rounding (each
+    tap's product and sum rounded in the working type, as
+    ``_causal_conv``), forced as ``routing.forcing`` does: against the
+    first decode (``decoded``: the conv's part, ``conv_only``), against
+    the first prefill (``conv_matched_vs_prefill``) and against the
+    prefill with the step scan (``rest``: only the shapes of the GEMMs,
+    the attention and the MoE's batches differ there), the last two with
+    every block's relative difference."""
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    from repro_torch.models import ssm
+
+    recorded, flips = iter(routing.prefilled), [0]
+
+    def forced_prefill(real):
+        def route(probs, top_k):
+            want = next(recorded)
+            own = real(probs, top_k)[1]
+            flips[0] += int((own.sort(-1).values != want.sort(-1).values)
+                            .any(-1).sum())
+            w = probs.gather(-1, want)
+            return w / torch.clamp(w.sum(dim=-1, keepdim=True),
+                                   min=1e-9), want
+        return route
+
+    def conv_as_prefill(real):
+        def conv_step(state, x_t, w, b):
+            window = torch.cat([state, x_t], dim=1)             # (B, K, C)
+            y = sum(window[:, k:k + 1] * w[k] for k in range(w.shape[0]))
+            return window[:, 1:], y + b
+        return conv_step
+
+    S0 = prompts.shape[1]
+    per_step = len(pre_blocks)
+    step_blocks, conv_blocks = [], []
+    t = time.perf_counter()
+    with patched(moe, "_route", forced_prefill), \
+            patched(ssm, "selective_scan",
+                    lambda real: ss_ref.selective_scan_ref), \
+            last_of_blocks(lm, step_blocks):
+        step = eng.prefill_logits(params, {"tokens": prompts})[:, -1].float()
+    step_s = time.perf_counter() - t
+    routing.calls = 0
+    cache = eng.init_cache()
+    with patched(moe, "_route", routing.forcing), \
+            patched(ssm, "_conv_step", conv_as_prefill), \
+            last_of_blocks(lm, conv_blocks, per_step, S0 - 1):
+        for i in range(S0):
+            logits, cache = eng.model.decode_step(
+                params, cache, {"tokens": prompts[:, i:i + 1]}, i)
+    conv = logits[:, -1].float()
+    check(bool(torch.isfinite(step).all() and torch.isfinite(conv).all()),
+          "the split's logits are not finite")
+    return {"scan_only": float((step - last).abs().max()),
+            "conv_only": float((conv - decoded).abs().max()),
+            "conv_matched_vs_prefill": float((conv - last).abs().max()),
+            "rest": float((conv - step).abs().max()),
+            "blocks_scan_only": block_gaps(step_blocks, pre_blocks),
+            "blocks_rest": block_gaps(conv_blocks, step_blocks),
+            "step_scan_routing_flips": flips[0],
+            "step_scan_prefill_s": step_s}
+
+
+def mamba1_mixers(params):
+    return [sub["mixer"] for per in params["periods"] for sub in per["mamba"]]
+
+
+def phase_serve_jamba(np, torch):
+    """jamba-1.5-large-398b at full width over ``JAMBA_PERIODS`` period
+    (8 of its 72 sublayers: Mamba-1 at 0-6, GQA at 7, a SwiGLU after even
+    and a MoE of 16 experts, top 2, after odd sublayers), bf16 on seeded
+    weights with Mamba's dt init, its four MoE sublayers sharing one
+    16-expert stack (each its own router); returns the flash launches of
+    the 32,768-token prefill by head dim and the scan's launches.  The
+    record is printed before its checks run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.models import Model, lm, moe
+    from repro_torch.serve import ServeEngine
+
+    laps = Laps()
+    full_cfg = get_arch(JAMBA)
+    per = full_cfg.hybrid.period
+    cfg = dataclasses.replace(full_cfg, num_layers=per * JAMBA_PERIODS)
+    model = Model(cfg)
+    with patched(lm, "init_moe", drawn_once(("router",))):
+        params, init_s, _ = timed(lambda: model.init(SERVE_SEED))
+    mamba_dt_bias(torch, mamba1_mixers(params), SERVE_SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 1)
+    checks = []
+    record = {"phase": f"serve {JAMBA}", "arch": JAMBA,
+              "layers": f"{cfg.num_layers} of {full_cfg.num_layers}",
+              "reduced": True,
+              "cuts": {"layers": f"{cfg.num_layers} of {full_cfg.num_layers}"
+                                 f" ({JAMBA_PERIODS} period)",
+                       "moe_weights": "one 16-expert stack shared by the "
+                                      "period's 4 MoE sublayers (each its "
+                                      "own router)"},
+              "dt_bias": f"softplus^-1(log-uniform {DT_RANGE})",
+              **unique_sizes(params), "init_s": init_s}
+
+    # 1. the prefill on 2 x 32,768 tokens, last_only: the counted run
+    toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN),
+                         generator=gen, device="cuda")
+
+    def run():
+        return model.prefill(params, {"tokens": toks}, last_only=True)
+
+    model.prefill(params, {"tokens": toks[:1, :GEN_PROMPT]},
+                  last_only=True)                                 # warm-up
+    fa_ops.reset_launches()
+    ss_ops.reset_launches()
+    logits, prefill_s, prefill_peak = timed(run)
+    launches = {"flash": fa_ops.LAUNCHES["flash_attention"],
+                "scan": ss_ops.LAUNCHES["selective_scan"]}
+    checks += [
+        (tuple(logits.shape) == (PREFILL_BATCH, 1, cfg.vocab),
+         f"prefill logits {tuple(logits.shape)}"),
+        (all_finite(torch, logits), "prefill logits not finite"),
+        (launches["flash"] == JAMBA_PERIODS,
+         f"{launches['flash']} flash launches in {JAMBA_PERIODS} period(s)"),
+        (launches["scan"] == (per - 1) * JAMBA_PERIODS,
+         f"{launches['scan']} selective-scan launches in {JAMBA_PERIODS} "
+         f"period(s)")]
+    del logits
+    laps.lap("prefill")
+    # where the time goes: the prefill again under the profiler, the MoE
+    # sublayers' host seconds between synchronisations
+    moe_s = [0.0, 0]
+
+    def timing(real):
+        def moe_forward(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            moe_s[0] += time.perf_counter() - t
+            moe_s[1] += 1
+            return out
+        return moe_forward
+
+    with patched(lm, "moe_forward", timing):
+        prof = device_profile(run, top=8, groups={
+            "selective_scan": ("selective_scan",), "flash": ("flash",),
+            "bf16_gemm": ("nvjet", "gemm", "cutlass", "xmma")})
+    prof.update(moe_host_s=moe_s[0], moe_calls=moe_s[1],
+                moe_share=moe_s[0] / prof["host_s"])
+    record["prefill"] = {
+        "batch": PREFILL_BATCH, "seq": PREFILL_LEN, "last_only": True,
+        "cut": "global batch 32 -> 2 (one card)", "wall_s": prefill_s,
+        "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+        "peak_bytes": prefill_peak, "flash_launches": launches["flash"],
+        "scan_launches": launches["scan"], "profiled": prof}
+    del toks
+    laps.lap("prefill_profile")
+
+    # 2. generate, drop-free (capacity factor E), each prompt position
+    # routed to the experts the prompts' prefill chose; decode's logits at
+    # the last prompt position (the one-step recurrence, the windowed
+    # cache) against that prefill's (the kernel)
+    S0, n_moe = JAMBA_PROMPT, cfg.num_layers // 2
+    cfg_gen = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    model = Model(cfg_gen)
+    prompts = torch.randint(0, cfg.vocab, (GEN_BATCH, S0), generator=gen,
+                            device="cuda")
+    eng = ServeEngine(model, GEN_BATCH, S0 + GEN_STEPS)
+    routing = ForcedRouting(n_moe, S0, GEN_BATCH, cfg.moe.top_k)
+    per_step = 2 * cfg.num_layers           # blocks a decode step calls
+    pre_blocks, dec_blocks = [], []
+    ss_ops.reset_launches()
+    with patched(moe, "_route", routing.recording), \
+            last_of_blocks(lm, pre_blocks):
+        last = eng.prefill_logits(params, {"tokens": prompts})[:, -1].float()
+    prompt_scans = ss_ops.LAUNCHES["selective_scan"]
+    laps.lap("prompt_prefill")
+    steps = S0 + GEN_STEPS - 1
+    with patched(moe, "_route", routing.forcing), \
+            last_of_blocks(lm, dec_blocks, per_step, S0 - 1):
+        (out, chosen_from), gen_s, gen_peak = timed(lambda: eng.generate(
+            params, prompts, GEN_STEPS, return_logits=True))
+    laps.lap("generate")
+    cache = eng.init_cache()
+
+    def decode_steps(first, count):
+        for i in range(first, first + count):
+            model.decode_step(params, cache, {"tokens": prompts[:, i:i + 1]}, i)
+
+    decode_prof = device_profile(lambda: decode_steps(0, PROFILE_STEPS))
+    _, decode_s, _ = timed(lambda: decode_steps(PROFILE_STEPS,
+                                                DECODE_TIMED_STEPS))
+    del cache
+    laps.lap("decode_profile_and_rate")
+    row_err = (chosen_from[:, 0].float() - last).abs().amax(dim=-1)
+    dec_err = float(row_err.max())
+    top2 = last.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > DECODE_TOL
+    record["generate"] = {
+        "batch": GEN_BATCH, "prompt": S0, "new_tokens": GEN_STEPS,
+        "decode_steps": steps, "wall_s": gen_s,
+        "ms_per_decode_step": decode_s / DECODE_TIMED_STEPS * 1e3,
+        "timed_decode_steps": DECODE_TIMED_STEPS, "peak_bytes": gen_peak,
+        "window": cfg.sliding_window, "profiled_steps": PROFILE_STEPS,
+        "profiled": decode_prof, "decode_vs_prefill_max_abs": dec_err,
+        "decode_vs_prefill_by_row": row_err.tolist(),
+        "prefill_logit_std": float(last.std()), "tol": DECODE_TOL,
+        "clear_argmax_rows": int(clear.sum()),
+        "capacity_factor": cfg_gen.moe.capacity_factor, **routing.stats()}
+    checks += [
+        (tuple(out.shape) == (GEN_BATCH, S0 + GEN_STEPS),
+         f"generated {tuple(out.shape)}"),
+        (torch.equal(out[:, :S0], prompts), "prompt not kept"),
+        (bool(torch.isfinite(chosen_from).all()), "decode logits not finite"),
+        (prompt_scans == (per - 1) * JAMBA_PERIODS,
+         f"{prompt_scans} selective-scan launches in the prompts' prefill"),
+        (dec_err <= DECODE_TOL,
+         f"decode logits differ from prefill's by {dec_err} > {DECODE_TOL}"),
+        (bool((out[:, S0] == last.argmax(-1))[clear].all()),
+         "first generated token != prefill argmax where the gap is clear"),
+        *routing.checks(steps)]
+    laps.lap("generate_checks")
+
+    # the decode-vs-prefill gap split, at the last prompt position: the
+    # prompts' prefill again with its scan in the one-step recurrence
+    # (ref.py: decode's update and y) and forced to the first prefill's
+    # experts; the prompts' decode again with the prefill's conv rounding
+    # (each tap's product and sum rounded in the working type, as
+    # _causal_conv); with both alike only the shapes of the GEMMs, the
+    # attention and the MoE's batches differ
+    split = split_decode_gap(torch, lm, moe, eng, params, prompts, routing,
+                             last, chosen_from[:, 0].float(), pre_blocks)
+    record["decode_gap_split"] = {
+        "decode_vs_prefill": dec_err, **split,
+        "blocks_decode_vs_prefill": block_gaps(dec_blocks, pre_blocks)}
+    checks += [
+        (len(pre_blocks) == per_step
+         and [n for n, _ in dec_blocks] == [n for n, _ in pre_blocks],
+         f"blocks recorded: prefill {[n for n, _ in pre_blocks]}, decode "
+         f"{[n for n, _ in dec_blocks]}, of {per_step}"),
+        (len(split["blocks_scan_only"]) == len(split["blocks_rest"])
+         == per_step, "the split's runs recorded "
+         f"{len(split['blocks_scan_only'])} and {len(split['blocks_rest'])} "
+         f"blocks, of {per_step}")]
+    del params, chosen_from, last, out, model, eng, routing
+    laps.lap("decode_gap_split")
+
+    # 3. the card against the CPU: the period at full width in f32, TF32
+    # off, like sublayers sharing weights (the 7 Mamba-1 mixers, the 4
+    # SwiGLUs, the 4 MoEs' experts), so that card and host each hold one
+    # of each.  Every block (a sublayer's mixer or FFN) is recorded on
+    # both sides, and each card block is run again on the CPU's input:
+    # the error a block makes by itself, apart from what reached it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m_gpu, m_cpu = Model(cfg32), Model(cfg32, device="cpu")
+    with patched(lm, "init_moe", drawn_once(("router",))), \
+            patched(lm, "init_mamba1", drawn_once()), \
+            patched(lm, "_swiglu_params", drawn_once()):
+        p_gpu = m_gpu.init(SERVE_SEED)
+    mamba_dt_bias(torch, mamba1_mixers(p_gpu), SERVE_SEED)
+    t32 = torch.randint(0, cfg.vocab, (1, JAMBA_F32_LEN), generator=gen,
+                        device="cuda")
+    blocks = {"cuda": [], "cpu": []}
+    ss_ops.reset_launches()
+    with recording_blocks(lm, blocks["cuda"]):
+        on_card = m_gpu.prefill(p_gpu, {"tokens": t32}).cpu()
+    f32_scans = ss_ops.LAUNCHES["selective_scan"]
+    f32_bytes = unique_sizes(p_gpu)["weight_bytes"]
+    t = time.perf_counter()
+    moved = {}
+    p_cpu = _to(p_gpu, "cpu", moved)
+    with recording_blocks(lm, blocks["cpu"]):
+        on_cpu = m_cpu.prefill(p_cpu, {"tokens": t32.cpu()})
+    cpu_s = time.perf_counter() - t
+    card_of = {id(moved[id(w)]): w for w in _leaves(p_gpu)}
+    alone, reached = [], []
+    for (name, real, args, kw, want), (_, _, _, _, got) in zip(
+            blocks["cpu"], blocks["cuda"]):
+        scale = float(want.abs().max())
+        again = first_output(real(*to_card(args, card_of),
+                                  **to_card(kw, card_of))).cpu()
+        alone.append((name, float((again - want).abs().max()) / scale))
+        reached.append(float((got.cpu() - want).abs().max()) / scale)
+    del p_cpu, p_gpu, blocks, moved, card_of
+    f32_err = float((on_card - on_cpu).abs().max())
+    f32_scale = float(on_cpu.abs().max())
+    worst_alone = max(e for _, e in alone)
+    record["card_vs_cpu_f32"] = {
+        "layers": cfg32.num_layers, "batch": 1, "seq": JAMBA_F32_LEN,
+        "tf32": False, "weights": "like sublayers share one set",
+        "weight_bytes": f32_bytes, "max_abs": f32_err,
+        "max_abs_logit": f32_scale, "rtol": JAMBA_LOGIT_RTOL,
+        "block_rtol": JAMBA_F32_RTOL, "blocks_alone_rel": alone,
+        "blocks_as_reached_rel": reached, "scan_launches": f32_scans,
+        "cpu_s": cpu_s}
+    checks += [
+        (f32_scans == (per - 1) * JAMBA_PERIODS,
+         f"{f32_scans} selective-scan launches in the f32 prefill"),
+        (len(alone) == 2 * cfg32.num_layers,
+         f"{len(alone)} blocks recorded in {cfg32.num_layers} sublayers"),
+        (worst_alone <= JAMBA_F32_RTOL,
+         f"f32 blocks on the CPU's inputs: card != CPU by {worst_alone} of "
+         f"the block's largest |output|"),
+        (f32_err <= JAMBA_LOGIT_RTOL * f32_scale,
+         f"f32 logits: card != CPU by {f32_err} (max |logit| {f32_scale})")]
+    del m_gpu, m_cpu, on_card, on_cpu
+    laps.lap("card_vs_cpu_f32")
+    finish_serve(record, laps, checks, None)
+    return {cfg.hd: launches["flash"]}, launches["scan"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3207,6 +3881,11 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    if sys.argv[1:] == ["--profile-scan"]:
+        phase_build()
+        profile_scan(torch)
+        return 0
+
     t0 = time.perf_counter()
     seconds = {}
 
@@ -3220,7 +3899,9 @@ def main() -> int:
     card = timed_phase("build", phase_build)
     records = (timed_phase("kernels", phase_kernels, np, torch)
                + timed_phase("flash", phase_flash, np, torch)
-               + [timed_phase("ssd", phase_ssd, np, torch)])
+               + [timed_phase("ssd", phase_ssd, np, torch),
+                  timed_phase("selective_scan", phase_selective_scan, np,
+                              torch)])
     timed_phase("anchor", phase_anchor, np)
     launches = timed_phase("full_scale", phase_full_scale, np, torch)
     launches["murmur_hash_grid"] += timed_phase(
@@ -3249,11 +3930,15 @@ def main() -> int:
             ("serve qwen2-moe-a2.7b", phase_serve, ("qwen2-moe-a2.7b",), cut),
             ("serve qwen2-72b", phase_serve, ("qwen2-72b", FIT, True), {}),
             ("serve deepseek-v2-lite-16b", phase_serve,
-             ("deepseek-v2-lite-16b",), dict(prompt_len=M2_GEN_PROMPT)),
+             ("deepseek-v2-lite-16b",), dict(cut, prompt_len=M2_GEN_PROMPT)),
             ("serve qwen2-vl-72b", phase_serve_vlm, (), {}),
             ("serve whisper-large-v3", phase_serve_whisper, (), {})):
         for hd, n in timed_phase(name, fn, np, torch, *args, **kw).items():
             flash[hd] = flash.get(hd, 0) + n
+    jamba_flash, launches["selective_scan"] = timed_phase(
+        f"serve {JAMBA}", phase_serve_jamba, np, torch)
+    for hd, n in jamba_flash.items():
+        flash[hd] = flash.get(hd, 0) + n
     check(set(flash) == {64, 128}, f"flash launches by head dim {flash}")
     launches["flash_attention"] = flash[64]
     launches["flash_attention_hd128"] = flash[128]

@@ -11,6 +11,7 @@ from .codeqwen15_7b import CONFIG as CODEQWEN15_7B
 from .deepseek_v2_lite_16b import CONFIG as DEEPSEEK_V2_LITE_16B
 from .glm4_9b import CONFIG as GLM4_9B
 from .granite_3_2b import CONFIG as GRANITE_3_2B
+from .jamba_15_large_398b import CONFIG as JAMBA_15_LARGE_398B
 from .mamba2_13b import CONFIG as MAMBA2_13B
 from .qwen2_72b import CONFIG as QWEN2_72B
 from .qwen2_moe_a27b import CONFIG as QWEN2_MOE_A27B
@@ -20,8 +21,8 @@ from .whisper_large_v3 import CONFIG as WHISPER_LARGE_V3
 ARCHS: dict[str, ArchConfig] = {
     c.name: c
     for c in (GRANITE_3_2B, GLM4_9B, CODEQWEN15_7B, QWEN2_72B,
-              DEEPSEEK_V2_LITE_16B, QWEN2_MOE_A27B, WHISPER_LARGE_V3,
-              QWEN2_VL_72B, MAMBA2_13B)
+              DEEPSEEK_V2_LITE_16B, QWEN2_MOE_A27B, JAMBA_15_LARGE_398B,
+              WHISPER_LARGE_V3, QWEN2_VL_72B, MAMBA2_13B)
 }
 
 
@@ -48,6 +49,6 @@ __all__ = [
     "HybridConfig", "EncDecConfig", "SHAPES", "TRAIN_4K", "PREFILL_32K",
     "DECODE_32K", "LONG_500K", "applicable_shapes", "ARCHS", "get_arch",
     "get_shape", "all_cells", "CODEQWEN15_7B", "DEEPSEEK_V2_LITE_16B",
-    "GLM4_9B", "GRANITE_3_2B", "MAMBA2_13B", "QWEN2_72B", "QWEN2_MOE_A27B",
-    "QWEN2_VL_72B", "WHISPER_LARGE_V3",
+    "GLM4_9B", "GRANITE_3_2B", "JAMBA_15_LARGE_398B", "MAMBA2_13B",
+    "QWEN2_72B", "QWEN2_MOE_A27B", "QWEN2_VL_72B", "WHISPER_LARGE_V3",
 ]

@@ -164,9 +164,14 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
     q/k/v biases, the MLA leaves, a MoE's router, experts and shared
     expert, cross-attention and the layer norms' biases), and
     ``encoder`` on one of ``num_encoder_layers``; each stack becomes one
-    dict per layer.  Each leaf keeps its (in, out) layout and becomes
-    ``cfg.param_dtype()`` on ``device`` (the card unless ``"cpu"``),
-    except the f32 constants of ``F32_LEAVES``, which stay f32."""
+    dict per layer.  The hybrid's ``periods`` stacks every leaf on the
+    periods, and its ``mamba``, ``dense_ffn`` and ``moe_ffn`` leaves on a
+    second axis of their sublayers (``period - 1``, ``period - period //
+    2``, ``period // 2``): each period becomes one dict, its ``attn`` one
+    dict and each of the three a list of sublayer dicts.  Each leaf
+    keeps its (in, out) layout and becomes ``cfg.param_dtype()`` on
+    ``device`` (the card unless ``"cpu"``), except the f32 constants of
+    ``F32_LEAVES``, which stay f32."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype()
@@ -178,16 +183,28 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
         return {k: whole(v) if isinstance(v, dict) else leaf(k, v)
                 for k, v in sub.items()}
 
-    def layer(sub: dict, i: int, L: int, stack: str) -> dict:
+    def pick(sub: dict, i: int, L: int, stack: str) -> dict:
+        """Entry ``i`` of every leaf of ``sub``, stacked on ``L``."""
         out = {}
         for k, v in sub.items():
             if isinstance(v, dict):
-                out[k] = layer(v, i, L, stack)
+                out[k] = pick(v, i, L, stack)
             elif np.shape(v)[0] != L:
                 raise ValueError(f"{stack} leaf {k!r} stacks {np.shape(v)[0]} "
                                  f"layers, {cfg.name} has {L}")
             else:
-                out[k] = leaf(k, np.asarray(v)[i])
+                out[k] = np.asarray(v)[i]
+        return out
+
+    def period(sub: dict, i: int, P: int) -> dict:
+        per = cfg.hybrid.period
+        inner = {"mamba": per - 1, "dense_ffn": per - per // 2,
+                 "moe_ffn": per // 2}
+        out = {}
+        for part, v in pick(sub, i, P, "periods").items():
+            n = inner.get(part)
+            out[part] = whole(v) if n is None else [
+                whole(pick(v, j, n, part)) for j in range(n)]
         return out
 
     stacks = {"layers": cfg.num_layers - (cfg.moe.first_dense_layers
@@ -196,8 +213,12 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
         stacks["encoder"] = cfg.encdec.num_encoder_layers
     params = {}
     for k, v in tree.items():
-        if k in stacks:
-            params[k] = [layer(v, i, stacks[k], k) for i in range(stacks[k])]
+        if k == "periods":
+            P = cfg.num_layers // cfg.hybrid.period
+            params[k] = [period(v, i, P) for i in range(P)]
+        elif k in stacks:
+            params[k] = [whole(pick(v, i, stacks[k], k))
+                         for i in range(stacks[k])]
         elif isinstance(v, dict):
             params[k] = whole(v)
         else:

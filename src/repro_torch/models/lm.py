@@ -1,6 +1,6 @@
-"""The LM: the port of ``repro/models/lm.py`` for every family but the
-hybrid — dense, MoE (uniform, or DeepSeek-V2's MLA with a dense first
-layer), the VLM backbone (M-RoPE), Mamba-2, and the encoder-decoder.
+"""The LM: the port of ``repro/models/lm.py`` for every family — dense,
+MoE (uniform, or DeepSeek-V2's MLA with a dense first layer), the VLM
+backbone (M-RoPE), Mamba-2, the encoder-decoder and the Jamba hybrid.
 
 Parameters are plain nested dicts of tensors in the reference's (in,
 out) layout, so ``x @ w`` is the reference's einsum.  Where the reference
@@ -8,12 +8,18 @@ stacks layers on a leading L axis and scans them, the port keeps one dict
 per layer in a list and loops in Python; the encoder-decoder keeps its
 encoder and decoder layers in two lists (``encoder``, ``layers``), and a
 config with ``first_dense_layers`` its unrolled first layer apart
-(``layer0``).  The decode caches keep the reference's stacked layouts,
-and each layer writes its slice in place: dense and the decoder {"k",
-"v"}: (L, B, Smax, Hkv, hd); MLA {"layer0": {"latent": (B, Smax, lora +
-rope)}, "layers": {"latent": (L - 1, ...)}}; SSM {"conv_x", "conv_B",
+(``layer0``).  The hybrid keeps one dict per period in ``periods``,
+each with its own lists of sublayers as the reference stacks them:
+``mamba`` (period - 1 of {"mixer", "ln"}), ``attn`` ({"attn", "ln"}),
+``dense_ffn`` and ``moe_ffn`` (each FFN's weights and its "ln").  The
+decode caches keep the reference's stacked layouts, and each layer
+writes its slice in place: dense and the decoder {"k", "v"}: (L, B,
+Smax, Hkv, hd); MLA {"layer0": {"latent": (B, Smax, lora + rope)},
+"layers": {"latent": (L - 1, ...)}}; SSM {"conv_x", "conv_B",
 "conv_C"}: (L, B, K-1, ·) in the parameter type and "state": (L, B, H,
-N, hd) in f32.
+N, hd) in f32; the hybrid, over its P periods of M = period - 1 Mamba
+sublayers, {"attn": {"k", "v"}: (P, B, Smax, Hkv, hd), "mamba":
+{"conv": (P, M, B, K-1, d_inner), "state": (P, M, B, d_inner, N) f32}}.
 
 Batch keys, as in the reference: ``tokens`` (B, S), or ``embeds`` (B, S,
 D) in their place; ``mrope_positions`` (3, B, S) for M-RoPE; for the
@@ -35,7 +41,10 @@ from .attention import (
 )
 from .common import InitCtx, gelu_mlp, layer_norm, rms_norm, swiglu
 from .moe import init_moe, moe_forward
-from .ssm import init_mamba2, mamba2_cache_spec, mamba2_forward
+from .ssm import (
+    init_mamba1, init_mamba2, mamba1_cache_spec, mamba1_forward,
+    mamba2_cache_spec, mamba2_forward,
+)
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -44,8 +53,14 @@ def check_supported(cfg: ArchConfig) -> None:
     variant (family 'moe': a routed MoE on every layer, or with MLA one
     dense first layer and the MoE on the rest), the VLM backbone (family
     'vlm', M-RoPE over three position streams), Mamba-2 (SSD) LMs with an
-    untied lm_head, and the encoder-decoder (family 'encdec').  The
-    hybrid (Jamba) waits for its slice."""
+    untied lm_head, the encoder-decoder (family 'encdec') and the Jamba
+    hybrid (family 'hybrid': periods of Mamba-1 sublayers and one GQA
+    sublayer, each followed by a SwiGLU or, on every second sublayer, a
+    MoE), the only hybrid the reference's period computes as its config
+    says."""
+    if cfg.family == "hybrid":
+        _check_hybrid(cfg)
+        return
     if cfg.family == "ssm":
         if cfg.ssm is None or cfg.ssm.variant != "ssd" or cfg.tie_embeddings:
             raise NotImplementedError(
@@ -54,8 +69,9 @@ def check_supported(cfg: ArchConfig) -> None:
         return
     if cfg.family not in ("dense", "moe", "vlm", "encdec") or cfg.hybrid:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs families dense, moe, vlm, ssm and "
-            f"encdec; not family {cfg.family!r} (the hybrid is not ported)")
+            f"{cfg.name}: the port runs families dense, moe, vlm, ssm, "
+            f"encdec and hybrid; not family {cfg.family!r} with hybrid "
+            f"{cfg.hybrid}")
     if (cfg.family == "moe") != (cfg.moe is not None):
         raise NotImplementedError(
             f"{cfg.name}: the port runs family 'moe' with a routed MoE, and "
@@ -82,23 +98,54 @@ def check_supported(cfg: ArchConfig) -> None:
             f"head_dim / 2 = {cfg.hd // 2}")
 
 
+def _check_hybrid(cfg: ArchConfig) -> None:
+    """Refuse, naming the field, a hybrid the reference's period would
+    not compute as its config says: its period hard-codes Mamba-1
+    sublayers, GQA attention and a MoE after every odd in-period index
+    whatever ``moe.every_k_layers`` says, and floors ``num_layers /
+    period``, dropping the layers past the last whole period."""
+    hyb, ssm, moe = cfg.hybrid, cfg.ssm, cfg.moe
+    if hyb is None or ssm is None or ssm.variant != "mamba1":
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the hybrid with a HybridConfig and "
+            f"Mamba-1 sublayers (ssm.variant 'mamba1'), not hybrid {hyb}, "
+            f"ssm {ssm}")
+    if moe is None or moe.every_k_layers != 2:
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid's period puts a MoE after every second "
+            f"sublayer; the port needs moe.every_k_layers 2, not "
+            f"{None if moe is None else moe.every_k_layers}")
+    if cfg.num_layers % hyb.period:
+        raise NotImplementedError(
+            f"{cfg.name}: num_layers {cfg.num_layers} is not a multiple of "
+            f"hybrid.period {hyb.period}; the reference would drop the "
+            f"last {cfg.num_layers % hyb.period}")
+    if not 0 <= hyb.attn_index < hyb.period or cfg.mla:
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid's GQA sublayer must sit inside the "
+            f"period (hybrid.attn_index {hyb.attn_index} of "
+            f"{hyb.period}), and it takes no MLA")
+
+
 def _first_dense(cfg: ArchConfig) -> int:
     return cfg.moe.first_dense_layers if cfg.moe else 0
 
 
 def _dense_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
-    D, F = cfg.d_model, cfg.d_ff
+    D = cfg.d_model
     p = {
         "ln1": ctx.make((D,), scale="embed"),
         "ln2": ctx.make((D,), scale="embed"),
         "attn": init_mla(ctx, cfg) if cfg.mla else init_gqa(ctx, cfg),
     }
-    if cfg.moe:
-        p["mlp"] = init_moe(ctx, cfg)
-    else:
-        p["mlp"] = {"w_gate": ctx.make((D, F)), "w_up": ctx.make((D, F)),
-                    "w_down": ctx.make((F, D))}
+    p["mlp"] = init_moe(ctx, cfg) if cfg.moe else _swiglu_params(ctx, cfg)
     return p
+
+
+def _swiglu_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    return {"w_gate": ctx.make((D, F)), "w_up": ctx.make((D, F)),
+            "w_down": ctx.make((F, D))}
 
 
 def _dense_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *, positions,
@@ -133,6 +180,67 @@ def _ssm_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     out, _ = mamba2_forward(p["mixer"], cfg, h, cache=cache)
     return x + out
+
+
+def _jamba_period_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
+    """One period: ``period - 1`` Mamba-1 sublayers and one GQA sublayer,
+    each behind its own RMS norm, and after each sublayer an FFN behind
+    its own norm: ``period // 2`` MoEs (odd in-period indices) and the
+    rest SwiGLUs (even ones)."""
+    per = cfg.hybrid.period
+
+    def norm():
+        return ctx.make((cfg.d_model,), scale="embed")
+
+    return {
+        "mamba": [{"mixer": init_mamba1(ctx, cfg), "ln": norm()}
+                  for _ in range(per - 1)],
+        "attn": {"attn": init_gqa(ctx, cfg), "ln": norm()},
+        "dense_ffn": [{**_swiglu_params(ctx, cfg), "ln": norm()}
+                      for _ in range(per - per // 2)],
+        "moe_ffn": [{**init_moe(ctx, cfg), "ln": norm()}
+                    for _ in range(per // 2)],
+    }
+
+
+def _jamba_period(p: dict, cfg: ArchConfig, x: torch.Tensor, *, caches,
+                  period: int, positions, rope, mask, cache_index,
+                  window) -> torch.Tensor:
+    """The reference's ``_jamba_period``: sublayer ``attn_index`` is GQA
+    attention (windowed by ``window``), the others Mamba-1 in order; an
+    FFN follows each, the MoE after odd in-period indices.  ``caches``
+    (decode) is the whole stacked cache; this period's slices of it are
+    written in place."""
+    eps = cfg.norm_eps
+    mi = di = ei = 0
+    for sub in range(cfg.hybrid.period):
+        if sub == cfg.hybrid.attn_index:
+            ap = p["attn"]
+            cache = None if caches is None else \
+                _layer_caches(caches["attn"], period)
+            out, _ = gqa_forward(ap["attn"], cfg, rms_norm(x, ap["ln"], eps),
+                                 positions=positions, window=window,
+                                 cache=cache, cache_index=cache_index,
+                                 rope=rope, mask=mask)
+        else:
+            mp = p["mamba"][mi]
+            cache = None if caches is None else \
+                {k: c[period, mi] for k, c in caches["mamba"].items()}
+            out, _ = mamba1_forward(mp["mixer"], cfg,
+                                    rms_norm(x, mp["ln"], eps), cache=cache)
+            mi += 1
+        x = x + out
+        if sub % 2 == 1:
+            fp = p["moe_ffn"][ei]
+            x = x + moe_forward(fp, cfg, rms_norm(x, fp["ln"], eps),
+                                with_aux=False)[0]
+            ei += 1
+        else:
+            fp = p["dense_ffn"][di]
+            x = x + swiglu(rms_norm(x, fp["ln"], eps), fp["w_gate"],
+                           fp["w_up"], fp["w_down"])
+            di += 1
+    return x
 
 
 def _gelu_mlp_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
@@ -180,6 +288,9 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator) -> dict:
     if cfg.family == "ssm":
         params["layers"] = [_ssm_layer_params(ctx, cfg)
                             for _ in range(cfg.num_layers)]
+    elif cfg.family == "hybrid":
+        params["periods"] = [_jamba_period_params(ctx, cfg)
+                             for _ in range(_n_periods(cfg))]
     elif cfg.family == "encdec":
         params["encoder"] = [_encoder_layer_params(ctx, cfg)
                              for _ in range(cfg.encdec.num_encoder_layers)]
@@ -273,6 +384,11 @@ def lm_forward(
         for i, lp in enumerate(params["layers"]):
             x = _ssm_layer(lp, cfg, x, cache=None if caches is None
                            else _layer_caches(caches, i))
+    elif cfg.family == "hybrid":
+        for i, pp in enumerate(params["periods"]):
+            x = _jamba_period(pp, cfg, x, caches=caches, period=i,
+                              positions=positions, rope=rope, mask=mask,
+                              cache_index=cache_index, window=window)
     elif cfg.family == "encdec":
         memory = batch.get("enc_memory")
         if memory is None:
@@ -315,9 +431,15 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     the memory on every step, as in the reference."""
     check_supported(cfg)
     dt = cfg.param_dtype()
+    attn = (batch, max_len, cfg.num_kv_heads, cfg.hd)
     if cfg.family == "ssm":
         return {k: ((cfg.num_layers, *shape), d)
                 for k, (shape, d) in mamba2_cache_spec(cfg, batch).items()}
+    if cfg.family == "hybrid":
+        P, M = _n_periods(cfg), cfg.hybrid.period - 1
+        return {"attn": {k: ((P, *attn), dt) for k in ("k", "v")},
+                "mamba": {k: ((P, M, *shape), d) for k, (shape, d)
+                          in mamba1_cache_spec(cfg, batch).items()}}
     if cfg.mla:
         width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_dim
         first = _first_dense(cfg)
@@ -327,14 +449,20 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:
             return {"layer0": {"latent": ((batch, max_len, width), dt)},
                     "layers": layers}
         return layers
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
-    return {"k": (shape, dt), "v": (shape, dt)}
+    return {k: ((cfg.num_layers, *attn), dt) for k in ("k", "v")}
+
+
+def _n_periods(cfg: ArchConfig) -> int:
+    return cfg.num_layers // cfg.hybrid.period
 
 
 def _cache_len(cfg: ArchConfig, caches: dict) -> int:
     """The slots of an attention cache (``max_len``), read from the
-    config's own layout: axis 2 of every stacked leaf."""
-    stack = caches["layers"] if cfg.mla and _first_dense(cfg) else caches
+    config's own layout: axis 2 of every stacked attention leaf."""
+    if cfg.family == "hybrid":
+        stack = caches["attn"]
+    else:
+        stack = caches["layers"] if cfg.mla and _first_dense(cfg) else caches
     return next(iter(stack.values())).shape[2]
 
 

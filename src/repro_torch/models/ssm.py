@@ -1,9 +1,11 @@
-"""Mamba-2 (SSD) layers: the port of the Mamba-2 half of
-``repro/models/ssm.py`` (Mamba-1, for jamba, waits for that family).
+"""Mamba layers: the port of ``repro/models/ssm.py``, Mamba-2 (SSD, for
+mamba2-1.3b) and Mamba-1 (the selective scan, for the Jamba hybrid).
 
-Projections are separate weights (w_z, w_x, w_B, w_C, w_dt) in the
-reference's (in, out) layout.  A prefill runs the chunked SSD scan; a
-decode step advances the (H, d_state, head_dim) state by one token.
+Projections are separate weights in the reference's (in, out) layout.
+A Mamba-2 prefill runs the chunked SSD scan and a decode step advances
+the (H, d_state, head_dim) state by one token; a Mamba-1 prefill runs
+the selective scan over time and a decode step advances its (d_inner,
+d_state) state by one token.
 
 ``ssd_chunked`` routes as ``attention.attention_any`` routes the flash
 op: a CUDA tensor goes to ``kernels.ssd.ops.ssd_scan`` (the intra-chunk
@@ -11,22 +13,28 @@ part in the CUDA kernel, the inter-chunk scan in torch ops); a CPU
 tensor takes the plain twin of the reference's ``ssd_chunked``, which
 materialises every chunk's (Q, Q) decay matrix.  The reference's model
 calls only its XLA twin; its Pallas kernel is reached only through its
-``kernels/ssd/ops.py``.
+``kernels/ssd/ops.py``.  Mamba-1's prefill scan is
+``kernels.selective_scan.ops.selective_scan``: the CUDA kernel on a CUDA
+tensor, the reference's step loop in torch ops on a CPU tensor.
 
 Rounding follows the reference: dt, A and the state are f32; the
 convolutions, gates and projections run in the parameter type; the
 decays are exponents masked before the exp; ``w`` rounds to x's type
-before ``w @ x``.
+before ``w @ x``.  Mamba-1's state update rounds ``dA · h`` and then the
+sum, on the card too (no fused multiply-add), in both the kernel and
+the decode step.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..kernels.selective_scan.ops import selective_scan
 from ..kernels.ssd.ops import ssd_scan
 from .common import InitCtx, rms_norm
 
@@ -198,4 +206,85 @@ def mamba2_cache_spec(cfg: ArchConfig, batch: int
         "conv_B": ((batch, s.d_conv - 1, s.d_state), dt),
         "conv_C": ((batch, s.d_conv - 1, s.d_state), dt),
         "state": ((batch, H, s.d_state, s.head_dim), torch.float32),
+    }
+
+
+# -- Mamba-1 (the selective scan; Jamba's sublayers) --------------------------
+
+
+def mamba1_dims(cfg: ArchConfig) -> tuple[int, int]:
+    """(d_inner, dt_rank) of a Mamba-1 config: dt_rank = ceil(D / 16)."""
+    return cfg.ssm.expand * cfg.d_model, math.ceil(cfg.d_model / 16)
+
+
+def init_mamba1(ctx: InitCtx, cfg: ArchConfig) -> dict:
+    s = cfg.ssm
+    D, N, K = cfg.d_model, s.d_state, s.d_conv
+    d_inner, R = mamba1_dims(cfg)
+    A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32))
+    return {
+        "w_x": ctx.make((D, d_inner)),
+        "w_z": ctx.make((D, d_inner)),
+        "conv_w": ctx.make((K, d_inner), scale=0.3),
+        "conv_b": ctx.make((d_inner,), zero=True),
+        "x_proj": ctx.make((d_inner, R + 2 * N)),
+        "dt_proj": ctx.make((R, d_inner)),
+        "dt_bias": ctx.const(torch.zeros(d_inner)),
+        "A_log": ctx.const(A_log.expand(d_inner, N).contiguous()),
+        "D": ctx.const(torch.ones(d_inner)),
+        "out_proj": ctx.make((d_inner, D)),
+    }
+
+
+def mamba1_forward(p: dict, cfg: ArchConfig, xin: torch.Tensor, *,
+                   cache: Optional[dict] = None
+                   ) -> tuple[torch.Tensor, Optional[dict]]:
+    """xin: (B, S, D) -> (B, S, D), and the cache when one is given.
+
+    cache (decode): {"conv": (B, K-1, d_inner) in the parameter type,
+    "state": (B, d_inner, N) f32}, written in place; the same dict comes
+    back.  A cached call takes one token: the reference's cache branch
+    reads position 0 of a longer input and drops the rest, which the
+    port refuses."""
+    B, S, _ = xin.shape
+    N = cfg.ssm.d_state
+    _, R = mamba1_dims(cfg)
+    if cache is not None and S != 1:
+        raise ValueError(f"a cached Mamba-1 call takes one token, got {S}")
+
+    x = xin @ p["w_x"]
+    z = xin @ p["w_z"]
+    if cache is None:
+        x = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
+    else:
+        window, y_conv = _conv_step(cache["conv"], x, p["conv_w"],
+                                    p["conv_b"])
+        cache["conv"].copy_(window)
+        x = F.silu(y_conv)
+
+    dt_low, Bm, Cm = (x @ p["x_proj"]).split([R, N, N], dim=-1)
+    dt = F.softplus((dt_low @ p["dt_proj"]).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])                                   # (d_inner, N)
+    if cache is None:
+        y, _ = selective_scan(x, dt, A, Bm, Cm)                  # (B, S, d_inner)
+    else:
+        dt_t = dt[:, 0, :, None]                                 # (B, d_inner, 1)
+        dA = torch.exp(dt_t * A)
+        dBx = dt_t * Bm[:, 0, None, :].float() * x[:, 0, :, None].float()
+        state = cache["state"]
+        state.mul_(dA).add_(dBx)            # dA * h, rounded, then + dBx
+        y = torch.einsum("bin,bn->bi", state, Cm[:, 0].float())[:, None]
+
+    y = y.to(xin.dtype) + p["D"].to(xin.dtype) * x
+    y = y * F.silu(z.float()).to(y.dtype)
+    return y @ p["out_proj"], cache
+
+
+def mamba1_cache_spec(cfg: ArchConfig, batch: int
+                      ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    s = cfg.ssm
+    d_inner, _ = mamba1_dims(cfg)
+    return {
+        "conv": ((batch, s.d_conv - 1, d_inner), cfg.param_dtype()),
+        "state": ((batch, d_inner, s.d_state), torch.float32),
     }

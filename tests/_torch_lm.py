@@ -26,6 +26,8 @@ from repro_torch.models import Model
 RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
 B = 2
 BIAS_STD = 0.3
+#: Mamba's dt init (arXiv:2312.00752): dt log-uniform in this range
+DT_RANGE = (1e-3, 1e-1)
 
 
 def numpy_params(cfg, seed=0) -> dict:
@@ -113,6 +115,72 @@ def numpy_params(cfg, seed=0) -> dict:
         tree["enc_final_norm_b"] = n((D,), BIAS_STD)
         tree["final_norm_b"] = n((D,), BIAS_STD)
     return tree
+
+
+def mamba1_mixer(cfg, rng, lead=()) -> dict:
+    """A Mamba-1 mixer's leaves as the JAX package names them, drawn with
+    numpy at each weight's fan-in, each with the leading axes ``lead``.
+    ``dt_bias`` is Mamba's init, softplus⁻¹ of a log-uniform draw in
+    ``DT_RANGE`` (the reference's zeros put dt near 0.69, where the
+    carried state vanishes within a few steps), ``D`` and the conv bias
+    are drawn, and ``A_log`` is the reference's log(1..N)."""
+    D, N, K = cfg.d_model, cfg.ssm.d_state, cfg.ssm.d_conv
+    di, R = cfg.ssm.expand * D, -(-D // 16)
+
+    def n(shape, std):
+        return (rng.standard_normal((*lead, *shape)) * std).astype(np.float32)
+
+    dt0 = np.exp(rng.uniform(*np.log(DT_RANGE), (*lead, di)))
+    a_log = np.log(np.arange(1, N + 1, dtype=np.float32))
+    return {
+        "w_x": n((D, di), D ** -0.5), "w_z": n((D, di), D ** -0.5),
+        "conv_w": n((K, di), 0.3), "conv_b": n((di,), 0.1),
+        "x_proj": n((di, R + 2 * N), di ** -0.5),
+        "dt_proj": n((R, di), R ** -0.5),
+        "dt_bias": np.log(np.expm1(dt0)).astype(np.float32),
+        "A_log": np.ascontiguousarray(
+            np.broadcast_to(a_log, (*lead, di, N))),
+        "D": 1.0 + n((di,), 0.1),
+        "out_proj": n((di, D), di ** -0.5)}
+
+
+def hybrid_numpy_params(cfg, seed=0) -> dict:
+    """The JAX package's jamba tree for ``cfg``, drawn with numpy: every
+    sublayer of every period its own weights (``periods`` leaves stacked
+    on the P periods, the Mamba, dense-FFN and MoE leaves on a second
+    axis of their sublayers), each at its fan-in."""
+    rng = np.random.default_rng(seed)
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    per = cfg.hybrid.period
+    P, M, Nm = cfg.num_layers // per, per - 1, per // 2
+    Nd = per - Nm
+    E, Fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+    Hq, Hk = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+
+    def n(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    return {
+        "embed": n((V, D), 0.02), "final_norm": n((D,), 1.0),
+        "lm_head": n((D, V), D ** -0.5),
+        "periods": {
+            "mamba": {"mixer": mamba1_mixer(cfg, rng, (P, M)),
+                      "ln": n((P, M, D), 1.0)},
+            "attn": {"attn": {"wq": n((P, D, Hq), D ** -0.5),
+                              "wk": n((P, D, Hk), D ** -0.5),
+                              "wv": n((P, D, Hk), D ** -0.5),
+                              "wo": n((P, Hq, D), Hq ** -0.5)},
+                     "ln": n((P, D), 1.0)},
+            "dense_ffn": {"w_gate": n((P, Nd, D, F), D ** -0.5),
+                          "w_up": n((P, Nd, D, F), D ** -0.5),
+                          "w_down": n((P, Nd, F, D), F ** -0.5),
+                          "ln": n((P, Nd, D), 1.0)},
+            "moe_ffn": {"router": n((P, Nm, D, E), D ** -0.5),
+                        "w_gate": n((P, Nm, E, D, Fe), D ** -0.5),
+                        "w_up": n((P, Nm, E, D, Fe), D ** -0.5),
+                        "w_down": n((P, Nm, E, Fe, D), Fe ** -0.5),
+                        "ln": n((P, Nm, D), 1.0)}},
+    }
 
 
 def cfgs(name, dtype="float32", **kw):

@@ -1242,3 +1242,128 @@ def test_mamba2_on_card_equals_cpu(card):
     want = ServeEngine(cpu, 2, 12).generate(params, prompt, steps=7)
     got = ServeEngine(gpu, 2, 12).generate(params_gpu, prompt, steps=7)
     assert torch.equal(got.cpu(), want)
+
+
+def _scan_inputs(card, B, S, D, dtype, seed, N=16, R=8):
+    """Selective-scan inputs on the card: x (B, S, D) and B, C (B, S, N)
+    in ``dtype``, B and C column slices of one (B, S, R + 2N) projection
+    as the model makes them; dt log-uniform in [1e-3, 1e-1] (Mamba's
+    init, so the state carries); A the reference's -(1..N)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((B, S, D), generator=gen, device=card).to(dtype)
+    dbc = torch.randn((B, S, R + 2 * N), generator=gen, device=card).to(dtype)
+    _, Bm, Cm = dbc.split([R, N, N], dim=-1)
+    dt = torch.exp(torch.empty((B, S, D), device=card).uniform_(
+        np.log(1e-3), np.log(1e-1), generator=gen))
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=card).expand(D, N).contiguous()
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D", [(2, 200, 256), (1, 64, 100), (3, 1, 64),
+                                   (2, 1000, 16384)])
+def test_selective_scan_kernel_matches_plain_version(card, dtype, B, S, D):
+    """y and the final state row by row within ``ref.ROW_RTOL``: time
+    tiles whole and ragged, a channel block cut by D, one step, and
+    jamba's full width."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    args = _scan_inputs(card, B, S, D, dtype, seed=S + D)
+    ss_ops.reset_launches()
+    y, h = ss_ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss_ops.LAUNCHES == {"selective_scan": 1}
+    y_p, h_p = ss_ref.selective_scan_ref(*args)
+    assert float(ss_ref.row_errors(y, y_p).max()) <= ss_ref.ROW_RTOL
+    assert float(ss_ref.row_errors(h, h_p).max()) <= ss_ref.ROW_RTOL
+
+
+@pytest.mark.parametrize("fault", ["state_reset_each_tile", "c_one_step_late"])
+def test_selective_scan_planted_faults_fail_the_row_limit(
+        card, tmp_path, monkeypatch, fault):
+    """The kernel's source with a planted fault, built and launched
+    through the wrapper: the state set to 0 at each staged time tile, or
+    y taken with C of the step before; each breaks the row limit."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.selective_scan import build as ss_build
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    old, new = {
+        "state_reset_each_tile": (
+            "__syncthreads();  // the previous tile is consumed",
+            "__syncthreads();\n    for (int n = 0; n < N; ++n) h[n] = 0.f;"),
+        "c_one_step_late": ("acc = fmaf(h[n], s_C[j][n], acc);",
+                            "acc = fmaf(h[n], s_C[j > 0 ? j - 1 : j][n], acc);"),
+    }[fault]
+    text = ss_build.SOURCE.read_text()
+    assert text.count(old) == 1
+    src = tmp_path / f"selective_scan_{fault}.cu"
+    src.write_text(text.replace(old, new))
+    lib = src.with_suffix(".so")
+    subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    monkeypatch.setattr(ss_build, "load",
+                        lambda: ss_build.typed(ctypes.CDLL(str(lib))))
+    args = _scan_inputs(card, 2, 3 * ss_ops.TILE_STEPS + 5, 256,
+                        torch.bfloat16, seed=3)
+    y, _ = ss_ops.selective_scan(*args)
+    y_p, _ = ss_ref.selective_scan_ref(*args)
+    assert float(ss_ref.row_errors(y, y_p).max()) > ss_ref.ROW_RTOL
+
+
+def test_selective_scan_wrapper_raises_instead_of_falling_back(card):
+    """A state size the kernel was not built for, a strided channel axis
+    and inputs on two devices raise on the card, with no launch
+    counted."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    x, dt, A, Bm, Cm = _scan_inputs(card, 1, 8, 64, torch.float32, 0)
+    ss_ops.reset_launches()
+    with pytest.raises(ValueError, match="N in"):
+        ss_ops.selective_scan(x, dt, A[:, :8], Bm[..., :8], Cm[..., :8])
+    with pytest.raises(ValueError, match="unit stride"):
+        ss_ops.selective_scan(x, dt.transpose(1, 2).contiguous().transpose(
+            1, 2), A, Bm, Cm)
+    with pytest.raises(ValueError, match="one device"):
+        ss_ops.selective_scan(x, dt, A.cpu(), Bm, Cm)
+    assert ss_ops.LAUNCHES == {"selective_scan": 0}
+
+
+def test_jamba_on_card_equals_cpu(card):
+    """Reduced jamba over two periods in f32, Mamba's dt init: a
+    2,176-token prefill (7 scan launches and one flash launch a period,
+    a MoE at its capacity factor) and greedy generation (the one-step
+    recurrence, the windowed attention cache) on the card against the
+    CPU."""
+    import dataclasses
+
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    cfg = dataclasses.replace(ARCHS["jamba-1.5-large-398b"].reduced(),
+                              dtype="float32", num_layers=16)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    params = cpu.init(0)
+    gen = torch.Generator().manual_seed(1)
+    for per in params["periods"]:
+        for sub in per["mamba"]:
+            m = sub["mixer"]
+            u = torch.exp(torch.empty_like(m["dt_bias"]).uniform_(
+                np.log(1e-3), np.log(1e-1), generator=gen))
+            m["dt_bias"] = torch.log(torch.expm1(u))
+    params_gpu = _to(params, card)
+    S = 2176
+    toks = torch.from_numpy(np.arange(2 * S).reshape(2, S) * 7 % cfg.vocab)
+    want = cpu.prefill(params, {"tokens": toks})
+    fa_ops.reset_launches()
+    ss_ops.reset_launches()
+    got = gpu.prefill(params_gpu, {"tokens": toks.to(card)})
+    assert fa_ops.LAUNCHES == {"flash_attention": 2}
+    assert ss_ops.LAUNCHES == {"selective_scan": 14}
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+    prompt = toks[:, :5]
+    want = ServeEngine(cpu, 2, 12).generate(params, prompt, steps=7)
+    got = ServeEngine(gpu, 2, 12).generate(params_gpu, prompt, steps=7)
+    assert torch.equal(got.cpu(), want)

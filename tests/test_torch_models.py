@@ -68,12 +68,12 @@ def test_config_fields_equal_the_jax_config():
 
 def test_registry_holds_only_what_the_port_runs():
     assert sorted(ARCHS) == ["codeqwen1.5-7b", "deepseek-v2-lite-16b",
-                             "glm4-9b", "granite-3-2b", "mamba2-1.3b",
-                             "qwen2-72b", "qwen2-moe-a2.7b", "qwen2-vl-72b",
-                             "whisper-large-v3"]
+                             "glm4-9b", "granite-3-2b", "jamba-1.5-large-398b",
+                             "mamba2-1.3b", "qwen2-72b", "qwen2-moe-a2.7b",
+                             "qwen2-vl-72b", "whisper-large-v3"]
     assert sorted(ARCHS) == sorted({get_arch(n).name for n in ARCHS})
     with pytest.raises(KeyError):
-        get_arch("jamba-1.5-large-398b")        # family "hybrid", unported
+        get_arch("jamba-1.5-mini")                  # not a config of the repo
     for bad in (dict(family="hybrid"), dict(family="encdec"),
                 dict(mrope_sections=(4, 6, 6)), dict(mla=MLAConfig())):
         with pytest.raises(NotImplementedError):
