@@ -37,13 +37,17 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    and through the whole scan at S 32,768 and a ragged S 1,000, with dt
    from Mamba-2's init so the chunk decays carry signal (two planted
    faults must fail the limits), and Mamba-1's selective scan (the
-   ``-Xptxas -v`` report free of spills) in bf16 and f32 at jamba's
-   width (B 2, d_inner 16,384, N 16) over S 2,048 and a ragged S 1,000
-   against the plain step loop, y and the final state row by row within
-   ``ref.ROW_RTOL`` (1e-5), with dt from Mamba's init so that the
-   largest step decay exceeds 0.5 (two planted faults, the state reset
-   at each staged time tile and C read a step late, must fail the
-   limit), timed at the serving shape (S 32,768) — and times kernel,
+   ``-Xptxas -v`` report shows the aligned and unaligned instances of
+   each input type, free of spills and warnings) in bf16 and f32 at
+   jamba's width (B 2, d_inner 16,384, N 16) over S 2,048 and a ragged
+   S 1,000 against the plain step loop, y and the final state row by
+   row within ``ref.ROW_RTOL`` (1e-5) and the final state equal to the
+   loop's bit for bit (the count of unequal elements printed), with dt
+   from Mamba's init so that the largest step decay exceeds 0.5 (three
+   planted faults, the state reset at each staged time tile, C read a
+   step late and a tile scanned with the x and dt of the tile before,
+   must fail the limit), timed at the serving shape (S 32,768), with
+   its warps an SM — and times kernel,
    plain version and
    (for attention, in alternating rounds with the kernel) SDPA with CUDA
    events (``bulk_hash``, a launch of a few microseconds, as a CUDA
@@ -3267,24 +3271,6 @@ def phase_serve_mamba2(np, torch, layers=None):
     return launches
 
 
-def scan_inputs(torch, B, S, D, dtype, seed, N=16, R=512):
-    """Selective-scan inputs on the card: x (B, S, D) and B, C (B, S, N)
-    in ``dtype``, B and C column slices of one (B, S, R + 2N) projection
-    as Mamba-1's x_proj makes them; dt log-uniform in DT_RANGE (Mamba's
-    init); A the reference's -exp(log(1..N))."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((B, S, D), generator=gen, device="cuda").to(dtype)
-    dbc = torch.randn((B, S, R + 2 * N), generator=gen,
-                      device="cuda").to(dtype)
-    _, Bm, Cm = dbc.split([R, N, N], dim=-1)
-    lo, hi = (float(v) for v in torch.log(torch.tensor(DT_RANGE)))
-    dt = torch.exp(torch.empty((B, S, D), device="cuda").uniform_(
-        lo, hi, generator=gen))
-    A = -torch.exp(torch.log(torch.arange(
-        1, N + 1, dtype=torch.float32, device="cuda"))).expand(D, N)
-    return x, dt, A.contiguous(), Bm, Cm
-
-
 def phase_selective_scan(np, torch):
     """The selective-scan kernel against its plain version on the card at
     jamba's width, in bf16 and f32; returns its record at the serving
@@ -3295,7 +3281,8 @@ def phase_selective_scan(np, torch):
 
     cfg = get_arch(JAMBA)
     D, N = mamba1_dims(cfg)[0], cfg.ssm.d_state
-    # registers and spills of each instance (bf16 and f32 inputs, N 16)
+    # registers and spills of each instance (bf16 and f32 inputs, N 16,
+    # rows aligned to 16 bytes or not: "16 1", "16 0")
     log = build.build().with_suffix(".log").read_text()
     report = {dt: ptxas_report(log, f"selective_scan_kernelI{mangled}")[0]
               for dt, mangled in (("bfloat16", "13__nv_bfloat16"),
@@ -3303,8 +3290,9 @@ def phase_selective_scan(np, torch):
     warnings = ptxas_report(log, "selective_scan")[1]
     emit({"phase": "ptxas", "kernel": "selective_scan", "instances": report,
           "warnings": warnings})
-    check(all(str(N) in r for r in report.values()),
-          f"selective_scan instances {report} lack N {N}")
+    check(all(set(r) == {f"{N} 1", f"{N} 0"} for r in report.values()),
+          f"selective_scan instances {report} are not N {N}, aligned and "
+          f"not")
     for dt, insts in report.items():
         for inst, r in insts.items():
             check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
@@ -3317,7 +3305,7 @@ def phase_selective_scan(np, torch):
     for dtype in ("bfloat16", "float32"):
         tdt = getattr(torch, dtype)
         for S in SCAN_CHECK_S:
-            x, dt, A, Bm, Cm = args = scan_inputs(torch, B, S, D, tdt, S)
+            x, dt, A, Bm, Cm = args = ref.scan_inputs(B, S, D, tdt, S)
             y, h = ops.selective_scan(*args)
             torch.cuda.synchronize()
             y_p, h_p = ref.selective_scan_ref(*args)
@@ -3326,29 +3314,44 @@ def phase_selective_scan(np, torch):
                    "max_abs_err": float((y - y_p).abs().max()),
                    "max_row_err": {"y": float(ref.row_errors(y, y_p).max()),
                                    "state": float(ref.row_errors(h, h_p)
-                                                  .max())}}
+                                                  .max())},
+                   "state_unequal": int((h != h_p).sum()),
+                   "y_unequal": int((y != y_p).sum())}
             for k, v in rec["max_row_err"].items():
                 if not v <= ref.ROW_RTOL:
                     failures.append(f"selective_scan {k} ({dtype}, S {S}): "
                                     f"a row differs by {v} > {ref.ROW_RTOL}")
+            if rec["state_unequal"]:
+                failures.append(f"selective_scan state ({dtype}, S {S}): "
+                                f"{rec['state_unequal']} elements differ "
+                                f"from the plain loop's")
             if not rec["max_step_decay"] > SCAN_DECAY_MIN:
                 failures.append(f"largest step decay {rec['max_step_decay']}"
                                 f" <= {SCAN_DECAY_MIN}")
             if dtype == "bfloat16" and S == SCAN_CHECK_S[0]:
                 # planted faults, each must break the row limit: the state
-                # set to 0 at each staged time tile, and y taken with C of
-                # the step before
+                # set to 0 at each staged time tile, y taken with C of the
+                # step before, and each tile scanned with the x and dt of
+                # the tile before (a ring stage read before its copy
+                # landed: the stage still holds what it held)
                 y_reset = torch.cat([ref.selective_scan_ref(
                     x[:, t:t + tile], dt[:, t:t + tile], A,
                     Bm[:, t:t + tile], Cm[:, t:t + tile])[0]
                     for t in range(0, S, tile)], dim=1)
                 c_late = torch.cat([Cm[:, :1], Cm[:, :-1]], dim=1)
                 y_late = ref.selective_scan_ref(x, dt, A, Bm, c_late)[0]
+                y_stale = ref.selective_scan_ref(
+                    torch.cat([torch.zeros_like(x[:, :tile]), x[:, :-tile]],
+                              dim=1),
+                    torch.cat([torch.zeros_like(dt[:, :tile]),
+                               dt[:, :-tile]], dim=1), A, Bm, Cm)[0]
                 rec["planted_faults_max_row_err"] = faults = {
                     "state_reset_each_tile": float(ref.row_errors(
                         y_reset, y_p).max()),
                     "c_one_step_late": float(ref.row_errors(
-                        y_late, y_p).max())}
+                        y_late, y_p).max()),
+                    "stage_read_before_landed": float(ref.row_errors(
+                        y_stale, y_p).max())}
                 for k, v in faults.items():
                     if not v > ref.ROW_RTOL:
                         failures.append(f"the row check passes the planted "
@@ -3356,23 +3359,30 @@ def phase_selective_scan(np, torch):
                 rec["plain_ms"] = cuda_ms(
                     lambda a=args: ref.selective_scan_ref(*a), 1)
                 checked = rec
-                del y_reset, y_late, c_late
+                del y_reset, y_late, c_late, y_stale
             checks.append(rec)
             del x, dt, A, Bm, Cm, args, y, h, y_p, h_p
 
     # the serving shape: one Mamba-1 sublayer's prefill of 2 x 32,768
     S = PREFILL_LEN
-    args = scan_inputs(torch, B, S, D, torch.bfloat16, 7)
+    args = ref.scan_inputs(B, S, D, torch.bfloat16, 7)
     ms = cuda_ms(lambda: ops.selective_scan(*args), 5)
     del args
     moved = B * S * D * (2 + 4 + 4) + 2 * B * S * N * 2 + D * N * 4 \
         + B * D * N * 4          # x bf16, dt and y f32, B and C, A, the state
     b_ms, b_by = bound(moved, B * S * D * N, EXP_PER_S)
+    # warps an SM at that shape: the grid's blocks spread over the SMs,
+    # as many as the occupancy calculator lets one SM hold
+    per_sm = build.load().selective_scan_blocks_per_sm(1, 1)
+    check(per_sm > 0, f"selective_scan_blocks_per_sm: {per_sm}")
+    blocks = -(-D // ops.BLOCK_CHANNELS) * B
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = ops.BLOCK_CHANNELS // 32
     emit({"phase": "kernels", "kernel": "selective_scan",
-          "row_tol": ref.ROW_RTOL, "dt_range": DT_RANGE, "tile": tile,
+          "row_tol": ref.ROW_RTOL, "dt_range": ref.DT_RANGE, "tile": tile,
           "block_channels": ops.BLOCK_CHANNELS, "checks": checks})
     check(not failures, "; ".join(failures))
-    inst = report["bfloat16"][str(N)]
+    inst = report["bfloat16"][f"{N} 1"]
     return {"name": "selective_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/selective_scan/csrc/"
                       "selective_scan.cu",
@@ -3384,7 +3394,11 @@ def phase_selective_scan(np, torch):
             "plain_ms_at": f"S {checked['S']} (the plain loop is host-bound, "
                            f"about 12 launches a step)",
             "bound_ms": b_ms, "bound_by": b_by, "exp_per_s": EXP_PER_S,
-            "library_ms": None, "registers": inst["registers"],
+            "library_ms": None, "tile": tile,
+            "warps_an_sm": {"most": min(per_sm, -(-blocks // sms)) * warps,
+                            "mean": min(per_sm * sms, blocks) * warps / sms,
+                            "blocks_an_sm_allowed": per_sm},
+            "registers": inst["registers"],
             "spill_bytes": inst["spill_stores"] + inst["spill_loads"]}
 
 

@@ -23,11 +23,17 @@ def load() -> ctypes.CDLL:
     return typed(ctypes.CDLL(str(build())))
 
 
+#: ``selective_scan``'s argument types: pointers and the stream as
+#: ``c_void_p``, sizes as ``c_int``, strides as ``c_longlong``
+SCAN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+
+
 def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` with its one entry point typed (pointers and the stream as
-    ``c_void_p``, strides as ``c_longlong``)."""
+    """``lib`` with its entry points typed: ``selective_scan`` and
+    ``selective_scan_blocks_per_sm(bf16, aligned)``."""
     fn = lib.selective_scan
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn.argtypes, fn.restype = SCAN_ARGTYPES, ctypes.c_int
+    occ = lib.selective_scan_blocks_per_sm
+    occ.argtypes, occ.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     return lib

@@ -12,10 +12,10 @@ from .ref import selective_scan_ref
 
 #: kernel launches, counted only where the kernel launches
 LAUNCHES = {"selective_scan": 0}
-#: channels a block scans (one thread each) and time steps it stages in
-#: shared memory at once: ``CHANNELS`` and ``TILE`` in the source (the
+#: channels a block scans (one thread each) and time steps a stage of its
+#: two-stage ring holds: ``CHANNELS`` and ``TILE`` in the source (the
 #: tests check that the two agree)
-BLOCK_CHANNELS, TILE_STEPS = 64, 64
+BLOCK_CHANNELS, TILE_STEPS = 64, 32
 #: state sizes N the kernel is built for (Jamba's d_state, full and
 #: reduced)
 KERNEL_STATES = (16,)

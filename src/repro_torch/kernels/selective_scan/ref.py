@@ -20,7 +20,8 @@ import torch
 
 from ..flash_attention.ref import row_errors
 
-__all__ = ["ROW_RTOL", "row_errors", "selective_scan_ref"]
+__all__ = ["DT_RANGE", "ROW_RTOL", "row_errors", "scan_inputs",
+           "selective_scan_ref"]
 
 #: the largest ``row_errors`` of y and of the final state the kernel may
 #: show against this version.  Both compute in f32 whatever x's type (x,
@@ -28,6 +29,9 @@ __all__ = ["ROW_RTOL", "row_errors", "selective_scan_ref"]
 #: the same points; they differ only in the order of y's sum over the N
 #: states
 ROW_RTOL = 1e-5
+#: the range of Mamba's dt init, log-uniform, from which ``scan_inputs``
+#: draws dt (the state then carries: the largest step decay exceeds 0.5)
+DT_RANGE = (1e-3, 1e-1)
 
 
 def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -48,3 +52,24 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         h = dA * h + dBx
         y[:, t] = torch.einsum("bin,bn->bi", h, Cf[:, t])
     return y, h
+
+
+def scan_inputs(B: int, S: int, D: int, dtype: torch.dtype, seed: int,
+                N: int = 16, R: int = 512, device: str = "cuda"
+                ) -> tuple[torch.Tensor, ...]:
+    """Inputs of the scan as Mamba-1 makes them, drawn on ``device`` from
+    ``seed``: x (B, S, D) and B, C (B, S, N) in ``dtype``, B and C column
+    slices of one (B, S, R + 2N) projection (x_proj's output); dt (B, S,
+    D) f32 log-uniform in ``DT_RANGE``; A (D, N) f32, the reference's
+    -exp(log(1..N))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, S, D), generator=gen, device=device).to(dtype)
+    dbc = torch.randn((B, S, R + 2 * N), generator=gen,
+                      device=device).to(dtype)
+    _, Bm, Cm = dbc.split([R, N, N], dim=-1)
+    lo, hi = (float(v) for v in torch.log(torch.tensor(DT_RANGE)))
+    dt = torch.exp(torch.empty((B, S, D), device=device).uniform_(
+        lo, hi, generator=gen))
+    A = -torch.exp(torch.log(torch.arange(
+        1, N + 1, dtype=torch.float32, device=device))).expand(D, N)
+    return x, dt, A.contiguous(), Bm, Cm

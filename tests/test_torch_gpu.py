@@ -43,6 +43,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _scan_faults import FAULTS as SCAN_FAULTS  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import vector_sim as TV  # noqa: E402
@@ -1247,8 +1248,9 @@ def test_mamba2_on_card_equals_cpu(card):
 def _scan_inputs(card, B, S, D, dtype, seed, N=16, R=8):
     """Selective-scan inputs on the card: x (B, S, D) and B, C (B, S, N)
     in ``dtype``, B and C column slices of one (B, S, R + 2N) projection
-    as the model makes them; dt log-uniform in [1e-3, 1e-1] (Mamba's
-    init, so the state carries); A the reference's -(1..N)."""
+    as the model makes them (an odd R starts their rows off 16 bytes);
+    dt log-uniform in [1e-3, 1e-1] (Mamba's init, so the state carries);
+    A the reference's -(1..N)."""
     gen = torch.Generator(device=card).manual_seed(seed)
     x = torch.randn((B, S, D), generator=gen, device=card).to(dtype)
     dbc = torch.randn((B, S, R + 2 * N), generator=gen, device=card).to(dtype)
@@ -1262,11 +1264,13 @@ def _scan_inputs(card, B, S, D, dtype, seed, N=16, R=8):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,D", [(2, 200, 256), (1, 64, 100), (3, 1, 64),
-                                   (2, 1000, 16384)])
+                                   (2, 1000, 16384), (2, 135, 320)])
 def test_selective_scan_kernel_matches_plain_version(card, dtype, B, S, D):
-    """y and the final state row by row within ``ref.ROW_RTOL``: time
-    tiles whole and ragged, a channel block cut by D, one step, and
-    jamba's full width."""
+    """y row by row within ``ref.ROW_RTOL`` and the final state equal to
+    the plain loop's bit for bit: time tiles whole and ragged (S 135 is
+    no multiple of the tile times the stages), a channel block cut by D
+    (D 100 in bf16 starts rows off 16 bytes: the unaligned instance),
+    one step, and jamba's full width."""
     from repro_torch.kernels.selective_scan import ops as ss_ops
     from repro_torch.kernels.selective_scan import ref as ss_ref
     args = _scan_inputs(card, B, S, D, dtype, seed=S + D)
@@ -1277,14 +1281,43 @@ def test_selective_scan_kernel_matches_plain_version(card, dtype, B, S, D):
     y_p, h_p = ss_ref.selective_scan_ref(*args)
     assert float(ss_ref.row_errors(y, y_p).max()) <= ss_ref.ROW_RTOL
     assert float(ss_ref.row_errors(h, h_p).max()) <= ss_ref.ROW_RTOL
+    assert torch.equal(h, h_p)
 
 
-@pytest.mark.parametrize("fault", ["state_reset_each_tile", "c_one_step_late"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["bc_unaligned", "x_dt_offset"])
+def test_selective_scan_unaligned_rows_match_plain_version(card, dtype,
+                                                           layout):
+    """Rows that start off 16 bytes: B and C as slices of a projection
+    of odd width R + 2N (R 5), or x and dt as slices one channel into
+    wider tensors (every row off by one element); y within the row limit
+    and the state bit for bit, at a ragged S and D."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    # each stage of the two-stage ring used twice, and a ragged tile
+    B, S, D = 2, 4 * ss_ops.TILE_STEPS + 11, 200
+    if layout == "bc_unaligned":
+        args = _scan_inputs(card, B, S, D, dtype, seed=5, R=5)
+    else:
+        x, dt, A, Bm, Cm = _scan_inputs(card, B, S, D + 1, dtype, seed=6)
+        args = (x[..., 1:], dt[..., 1:], A[1:].contiguous(), Bm, Cm)
+    ss_ops.reset_launches()
+    y, h = ss_ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss_ops.LAUNCHES == {"selective_scan": 1}
+    y_p, h_p = ss_ref.selective_scan_ref(*args)
+    assert float(ss_ref.row_errors(y, y_p).max()) <= ss_ref.ROW_RTOL
+    assert torch.equal(h, h_p)
+
+
+@pytest.mark.parametrize("fault", sorted(SCAN_FAULTS))
 def test_selective_scan_planted_faults_fail_the_row_limit(
         card, tmp_path, monkeypatch, fault):
-    """The kernel's source with a planted fault, built and launched
-    through the wrapper: the state set to 0 at each staged time tile, or
-    y taken with C of the step before; each breaks the row limit."""
+    """The kernel's source with a planted fault (``tests/_scan_faults.py``),
+    built and launched through the wrapper: the state set to 0 at each
+    staged time tile, y taken with C of the step before, or a tile
+    scanned from the ring stage whose copies are still in flight; each
+    breaks the row limit."""
     import ctypes
     import subprocess
 
@@ -1292,13 +1325,7 @@ def test_selective_scan_planted_faults_fail_the_row_limit(
     from repro_torch.kernels.selective_scan import build as ss_build
     from repro_torch.kernels.selective_scan import ops as ss_ops
     from repro_torch.kernels.selective_scan import ref as ss_ref
-    old, new = {
-        "state_reset_each_tile": (
-            "__syncthreads();  // the previous tile is consumed",
-            "__syncthreads();\n    for (int n = 0; n < N; ++n) h[n] = 0.f;"),
-        "c_one_step_late": ("acc = fmaf(h[n], s_C[j][n], acc);",
-                            "acc = fmaf(h[n], s_C[j > 0 ? j - 1 : j][n], acc);"),
-    }[fault]
+    old, new = SCAN_FAULTS[fault]
     text = ss_build.SOURCE.read_text()
     assert text.count(old) == 1
     src = tmp_path / f"selective_scan_{fault}.cu"
