@@ -86,14 +86,16 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    against a latency bound (its longest seed's hops x two dependent
    shared-memory loads, at the latency a pointer-chase probe measures);
    the ordered load sum must equal ``torch.bincount`` on the CPU bit for
-   bit at the sprayed walk's shape with byte weights; on the paper testbed (256 flows x 1,024 seeds, ``murmur``,
+   bit at the sprayed walk's shape with byte and with log-normal weights,
+   where the card's atomic ``torch.bincount`` must not; on the paper testbed (256 flows x 1,024 seeds, ``murmur``,
    ``roce-nack``) the FIM mean, goodput mean and exposure p95 of every
    family (and of the two elephant variants under byte demand) must
    match the JAX package's numpy-engine values to 1e-9; at full scale
    ``prime-spray`` (819,200 flowlet columns, the hash at 7 fields),
    ``adaptive-spray`` (on a 3:1 skewed pair mix, where its re-spray
-   rounds run; again under byte demand, where its load sums take the
-   ordered-sum kernel), ``congestion-aware`` and ``wave-congestion-aware``
+   rounds run, its load sums in the ordered-sum kernel; again under byte
+   demand), ``congestion-aware`` and ``wave-congestion-aware`` (its load
+   sums in the ordered-sum kernel too)
    route 64 seeds, each with FIM and throughput (the chain's own time
    taken apart from the route's), and each but the congestion-aware
    chain then routes seeds 0 and 1 on the card and on the CPU: the same
@@ -225,7 +227,7 @@ Each path runs with every kernel's launch count set to 0 just before it
 and read just after; a kernel that its path never launched fails the
 run, and so does a strategy whose walk made fewer murmur launches than
 its paths have hops, a chain that did not launch the placement
-kernel, a byte-demand re-spray that did not launch the ordered sum, or a
+kernel, an adaptive or wave route that did not launch the ordered sum, or a
 timeline phase that did not launch the flow hash at 5 and at 7 fields,
 the placement kernel, the ordered sum and the drain (its launches join
 the ``kernels`` line's counts).  The flow hash's launches are counted
@@ -1107,57 +1109,85 @@ def sm_clock_during(torch, fn) -> float:
 
 def check_ordered_sum(np, torch, T, comp, flows, fm):
     """The ordered load sum against its plain version (``torch.bincount``
-    on the CPU) at the sprayed walk's shape: a ``prime-spray`` route of
-    the full-scale flows over 64 seeds, its (H, 819,200, 64) cells keyed
-    by (seed, link) as ``_cell_loads`` keys them, with byte weights
-    (alternating 2**20- and 2**30-byte flows, over K 8).  Returns the
-    kernel's record (launch count filled in later)."""
-    from repro_torch.kernels.loads import ops
+    on the CPU) at the sprayed walk's shape: the (H, 819,200, 64) link ids
+    of a ``prime-spray`` route of the full-scale flows over 64 seeds, with
+    byte weights (alternating 2**20- and 2**30-byte flows, over K 8) and
+    with log-normal weights (``exp(normal(0, 12))``), bit for bit and the
+    same on a second run.  The card's atomic ``torch.bincount`` (the
+    library call) must miss those bits under the log-normal weights, so
+    the check can see a wrong order.  Returns the kernel's record (launch
+    count filled in later), timed under the byte weights."""
+    from repro_torch.kernels.loads import build, ops
     res = T.simulate_paths(comp, flows, np.arange(SPRAY_SEEDS),
                            strategy="prime-spray", field_matrix=fm,
                            hash_backend="murmur")
-    ids = res.link_ids
+    ids = res.link_ids.contiguous()
     H, C, S = ids.shape
     L = comp.num_links
     b = np.where(np.arange(len(flows)) % 2 == 0, 2.0**20, 2.0**30)
-    col_w = torch.from_numpy(b / b.mean()).cuda()[res.flow_index] / 8
+    weights = {
+        "bytes": (torch.from_numpy(b / b.mean()).cuda()[res.flow_index]
+                  / 8).contiguous(),
+        "lognormal": torch.from_numpy(np.exp(np.random.default_rng(26).normal(
+            0, 12, C))).cuda()}
+    del res
+    ids_cpu = ids.cpu()
+    # the library call's inputs: (seed, link) keys, a weight a cell
     off = torch.arange(S, device="cuda", dtype=torch.int32) * L
     keys = torch.where(ids >= 0, ids + off, S * L).reshape(-1)
-    w = col_w[None, :, None].expand(H, C, S).reshape(-1).contiguous()
-    del res, ids
-    check(not ops.exact_in_any_order(col_w, keys.numel()),
-          "the byte weights sum exactly in any order")
-    got = ops.ordered_bin_sum(keys, w, S * L)
-    keys_cpu, w_cpu = keys.cpu(), w.cpu()
-    t = time.perf_counter()
-    want = ops.ordered_bin_sum(keys_cpu, w_cpu, S * L)
-    plain_s = time.perf_counter() - t
-    err = float((got.cpu() - want).abs().max())
-    check(torch.equal(got.cpu(), want),
-          f"ordered_bin_sum != plain version (max error {err})")
-    again = ops.ordered_bin_sum(keys, w, S * L)
-    check(torch.equal(again, got), "ordered_bin_sum differs between runs")
-    perm, start = ops.sort_runs(keys, S * L)
-    library = torch.bincount(keys, weights=w, minlength=S * L + 1)[:S * L]
-    m = keys.numel()
-    b_ms, b_by = bound(m * 4 + m * 8 + S * L * 8, m, F64_FLOPS_PER_S)
+    held, plain_s = {}, None
+    for name, w in weights.items():
+        got = ops.ordered_cell_sum(ids, w, L)
+        t = time.perf_counter()
+        want = ops.ordered_cell_sum(ids_cpu, w.cpu(), L)
+        plain_s = plain_s or time.perf_counter() - t
+        err = float((got.cpu() - want).abs().max())
+        check(torch.equal(got.cpu(), want), f"ordered_cell_sum != plain "
+              f"version under {name} weights (max error {err})")
+        check(torch.equal(ops.ordered_cell_sum(ids, w, L), got),
+              f"ordered_cell_sum differs between runs ({name})")
+        cells = w[None, :, None].expand(H, C, S).reshape(-1)
+        library = torch.bincount(keys, weights=cells,
+                                 minlength=S * L + 1)[:S * L].cpu()
+        held[name] = {"max_abs_err": err,
+                      "library_bit_identical": bool(torch.equal(
+                          library, want.reshape(-1))),
+                      "library_max_abs_err": float(
+                          (library - want.reshape(-1)).abs().max())}
+        del got, want, cells, library
+    check(not held["lognormal"]["library_bit_identical"],
+          "torch.bincount on the card gave the ordered sums under "
+          "log-normal weights: the check cannot see a wrong order")
+    w = weights["bytes"]
+    cells = w[None, :, None].expand(H, C, S).reshape(-1).contiguous()
+    ms, library_ms = paired_ms(
+        lambda: ops.ordered_cell_sum(ids, w, L),
+        lambda: torch.bincount(keys, weights=cells, minlength=S * L + 1))
+    m = ids.numel()
+    longest = int(torch.bincount(keys, minlength=S * L + 1)[:S * L].max())
+    probe = torch.zeros(3, dtype=torch.int64, device="cuda")
+    for _ in range(2):                 # the first run warms the clock
+        rc = build.load().dadd_latency_probe(
+            probe.data_ptr(), PROBE_STEPS,
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"dadd_latency_probe launch failed with {rc}")
+        torch.cuda.synchronize()
+    add_ns = probe[1].item() / PROBE_STEPS
+    fn_bytes = m * 4 + C * 8 + S * L * 8      # link ids, weights, sums
+    b_ms, b_by = bound(fn_bytes, m, F64_FLOPS_PER_S)
     rec = {
-        "name": "ordered_bin_sum", "route": "cuda",
+        "name": "ordered_cell_sum", "route": "cuda",
         "source": "src/repro_torch/kernels/loads/csrc/loads.cu",
         "replaces": "src/repro/core/strategies.py:261",
         "shape": [H, C, S], "cells": m, "bins": S * L,
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.ordered_bin_sum(keys, w, S * L), 10),
-        "sort_ms": cuda_ms(lambda: torch.sort(keys, stable=True), 10),
-        "runs_ms": cuda_ms(lambda: ops.sort_runs(keys, S * L), 10),
-        "fold_ms": cuda_ms(lambda: ops.fold_runs(perm, start, w), 10),
-        "plain_ms": plain_s * 1e3,
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.bincount(
-            keys, weights=w, minlength=S * L + 1), 10),
-        "library_bit_identical": bool(torch.equal(library.cpu(), want)),
-        "library_max_abs_err": float((library.cpu() - want).abs().max())}
-    del keys, w, perm, start, library, got, again
+        "max_abs_err": max(h["max_abs_err"] for h in held.values()),
+        "ms": ms, "plain_ms": plain_s * 1e3,
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": fn_bytes,
+        "library_ms": library_ms, "held": held,
+        "library_bit_identical": held["bytes"]["library_bit_identical"],
+        "longest_run": longest, "add_latency_ns": add_ns,
+        "chain_floor_ms": longest * add_ns / 1e6}
+    del keys, cells, ids, ids_cpu, weights
     return rec
 
 
@@ -1366,7 +1396,7 @@ def phase_strategies(np, torch):
     for name, demand, traffic, fl, fm in sweeps:
         grid0 = dict(ops.GRID_LAUNCHES_BY_FIELDS)
         chain0 = pl_ops.LAUNCHES["congestion_place"]
-        sum0 = loads_ops.LAUNCHES["ordered_bin_sum"]
+        sum0 = loads_ops.LAUNCHES["ordered_cell_sum"]
         chain_ms.clear()
         pl_ops.congestion_place = timed_chain
         try:
@@ -1379,7 +1409,7 @@ def phase_strategies(np, torch):
                 for f, c in ops.GRID_LAUNCHES_BY_FIELDS.items()
                 if c > grid0.get(f, 0)}
         chain = pl_ops.LAUNCHES["congestion_place"] - chain0
-        ordered = loads_ops.LAUNCHES["ordered_bin_sum"] - sum0
+        ordered = loads_ops.LAUNCHES["ordered_cell_sum"] - sum0
         fim, fim_s, _ = timed(lambda: T.fim_vector(res))
         tp, tp_s, tp_peak = timed(lambda: T.throughput_from_result(
             res, transport="roce-nack"))
@@ -1392,7 +1422,7 @@ def phase_strategies(np, torch):
             check(walks >= hops, f"{name}: {walks} grid launches < {hops} hops")
         check(name != "adaptive-spray" or demand == "bytes"
               or res.rounds > 0, f"{name}: no re-spray round ran")
-        check((ordered > 0) == (demand == "bytes"),
+        check((ordered > 0) == name.startswith(("adaptive", "wave")),
               f"{name} ({demand}): {ordered} ordered load sums")
         check(len(chain_ms) == chain, f"{name}: chain spy saw {chain_ms}")
         check(chain == int(res.residue_placed or name == "congestion-aware"),
@@ -1422,7 +1452,7 @@ def phase_strategies(np, torch):
     launches = {"murmur_hash_grid": ops.GRID_LAUNCHES_BY_FIELDS.get(5, 0),
                 "murmur_hash_grid_f7": ops.GRID_LAUNCHES_BY_FIELDS.get(7, 0),
                 "congestion_place": pl_ops.LAUNCHES["congestion_place"],
-                "ordered_bin_sum": loads_ops.LAUNCHES["ordered_bin_sum"]}
+                "ordered_cell_sum": loads_ops.LAUNCHES["ordered_cell_sum"]}
     check(set(ops.GRID_LAUNCHES_BY_FIELDS) <= {5, 7},
           f"grid widths {sorted(ops.GRID_LAUNCHES_BY_FIELDS)}")
 
@@ -1469,7 +1499,7 @@ def phase_strategies(np, torch):
         kw = dict(strategy=name, demand_mode="bytes", hash_backend="murmur")
         loads_ops.reset_launches()
         card = T.simulate_paths(comp, flows, seeds, **kw)
-        ordered = loads_ops.LAUNCHES["ordered_bin_sum"]
+        ordered = loads_ops.LAUNCHES["ordered_cell_sum"]
         cpu = T.simulate_paths(comp, flows, seeds, device="cpu", **kw)
         check(ordered > 0, f"{name} (bytes): no ordered load sum")
         check(card.link_ids.shape == cpu.link_ids.shape
@@ -1485,7 +1515,7 @@ def phase_strategies(np, torch):
                                      "ms", "wrapper_ms", "plain_ms")},
           "placement_check_s": check_s, "ordered_sum_check": {
               k: sum_record[k] for k in ("shape", "max_abs_err", "ms",
-                                         "sort_ms", "plain_ms")},
+                                         "library_ms", "plain_ms")},
           "ordered_sum_check_s": sum_check_s, "anchors": anchors,
           "anchor_rtol": ANCHOR_RTOL, "anchors_s": anchors_s,
           "anchor_launches": anchor_launches, "full_scale": full,
@@ -1717,7 +1747,7 @@ def phase_timeline(np, torch):
                           f"{left:.1f} s left)", flush=True)
             grid0 = dict(ops.GRID_LAUNCHES_BY_FIELDS)
             chain0 = pl_ops.LAUNCHES["congestion_place"]
-            sum0 = loads_ops.LAUNCHES["ordered_bin_sum"]
+            sum0 = loads_ops.LAUNCHES["ordered_cell_sum"]
             clock.reset()
             with clock:
                 tl, wall, peak = timed(lambda: T.simulate_timeline(
@@ -1754,7 +1784,7 @@ def phase_timeline(np, torch):
                     for f, c in ops.GRID_LAUNCHES_BY_FIELDS.items()
                     if c > grid0.get(f, 0)},
                 "chain_launches": pl_ops.LAUNCHES["congestion_place"] - chain0,
-                "ordered_sums": loads_ops.LAUNCHES["ordered_bin_sum"] - sum0}
+                "ordered_sums": loads_ops.LAUNCHES["ordered_cell_sum"] - sum0}
             del tl
     full_s = time.perf_counter() - t_full
 
@@ -1800,7 +1830,7 @@ def phase_timeline(np, torch):
     launches = {"murmur_hash_grid": ops.GRID_LAUNCHES_BY_FIELDS.get(5, 0),
                 "murmur_hash_grid_f7": ops.GRID_LAUNCHES_BY_FIELDS.get(7, 0),
                 "congestion_place": pl_ops.LAUNCHES["congestion_place"],
-                "ordered_bin_sum": loads_ops.LAUNCHES["ordered_bin_sum"],
+                "ordered_cell_sum": loads_ops.LAUNCHES["ordered_cell_sum"],
                 "departure_drain": drain_ops.LAUNCHES["departure_drain"]}
     for k, v in launches.items():
         check(v > 0, f"the timeline phase never launched {k}")

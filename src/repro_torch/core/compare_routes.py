@@ -7,12 +7,14 @@ checkout's on one card, in alternating processes.
 (``_checkout/`` is gitignored.)  Both checkouts hold a package named
 ``repro_torch``, so each round starts one process per checkout, in
 alternating order (this, other, other, this, ...).  A process routes
-``chip_smoke.py``'s full-scale unit-demand sweeps from its own checkout
+``chip_smoke.py``'s full-scale sweeps from its own checkout
 (64 seeds: ``prime-spray`` and the wave on the even mix,
 ``adaptive-spray`` on the 3:1 skewed mix, ``congestion-aware``), each
 once to warm up and then ``REPS`` times, host clock ending in a
-synchronise.  Prints the card and, per checkout and strategy, the median
-route seconds and every process's medians.
+synchronise; ``adaptive-spray`` also under byte demand (the skewed
+flows at alternating 2**20 and 2**30 bytes, as ``chip_smoke.py`` routes
+it).  Prints the card and, per checkout and strategy, the median route
+seconds and every process's medians.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ ROOT = Path(__file__).resolve().parents[3]
 ROUNDS, REPS = 3, 3
 
 _CHILD = r'''
-import json, sys, time
+import dataclasses, json, sys, time
 import numpy as np, torch
 sys.path[:0] = ["src", "."]
 import chip_smoke as cs
@@ -37,22 +39,29 @@ even = T.synthesize_flows(T.bipartite_pairs(
     [f"host-{i}" for i in range(64)], [f"host-{64 + i}" for i in range(64)],
     cs.FLOWS_PER_PAIR), nic_ip=T.nic_ip, nics_per_server=1)
 skew = cs.skewed_flows(T)
+skew_bytes = [dataclasses.replace(f, bytes=2**20 if j % 2 == 0 else 2**30)
+              for j, f in enumerate(skew)]
 fm_even = T.flow_fields_matrix(even, "5tuple")
 fm_skew = T.flow_fields_matrix(skew, "5tuple")
 out = {}
-for name, fl, fm in (("prime-spray", even, fm_even),
-                     ("adaptive-spray", skew, fm_skew),
-                     ("congestion-aware", even, fm_even),
-                     ("wave-congestion-aware", even, fm_even)):
+for key, name, fl, fm, demand in (
+        ("prime-spray", "prime-spray", even, fm_even, "uniform"),
+        ("adaptive-spray", "adaptive-spray", skew, fm_skew, "uniform"),
+        ("adaptive-spray (bytes)", "adaptive-spray", skew_bytes, fm_skew,
+         "bytes"),
+        ("congestion-aware", "congestion-aware", even, fm_even, "uniform"),
+        ("wave-congestion-aware", "wave-congestion-aware", even, fm_even,
+         "uniform")):
     times = []
     for _ in range(1 + REPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         T.simulate_paths(big, fl, np.arange(cs.SPRAY_SEEDS), strategy=name,
-                         field_matrix=fm, hash_backend="murmur")
+                         field_matrix=fm, hash_backend="murmur",
+                         demand_mode=demand)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    out[name] = sorted(times[1:])[REPS // 2]
+    out[key] = sorted(times[1:])[REPS // 2]
 print(json.dumps(out))
 '''
 

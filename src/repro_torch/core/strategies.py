@@ -28,12 +28,9 @@ as in ``vector_sim``.
 Link loads sum the cells of an ``(H, N, S)`` tensor into (seed, link)
 bins in C order, the reference's ``np.bincount`` order, so every float
 decision (adaptive marking and acceptance) is bit-identical to it, and
-link ids on the card equal the CPU's under every demand mode.  Where the
-weights' sums are exact in float64 in any order (unit demand, flowlet
-fractions 1/K with K a power of two, the wave's unit weights) one
-atomic bincount gives those bits; other weights (byte demand, K not a
-power of two) go through the ordered-sum kernel (``kernels/loads``),
-which folds each bin's cells left to right.
+link ids on the card equal the CPU's under every demand mode: on the
+card every such sum is one launch of the ordered-sum kernel
+(``kernels/loads``), which adds each bin's cells in that order.
 
 The sequential placement chain (``_sequential_congestion_place``) reads,
 for each flow, the loads the earlier flows wrote, but only under its own
@@ -296,23 +293,10 @@ def _cell_loads(link_ids: torch.Tensor, weights: torch.Tensor,
     """(S, L) demand-weighted link loads of an ``(H, N, S)`` tensor,
     ``-1`` skipped: each (seed, link) bin sums its cells' weights in C
     order, the reference's ``np.bincount`` order, bit for bit on either
-    device.  Where any order gives those bits
-    (``loads.exact_in_any_order``) one atomic ``torch.bincount`` sums
-    them; otherwise the ordered kernel ``loads.ordered_bin_sum`` does."""
-    H, N, S = link_ids.shape
-    SL = S * num_links
-    if SL >= 2**31 - 1:
-        raise ValueError(f"{S} seeds x {num_links} links do not fit the "
-                         f"load sum's int32 keys")
-    off = torch.arange(S, device=link_ids.device,
-                       dtype=torch.int32) * num_links
-    keys = torch.where(link_ids >= 0, link_ids + off, SL).reshape(-1)
-    w = weights[None, :, None].expand(H, N, S).reshape(-1)
-    if loads.exact_in_any_order(weights, keys.numel()):
-        sums = torch.bincount(keys, weights=w, minlength=SL + 1)[:SL]
-    else:
-        sums = loads.ordered_bin_sum(keys, w, SL)
-    return sums.reshape(S, num_links)
+    device, for any weights (``loads.ordered_cell_sum``: the kernel on
+    the card, ``torch.bincount`` on the CPU)."""
+    return loads.ordered_cell_sum(link_ids.contiguous(),
+                                  weights.contiguous(), num_links)
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:

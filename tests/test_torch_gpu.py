@@ -11,8 +11,8 @@ The CPU side is held against the JAX package by the other
 for bit, counts and FIM to 1e-12 and rates to 1e-9 relative (float
 atomics on the card sum in another order).  Every routing strategy
 routes the same seed list on both sides (the wave couples its seeds)
-under unit demand, and the byte-weighted ones under byte demand too,
-where the load sums take the ordered-sum kernel: the same link ids and
+under unit demand, and the byte-weighted ones under byte demand too
+(every load sum takes the ordered-sum kernel): the same link ids and
 flowlet layout, FIM to 1e-12, rates and goodput to 1e-9 and exposure
 to 1e-12 absolute.  The ordered sum must equal ``torch.bincount`` on the
 CPU bit for bit, and the sequential placement kernel its plain version
@@ -46,12 +46,15 @@ torch = pytest.importorskip("torch")
 from _scan_faults import FAULTS as SCAN_FAULTS  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.core import strategies as TS  # noqa: E402
 from repro_torch.core import vector_sim as TV  # noqa: E402
 from repro_torch.core import vector_throughput as TT  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flowhash import ops, ref  # noqa: E402
+from repro_torch.kernels.loads import build as loads_build  # noqa: E402
 from repro_torch.kernels.loads import ops as loads_ops  # noqa: E402
+from repro_torch.kernels.loads import ref as loads_ref  # noqa: E402
 from repro_torch.kernels.placement import build as pl_build  # noqa: E402
 from repro_torch.kernels.placement import ops as pl_ops  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
@@ -258,25 +261,36 @@ STRATEGY_CASES = {
 
 #: the cases routed again under byte demand (the fixture's flows carry
 #: 1 B to 1 GiB): the adaptive ones sum their loads with the ordered-sum
-#: kernel; the wave's heterogeneous weights take the sequential chain
+#: kernel, where the order of the adds decides paths; the wave's
+#: heterogeneous weights take the sequential chain
 BYTE_DEMAND_CASES = ["adaptive-spray", "adaptive-spray-elephant",
                      "prime-spray-elephant", "congestion-aware", "wave-path"]
 
 
 @pytest.mark.parametrize("case", sorted(STRATEGY_CASES) + [
     f"{name}:bytes" for name in BYTE_DEMAND_CASES])
-def test_strategy_on_card_equals_cpu(card, multipod, case):
+def test_strategy_on_card_equals_cpu(card, multipod, case, monkeypatch):
     comp, flows = multipod
     name, _, demand = case.partition(":")
     make = STRATEGY_CASES[name]
     kw = dict(hash_backend="murmur", demand_mode=demand or "uniform")
     want = T.simulate_paths(comp, flows, SEEDS, strategy=make(),
                             device="cpu", **kw)
+    sums, real = [], TS._cell_loads
+
+    def counted(*args):
+        sums.append(1)
+        return real(*args)
+
+    monkeypatch.setattr(TS, "_cell_loads", counted)
     loads_ops.reset_launches()
     got = T.simulate_paths(comp, flows, SEEDS, strategy=make(), **kw)
-    ordered = loads_ops.LAUNCHES["ordered_bin_sum"]
-    assert (ordered > 0) == (demand == "bytes"
-                             and name.startswith("adaptive")), ordered
+    ordered = loads_ops.LAUNCHES["ordered_cell_sum"]
+    # every load sum is one launch of the ordered kernel, and the
+    # byte-demand adaptive rounds sum loads
+    assert ordered == len(sums), (ordered, len(sums))
+    assert ordered > 0 or not (demand == "bytes"
+                               and name.startswith("adaptive")), ordered
     assert got.link_ids.device.type == "cuda"
     assert torch.equal(got.link_ids.cpu(), want.link_ids)
     assert torch.equal(got.flow_index.cpu(), want.flow_index)
@@ -605,32 +619,78 @@ def test_placement_kernel_matches_plain_version(card, multipod, multipod3,
     assert torch.equal(got[3].cpu(), want[3])
 
 
-def test_ordered_bin_sum_matches_plain_version(card):
-    """Byte weights over a wide range: the kernel's per-bin sums are
-    ``torch.bincount``'s on the CPU bit for bit, and the same on every
-    run; keys at the skip bin are left out."""
-    rng = np.random.default_rng(4)
-    n_bins, m = 3_000, 400_000
-    keys = torch.from_numpy(rng.integers(0, n_bins + 1, m).astype(np.int32))
-    w = torch.from_numpy(np.where(rng.random(m) < 0.5, 2.0**20, 2.0**30)
-                         / 5.4e8 * rng.choice([1.0, 1 / 3, 0.7], m))
-    want = torch.bincount(keys, weights=w, minlength=n_bins + 1)[:n_bins]
+#: the ordered sum's card cases, (H, N, S, L, what the cells hold): the
+#: CPU tests' edge shapes at sizes that take several 4,096-row tiles, and
+#: the strategies' width.  Seed counts that are multiples of 4 from 8 on
+#: bring the rows by TMA (8, 12, 16, 64), the others by cp.async; N up to
+#: 4,096 keeps the weights resident, larger N streams them, and 5,000,
+#: 9,000 and 50,000 rows a hop wrap to w[0] inside a 256-row box;
+#: "unaligned" starts both tensors 4 and 8 bytes past 16
+ORDERED_CASES = {
+    "bin split across tiles": (3, 5_000, 8, 4, "random"),
+    "every cell in one link": (2, 3_000, 5, 7, "one link"),
+    "-1 and out-of-range cells": (3, 2_000, 12, 6, "sparse"),
+    "one seed": (4, 9_000, 1, 9, "random"),
+    "seeds not a multiple of 8": (2, 3_000, 11, 50, "random"),
+    "links over several blocks": (2, 4_000, 16, 3_000, "random"),
+    "links just past one block": (2, 3_000, 8, 1_025, "random"),
+    "unaligned": (2, 6_000, 8, 33, "offset"),
+    "wide": (4, 50_000, 64, 1_024, "random"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORDERED_CASES))
+def test_ordered_cell_sum_matches_plain_version(card, case):
+    """Log-normal weights: the kernel's (S, L) sums are ``torch.bincount``'s
+    on the CPU bit for bit, the same on every run, with each seed's links
+    whole or, past 1,024, split over clusters (``loads_ops.plan``); cells
+    outside [0, L) are left out."""
+    H, N, S, L, kind = ORDERED_CASES[case]
+    rng = np.random.default_rng(H * N + S)
+    ids = rng.integers(0, L, (H, N, S)).astype(np.int32)
+    if kind == "one link":
+        ids[:] = 3
+    elif kind == "sparse":
+        ids[rng.random(ids.shape) < 0.5] = -1
+        ids[rng.random(ids.shape) < 0.1] = L + 3
+    w = torch.from_numpy(np.exp(rng.normal(0, 12, N)))
+    ids = torch.from_numpy(ids)
+    want = loads_ref.ordered_cell_sum_ref(ids, w, L)
+    if kind == "offset":
+        ids_d = torch.empty(ids.numel() + 1, dtype=torch.int32,
+                            device=card)[1:].view(H, N, S)
+        w_d = torch.empty(N + 1, dtype=torch.float64, device=card)[1:]
+        ids_d.copy_(ids)
+        w_d.copy_(w)
+        assert ids_d.data_ptr() % 16 and w_d.data_ptr() % 16
+    else:
+        ids_d, w_d = ids.to(card), w.to(card)
     loads_ops.reset_launches()
-    got = [loads_ops.ordered_bin_sum(keys.to(card), w.to(card), n_bins)
-           for _ in range(2)]
-    assert loads_ops.LAUNCHES == {"ordered_bin_sum": 2}
+    got = [loads_ops.ordered_cell_sum(ids_d, w_d, L) for _ in range(2)]
     for g in got:
-        assert g.device.type == "cuda"
+        assert g.device.type == "cuda" and g.shape == (S, L)
         assert torch.equal(g.cpu(), want)
+    assert loads_ops.LAUNCHES == {"ordered_cell_sum": 2}
 
 
-def test_ordered_bin_sum_raises_instead_of_falling_back(card, monkeypatch):
-    monkeypatch.setattr(loads_ops, "ordered_bin_sum_ref", None)
-    keys = torch.zeros(8, dtype=torch.int32, device=card)
-    w = torch.ones(8, dtype=torch.float64, device=card)
-    assert loads_ops.ordered_bin_sum(keys, w, 2).tolist() == [8.0, 0.0]
+def test_ordered_cell_sum_raises_instead_of_falling_back(card, monkeypatch):
+    monkeypatch.setattr(loads_ops, "ordered_cell_sum_ref", None)
+    ids = torch.zeros((2, 4, 1), dtype=torch.int32, device=card)
+    w = torch.ones(4, dtype=torch.float64, device=card)
+    assert loads_ops.ordered_cell_sum(ids, w, 2).tolist() == [[8.0, 0.0]]
     with pytest.raises(TypeError):
-        loads_ops.ordered_bin_sum(keys.long(), w, 2)
+        loads_ops.ordered_cell_sum(ids.long(), w, 2)
+
+
+def test_dadd_latency_probe_counts_cycles(card):
+    """The chain floor's float64 add latency: a few cycles an add, and
+    the chain's time is the clock's cycles."""
+    out = torch.zeros(3, dtype=torch.int64, device=card)
+    rc = loads_build.load().dadd_latency_probe(
+        out.data_ptr(), 4096, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    cycles, ns = out[:2].tolist()
+    assert 2 <= cycles / 4096 < 100 and ns > 0
 
 
 def test_smem_latency_probe_counts_cycles(card):
@@ -696,7 +756,7 @@ def test_card_strategies_never_take_the_plain_hash(card, multipod,
         if not getattr(module, "__name__", "").startswith("repro_torch"):
             continue
         for name in ("murmur_hash_grid_ref", "congestion_place_ref",
-                     "ordered_bin_sum_ref"):
+                     "ordered_cell_sum_ref"):
             if hasattr(module, name):
                 monkeypatch.setattr(module, name,
                                     guarded(getattr(module, name)))
@@ -715,7 +775,8 @@ def test_card_strategies_never_take_the_plain_hash(card, multipod,
         assert (ops.LAUNCHES["murmur_hash_grid"] > 0
                 or name == "congestion-aware"), case
         assert pl_ops.LAUNCHES["congestion_place"] == int(chained), case
-        assert (loads_ops.LAUNCHES["ordered_bin_sum"] > 0) == bool(demand)
+        assert (loads_ops.LAUNCHES["ordered_cell_sum"] > 0) == (
+            name.startswith(("adaptive", "wave"))), case
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
