@@ -133,7 +133,7 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    report (registers, spills, the plan's shared memory) free of
    spills;
 8. drives granite-3-2b serving at full width (bf16, weights from a
-   seeded generator on the card) and ``GRANITE_LAYERS`` (8) of its 40
+   seeded generator on the card) and ``GRANITE_LAYERS`` (4) of its 40
    layers, printed with ``reduced``: ``prefill_logits`` on 2 x 32,768
    tokens (a flash-attention launch at hd 64 a layer), ``generate`` for
    4 x 2,304-token prompts and 16 greedy tokens with the decode logits
@@ -143,14 +143,14 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
 9. drives glm4-9b serving the same way at full width and depth (40
    layers, q/k/v biases, 32 query heads over 2 kv heads: 40 flash
    launches at hd 128), its ``generate`` and decode checks at
-   ``GEN_LAYERS_CUT`` (8) of the 40 layers (printed with ``reduced``),
+   ``GEN_LAYERS_CUT`` (4) of the 40 layers (printed with ``reduced``),
    the 2-layer f32 checks with nonzero biases drawn from the seed;
 10. drives qwen2-moe-a2.7b the same way at full width and depth (24
    layers, 60 experts, top 4, a shared expert, 16 heads over 16 at hd
    128): the prefill at the config's capacity factor, which drops
    tokens (the drops of each layer printed); ``generate`` and the
    decode checks drop-free (capacity factor 60) at ``GEN_LAYERS_CUT``
-   (8) layers, each prompt position of the generate routed, layer by
+   (4) layers, each prompt position of the generate routed, layer by
    layer, to the experts the prompts' prefill chose for it (decode's
    own choice would differ where two experts' router logits tie within
    the bf16 rounding: the differing positions of each layer and
@@ -169,7 +169,7 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    ``chunked_attention`` with no flash launch, and that function's
    time in the profiled prefill; ``generate`` for 4 x 520-token prompts
    through the absorbed decode over the latent cache at
-   ``GEN_LAYERS_CUT`` (8) of the 27 layers (printed with ``reduced``),
+   ``GEN_LAYERS_CUT`` (4) of the 27 layers (printed with ``reduced``),
    forced to the prefill's experts (3 routings a step); and the 2-layer
    f32 model
    (the dense layer and one MoE layer) at 2,304 tokens, card against
@@ -211,12 +211,33 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    sublayer's mixer or FFN) fed the CPU's input within 1e-5 of its
    largest output, the logits within 3e-5 of the largest logit;
 16. drives mamba2-1.3b serving at full width and ``MAMBA2_LAYERS``
-   (24) of its 48 layers, printed with ``reduced`` (bf16, Mamba-2's
+   (12) of its 48 layers, printed with ``reduced`` (bf16, Mamba-2's
    dt_bias init): ``prefill_logits`` on 2 x 32,768 tokens (an SSD
    launch a layer), ``generate`` for 4 x 520-token prompts and
    16 greedy tokens with the decode logits checked against the
    prefill's, and a 2-layer f32 prefill on the card against the CPU;
-17. prints the ``kernels`` record, each phase's seconds and, last, the
+17. trains granite-3-2b ("train"): (a) the flash op's autograd Function
+   (``models/attention.py::FlashAttention``: the kernel forward, the
+   recomputed ``chunked_attention`` backward) against autograd through
+   ``plain_attention`` at B 1, S 4,096, 32 heads over 8, hd 64, causal:
+   dq, dk, dv in f32 within 1e-5 of each one's largest |value|, in bf16
+   against the f32 plain gradients within 5e-2; (b) the reduced config
+   in f32 at 2,176 tokens (the Function and the kernel run), one
+   ``train_step`` on the card against the CPU: the loss within 1e-5
+   relative, each gradient leaf within 1e-4 and each weight after the
+   update within 1e-5 of its largest |value|; (c) the reduced config in
+   bf16, 2 steps, a checkpoint, 2 more, against a restore and the same
+   2 steps: every weight and optimizer state bit for bit; (d) the full
+   config, all 40 layers, on ``train_4k``'s 4,096 tokens with the global
+   batch of 256 cut to 4 (2 microbatches of 2), bf16 weights, f32 AdamW
+   state, the default sqrt remat (groups of 5): a warm-up step, then
+   ``TRAIN_TIMED_STEPS`` timed ones (seconds, tokens/s, peak memory,
+   loss and grad norm, all finite) and one profiled step split into the
+   flash forward, the chunked backward, GEMMs, the optimizer and the
+   rest; then the Function's backward alone at that shape against SDPA's
+   (a sub-row of the flash row on the ``kernels`` line, whose launches
+   count the train steps' too);
+18. prints the ``kernels`` record, each phase's seconds and, last, the
    one-line result.
 
 Each serving phase prints its seconds by step, and its decode rate
@@ -500,17 +521,20 @@ BIAS_STD = 0.5
 BIASES = ("bq", "bk", "bv", "b_in", "b_out", "ln1b", "ln2b", "lnxb",
           "final_norm_b", "enc_final_norm_b")
 # granite-3-2b's and mamba2-1.3b's serving depths, cut from 40 and 48
-# so that the script keeps inside 600 s beside the hd-128 paths: their
-# generates are host-bound, about 1.1 to 1.5 ms a layer a decode step
-# on an H100's host, whose speed moves by half from one machine to the
-# next
-GRANITE_LAYERS = 8
-MAMBA2_LAYERS = 24
+# so that the script keeps inside 600 s beside the hd-128 paths and the
+# train phase (granite trains at all 40 layers there): their generates
+# are host-bound, about 1.1 to 1.5 ms a layer a decode step on an H100's
+# host, whose speed moves by half from one machine to the next (8 and
+# 24 layers until the train phase came: 562 s on one host, 644 s on
+# another)
+GRANITE_LAYERS = 4
+MAMBA2_LAYERS = 12
 # glm4-9b's, qwen2-moe-a2.7b's and deepseek-v2-lite-16b's generate and
 # decode checks, cut from 40, 24 and 27 layers (their 2 x 32,768-token
 # prefills stay at full depth) so that the script keeps inside 600 s
-# beside qwen2-vl-72b, whisper-large-v3 and jamba-1.5-large-398b
-GEN_LAYERS_CUT = 8
+# beside qwen2-vl-72b, whisper-large-v3, jamba-1.5-large-398b and the
+# train phase (8 layers until the train phase came)
+GEN_LAYERS_CUT = 4
 # qwen2-vl-72b: one 64 x 64 block of merged patches after 1,024 text
 # positions of the 32,768 (text positions before, side); its f32
 # card-against-CPU check at 512 positions (a 16 x 16 block after 64),
@@ -546,6 +570,24 @@ JAMBA_LOGIT_RTOL = 3e-5
 # exp(dt A) must exceed SCAN_DECAY_MIN, so that a wrong carry shows
 SCAN_CHECK_S = (2_048, RAGGED_S)
 SCAN_DECAY_MIN = 0.5
+# training: granite-3-2b at full width and depth on train_4k's 4,096
+# tokens, its global batch of 256 cut to 4 for one card (2 microbatches
+# of 2 sequences), bf16 weights, f32 AdamW state, the default remat;
+# one warm-up step, then TRAIN_TIMED_STEPS timed ones and one profiled
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_MICRO, TRAIN_ACCUM = 2, 2
+TRAIN_TIMED_STEPS = 2
+# the gates: the flash Function's gradients against autograd through
+# plain_attention at B 1, S 4,096 (f32 within 1e-5 of each gradient's
+# largest |value|; bf16 against the f32 plain gradients within
+# tests/_torch_lm.py's bf16 5e-2); reduced granite on the card against
+# the CPU in f32 at a length past LONG_SEQ (loss 1e-5 relative, each
+# gradient leaf 1e-4 and each weight after a step 1e-5 of its largest
+# |value|); and 2 + 2 steps against a restore after 2, bit for bit
+TRAIN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+TRAIN_CHECK_S = 2_176
+TRAIN_LOSS_RTOL, TRAIN_LEAF_RTOL, TRAIN_PARAM_RTOL = 1e-5, 1e-4, 1e-5
+TRAIN_RESUME_STEPS = 2
 
 
 class CheckFailed(RuntimeError):
@@ -3898,6 +3940,337 @@ def phase_serve_jamba(np, torch):
     return {cfg.hd: launches["flash"]}, launches["scan"]
 
 
+def attention_grad_check(torch, dtype: str, S: int, heads, kv_heads, hd):
+    """Gate (a): the flash Function's dq, dk, dv (the kernel forward, the
+    chunked_attention backward) against autograd through
+    ``plain_attention`` in f32 on the same inputs, causal, B 1.  Returns
+    each gradient's max |difference| relative to its largest |value|."""
+    from repro_torch.models.attention import FlashAttention, plain_attention
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 7)
+    q, k, v = (torch.randn((1, S, h, hd), generator=gen, device="cuda")
+               .to(getattr(torch, dtype)) for h in (heads, kv_heads,
+                                                     kv_heads))
+    w = torch.randn((1, S, heads, hd), generator=gen, device="cuda")
+
+    def grads(fn, *xs):
+        leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+        out = fn(*leaves)
+        return torch.autograd.grad((out.float() * w).sum(), leaves)
+
+    got = grads(lambda *t: FlashAttention.apply(*t, True), q, k, v)
+    want = grads(lambda *t: plain_attention(*t, causal=True, q_offset=0),
+                 q.float(), k.float(), v.float())
+    rel = [float((a.float() - b).abs().max() / b.abs().max())
+           for a, b in zip(got, want)]
+    check(all(a.dtype == q.dtype for a in got), "gradient types")
+    check(max(rel) <= TRAIN_GRAD_TOL[dtype],
+          f"flash Function gradients ({dtype}) against plain_attention's: "
+          f"{rel} > {TRAIN_GRAD_TOL[dtype]} of the largest")
+    return rel
+
+
+def flash_backward_record(torch):
+    """The flash op's backward at granite's training shape (B 2, S 4,096,
+    32 heads over 8, hd 64, bf16, causal): the Function's backward (the
+    recompute of ``chunked_attention`` and its gradient) timed with CUDA
+    events against autograd through ``plain_attention`` and SDPA's
+    backward, with its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import FlashAttention, plain_attention
+    B, S, H, Hkv, hd = TRAIN_MICRO, 4096, FLASH_HEADS, FLASH_KV_HEADS, \
+        FLASH_HD
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 8)
+    q, k, v = (torch.randn((B, S, h, hd), generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_(True)
+               for h in (H, Hkv, Hkv))
+    g = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = FlashAttention.apply(q, k, v, True)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                             retain_graph=True), 3)
+    pq, pk, pv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    plain = plain_attention(pq, pk, pv, causal=True, q_offset=0)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        plain, (pq, pk, pv), g, retain_graph=True), 3)
+    del plain, pq, pk, pv
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib, (qt, kt, vt), g.transpose(1, 2), retain_graph=True), 3)
+    # the least work of a causal attention backward: q, k, v, o and do
+    # read once, dq, dk, dv written once; per kept query-key pair the
+    # recomputed scores, dv, dp, dq and dk products, 2 hd flops each
+    pairs = B * H * S * (S + 1) // 2
+    elements = 4 * q.numel() + 4 * k.numel()   # q o do dq; k v dk dv
+    b_ms, b_by = bound(2 * elements, 10 * hd * pairs, BF16_FLOPS_PER_S)
+    return {"what": "FlashAttention.backward: chunked_attention recomputed "
+                    "and differentiated (torch ops, no kernel of its own)",
+            "shape": [B, H, Hkv, S, hd], "dtype": "bfloat16",
+            "ms": ms, "plain_ms": plain_ms,
+            "plain": "autograd through plain_attention (scores in f32)",
+            "library_ms": library_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "ms_over_library": ms / library_ms}
+
+
+def step_split(torch, fn, regions: list) -> tuple[dict, float, object]:
+    """Run ``fn`` once under ``torch.profiler`` (device activity only)
+    and split its device seconds: a kernel between the i-th pair of
+    spin kernels goes to ``regions[i]`` (the marked regions, which do not
+    nest, enqueue on one stream in the order they were entered); the
+    rest to ``flash_forward``, ``gemm`` or ``other`` by name.  Returns
+    (split, host seconds, fn's result)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    split = dict.fromkeys(("flash_forward", "chunked_backward", "gemm",
+                           "optimizer", "other"), 0.0)
+    gemm = ("nvjet", "gemm", "cutlass", "xmma")
+    opened, inside = 0, False
+    for e in kernels:
+        name = e.name.lower()
+        if "spin_kernel" in name:
+            opened += not inside
+            inside = not inside
+            continue
+        key = (regions[opened - 1] if inside else
+               "flash_forward" if "flash_fwd" in name else
+               "gemm" if any(w in name for w in gemm) else "other")
+        split[key] += e.time_range.elapsed_us() / 1e6
+    check(opened == len(regions) and not inside,
+          f"{opened} marked regions on the device, {len(regions)} entered")
+    return split, wall, out
+
+
+def flash_per_microbatch(remat, layers: int) -> int:
+    """Flash launches of one microbatch's forward and backward under
+    ``remat``'s sqrt grouping (G layers a group): the forward's, the
+    group recomputes' (non-reentrant checkpointing stops a recompute
+    once it has what the backward needs: each group's last layer is
+    not rerun there) and each layer's own recompute."""
+    G = remat.group_for(layers)
+    return 3 * layers - (layers // G if G > 1 else layers)
+
+
+def phase_train(np, torch):
+    """Training: gates (a) to (c) on the Function and a reduced granite,
+    then granite-3-2b trained at full width and depth (gate (d)).
+    Returns (the flash launches of the full-width steps, the backward's
+    record for the kernels line)."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import TRAIN_4K, get_arch
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import Model, attention
+    from repro_torch.models.attention import LONG_SEQ
+    from repro_torch.train import (
+        AdamWConfig, TrainConfig, adamw_init, init_train_state,
+        make_train_step,
+    )
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import leaves, rebuild
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    laps = Laps()
+    record = {"phase": f"train {TRAIN_ARCH}"}
+
+    # (a) the Function's gradients on the card
+    record["grad_check"] = {
+        "shape": [1, 4096, FLASH_HEADS, FLASH_KV_HEADS, FLASH_HD],
+        "tol": TRAIN_GRAD_TOL,
+        **{dtype: attention_grad_check(torch, dtype, 4096, FLASH_HEADS,
+                                       FLASH_KV_HEADS, FLASH_HD)
+           for dtype in ("float32", "bfloat16")}}
+    laps.lap("grad_check")
+
+    # (b) reduced granite in f32 past LONG_SEQ: card against CPU
+    check(TRAIN_CHECK_S > LONG_SEQ, "the check must take the flash op")
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).reduced(), dtype="float32")
+    cpu, card = Model(cfg, device="cpu"), Model(cfg)
+    params_cpu = cpu.init(SERVE_SEED)
+    params = _to(params_cpu, "cuda")
+    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=TRAIN_CHECK_S,
+                             global_batch=2, seed=1).batch(0)
+    tc = TrainConfig()
+    seen = []
+
+    def recording(real):
+        def fn(*args, **kw):
+            seen.append(real(*args, **kw))
+            return seen[-1]
+        return fn
+
+    with patched(step_mod, "loss_and_grads", recording):
+        p_cpu, _, _ = make_train_step(cpu, tc)(
+            params_cpu, adamw_init(params_cpu, tc.optimizer), batch)
+        ops.reset_launches()
+        p_card, _, _ = make_train_step(card, tc)(
+            params, adamw_init(params, tc.optimizer), batch)
+        torch.cuda.synchronize()
+    want, got = seen
+    want_flash = flash_per_microbatch(card.remat, cfg.num_layers)
+    check(ops.LAUNCHES["flash_attention"] == want_flash,
+          f"{ops.LAUNCHES} flash launches in a reduced step, not "
+          f"{want_flash}")
+    loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    grad_rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                   for a, b in zip(leaves(got[2]), leaves(want[2])))
+    param_rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                    for a, b in zip(leaves(p_card), leaves(p_cpu)))
+    record["card_vs_cpu"] = {
+        "config": f"{TRAIN_ARCH} reduced, f32", "seq": TRAIN_CHECK_S,
+        "batch": 2, "loss_rel": loss_rel, "grad_leaf_rel_max": grad_rel,
+        "param_rel_max": param_rel}
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train loss card vs CPU {loss_rel}")
+    check(grad_rel <= TRAIN_LEAF_RTOL, f"gradients card vs CPU {grad_rel}")
+    check(param_rel <= TRAIN_PARAM_RTOL, f"updated weights card vs CPU "
+                                         f"{param_rel}")
+    del cpu, card, params_cpu, params, want, got, seen, p_cpu, p_card
+    laps.lap("card_vs_cpu")
+
+    # (c) resume bit for bit: 2 steps, save, 2 more == restore, 2 steps
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    model = Model(cfg)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3))
+    step = make_train_step(model, tc)
+    ds = SyntheticDataset(vocab=cfg.vocab, seq_len=TRAIN_CHECK_S,
+                          global_batch=2, seed=2)
+
+    def run(params, opt, start, n):
+        for i in range(start, start + n):
+            params, opt, _ = step(params, opt, ds.batch(i))
+        return params, opt
+
+    n = TRAIN_RESUME_STEPS
+    params, opt = run(*init_train_state(model, tc, SERVE_SEED), 0, n)
+    with tempfile.TemporaryDirectory() as d:
+        state = {"params": params, "opt": opt}
+        save(d, n, state)
+        # zeros of the live tree's types: what comes back is the disk's
+        template = rebuild(state, [torch.zeros_like(t) for t in leaves(state)])
+        pa, oa = run(params, opt, n, n)      # updates params in place
+        restored, at = restore(d, template)
+        live = {t.data_ptr() for t in leaves([pa, oa]) if t.numel()}
+        shared = sum(t.data_ptr() in live for t in leaves(restored)
+                     if t.numel())
+        pb, ob = run(restored["params"], restored["opt"], n, n)
+    unequal = sum(int((a != b).sum()) for a, b in
+                  zip(leaves([pa, oa]), leaves([pb, ob])))
+    record["resume"] = {"config": f"{TRAIN_ARCH} reduced, bf16",
+                        "seq": TRAIN_CHECK_S, "steps": [n, n],
+                        "unequal_elements": unequal,
+                        "leaves_sharing_storage": shared}
+    check(at == n and shared == 0 and unequal == 0,
+          f"resumed training differs in {unequal} elements "
+          f"({shared} restored leaves share the live tree's storage)")
+    del model, params, opt, state, pa, oa, pb, ob, restored, template
+    laps.lap("resume")
+
+    # (d) full width and depth
+    full = get_arch(TRAIN_ARCH)
+    model = Model(full)
+    tc = TrainConfig(optimizer=AdamWConfig(), grad_accum=TRAIN_ACCUM)
+    (params, opt), init_s, _ = timed(
+        lambda: init_train_state(model, tc, SERVE_SEED))
+    seq, batch_size = TRAIN_4K.seq_len, TRAIN_MICRO * TRAIN_ACCUM
+    ds = SyntheticDataset(vocab=full.vocab, seq_len=seq,
+                          global_batch=batch_size, seed=0)
+    step = make_train_step(model, tc)
+    G = model.remat.group_for(full.num_layers)
+    n_params = sum(t.numel() for t in leaves(params))
+    record.update(
+        arch=TRAIN_ARCH, layers=full.num_layers, seq=seq,
+        global_batch=batch_size, micro_batch=TRAIN_MICRO,
+        grad_accum=TRAIN_ACCUM, cut=f"global batch {TRAIN_4K.global_batch}"
+        f" -> {batch_size} (one card)", dtype=full.dtype,
+        state_dtype=tc.optimizer.state_dtype,
+        remat={"policy": model.remat.policy, "group": G}, params=n_params,
+        init_s=init_s)
+    _, warm_s, _ = timed(lambda: step(params, opt, ds.batch(0)))
+    laps.lap("train_warmup")
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(1, TRAIN_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, ds.batch(i))
+        torch.cuda.synchronize()
+        steps.append({"step": i, "s": time.perf_counter() - t,
+                      **{k: float(v) for k, v in m.items()}})
+    flash = ops.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(s["s"] for s in steps)[len(steps) // 2]
+    record.update(
+        warmup_s=warm_s, steps=steps, step_s_median=step_s,
+        tokens_per_s=batch_size * seq / step_s, peak_bytes=peak,
+        peak_gb=peak / 1e9, flash_launches=flash,
+        flash_launches_per_step=flash / TRAIN_TIMED_STEPS,
+        flash_launches_per_step_expected=TRAIN_ACCUM * flash_per_microbatch(
+            model.remat, full.num_layers))
+    laps.lap("train_steps")
+
+    # where one step's time goes: the kernels of the chunked backward, of
+    # the optimizer, the flash kernel's forward, the GEMMs and the rest
+    # (profiled step: device activity only, regions marked on the stream)
+    def marked(name):
+        def wrap(real):
+            def fn(*args, **kw):
+                regions.append(name)
+                torch.cuda._sleep(1)          # a spin kernel opens the region
+                out = real(*args, **kw)
+                torch.cuda._sleep(1)          # and one closes it
+                return out
+            return fn
+        return wrap
+
+    regions = []
+    with patched(attention.FlashAttention, "backward",
+                 marked("chunked_backward")), \
+            patched(step_mod, "adamw_update", marked("optimizer")):
+        split, wall, m = step_split(
+            torch, lambda: step(params, opt, ds.batch(TRAIN_TIMED_STEPS + 1)),
+            regions)
+    device_s = sum(split.values())
+    record["profiled_step"] = {
+        "host_s": wall, "device_s": device_s, "busy_share": device_s / wall,
+        "regions": len(regions), "split_s": split,
+        "split_share": {k: v / device_s for k, v in split.items()}
+        if device_s else None,
+        "loss": float(m[2]["loss"]), "grad_norm": float(m[2]["grad_norm"])}
+    check(regions.count("chunked_backward") == TRAIN_ACCUM * full.num_layers,
+          f"{regions.count('chunked_backward')} flash backwards in a step")
+    laps.lap("train_profile")
+    del params, opt, model, step
+    torch.cuda.empty_cache()
+    backward = flash_backward_record(torch)
+    laps.lap("flash_backward")
+    record["flash_backward"] = backward
+    record["seconds"] = laps.seconds
+    emit(record)
+    losses = [s["loss"] for s in steps] + [record["profiled_step"]["loss"]]
+    norms = [s["grad_norm"] for s in steps] + [
+        record["profiled_step"]["grad_norm"]]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"training losses {losses} or grad norms {norms} not finite")
+    check(flash > 0, "the full-width training steps launched no flash "
+                     "kernel")
+    check(device_s > 0, "the profiled step shows no device time")
+    return flash, backward
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3988,6 +4361,12 @@ def main() -> int:
     launches["flash_attention_hd128"] = flash[128]
     launches.update(timed_phase("serve mamba2-1.3b", phase_serve_mamba2, np,
                                 torch, MAMBA2_LAYERS))
+    train_flash, flash_backward = timed_phase(f"train {TRAIN_ARCH}",
+                                              phase_train, np, torch)
+    launches["flash_attention"] += train_flash
+    flash_row = next(r for r in records if r["name"] == "flash_attention")
+    flash_row["train_launches"] = train_flash
+    flash_row["backward"] = flash_backward
     for r in records:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"its path never launched {r['name']}")

@@ -134,11 +134,11 @@ def trace_result_from_arrays(
         flow_demand=flow_demand, extra_exposure=extra_exposure)
 
 
-def _tensor(a: np.ndarray, dtype: torch.dtype,
+def _tensor(a: np.ndarray, dtype: torch.dtype | None,
             device: torch.device) -> torch.Tensor:
-    """A numpy array as a tensor of ``dtype``; a bfloat16 array (numpy's
-    ``ml_dtypes`` extension type) crosses bit for bit as its 16-bit
-    pattern."""
+    """A numpy array as a tensor of ``dtype`` (None: its own); a
+    bfloat16 array (numpy's ``ml_dtypes`` extension type) crosses bit
+    for bit as its 16-bit pattern."""
     a = np.array(a, order="C")            # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -175,10 +175,13 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
     check_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype()
+    return _unstack(cfg, tree, lambda k, v: _tensor(
+        v, torch.float32 if k in F32_LEAVES else dt, dev))
 
-    def leaf(k: str, v) -> torch.Tensor:
-        return _tensor(v, torch.float32 if k in F32_LEAVES else dt, dev)
 
+def _unstack(cfg: ArchConfig, tree: dict, leaf) -> dict:
+    """``lm_params_from_numpy``'s walk, each leaf made by ``leaf(key,
+    array)``."""
     def whole(sub: dict) -> dict:
         return {k: whole(v) if isinstance(v, dict) else leaf(k, v)
                 for k, v in sub.items()}
@@ -224,3 +227,63 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: dict, *,
         else:
             params[k] = leaf(k, v)
     return params
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy; bfloat16 (which numpy lacks) widens
+    to float32, exactly."""
+    t = t.detach().to("cpu")
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stack(items: list):
+    """Stack a list of like trees leaf by leaf on a new leading axis; a
+    list inside each item (a hybrid period's sublayers) is stacked
+    first, giving two leading axes."""
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _stack([it[k] for it in items]) for k in first}
+    if isinstance(first, list):
+        return _stack([_stack(it) for it in items])
+    if isinstance(first, np.ndarray):
+        return np.stack(items)
+    return np.stack([_to_numpy(t) for t in items])
+
+
+def lm_params_to_numpy(cfg: ArchConfig, params: dict) -> dict:
+    """The inverse of ``lm_params_from_numpy``: the port's LM tree (its
+    weights, or anything of their structure: gradients, AdamW moments)
+    as the JAX package's pytree of numpy arrays, each list of layers
+    stacked back on a leading axis (a hybrid's sublayer lists on a
+    second), so that it compares leaf by leaf with the reference's.
+    Leaves keep their dtype; bfloat16 comes back as float32 of the same
+    values."""
+    check_supported(cfg)
+
+    def whole(sub):
+        if isinstance(sub, dict):
+            return {k: whole(v) for k, v in sub.items()}
+        return _to_numpy(sub)
+
+    return {k: _stack(v) if isinstance(v, list) else whole(v)
+            for k, v in params.items()}
+
+
+def adamw_state_from_numpy(cfg: ArchConfig, state: dict, *,
+                           device=None) -> dict:
+    """The port's AdamW state from the reference's ``{"m", "v",
+    "step"}`` as numpy arrays: the moments laid out as the port's
+    parameters (``lm_params_from_numpy``'s walk), each keeping its own
+    dtype (float32, or bfloat16 for ``state_dtype="bfloat16"``, bit for
+    bit), and the step an int32 scalar, on ``device`` (the card unless
+    ``"cpu"``)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def own(k: str, v) -> torch.Tensor:
+        return _tensor(v, None, dev)
+
+    return {"m": _unstack(cfg, state["m"], own),
+            "v": _unstack(cfg, state["v"], own),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}

@@ -10,7 +10,9 @@ routes them:
   to the flash-attention op (``kernels/flash_attention``: the CUDA
   kernel on a CUDA tensor, its plain version on a CPU tensor), where
   the reference runs its XLA twin of the Pallas kernel,
-  ``chunked_attention``;
+  ``chunked_attention``; under autograd through ``FlashAttention``,
+  whose backward differentiates ``chunked_attention`` as the reference
+  does;
 * long self-attention that the kernel does not take goes to
   ``chunked_attention``: windowed, or with a v head dim other than
   q's and k's (MLA's prefill: 192 against 128), as the reference runs
@@ -117,6 +119,35 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash op under autograd.  Forward: ``kernels.flash_attention.
+    ops.flash_attention`` (the kernel on a CUDA tensor, which launches or
+    raises; its plain version on a CPU one).  Backward: the gradient of
+    ``chunked_attention`` — the port of the reference's XLA path, the one
+    ``jax.grad`` differentiates there — recomputed on the saved q, k, v.
+    The kernel's plain version never runs on the card.  q: (B, S, H,
+    hd); k, v: (B, S, Hkv, hd), strided as ``attention_any`` gets them;
+    dq, dk and dv come back in those shapes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        # (B, S, H, hd) views as (B, H, S, hd): the kernel reads strides
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal)
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = chunked_attention(*leaves, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, leaves, grad)
+        return dq, dk, dv, None
+
+
 def attention_any(q, k, v, *, causal, q_offset=0, window=0):
     """Long self-attention to the flash op (or, windowed or with v's head
     dim apart from q's, to ``chunked_attention``); everything else to
@@ -124,10 +155,7 @@ def attention_any(q, k, v, *, causal, q_offset=0, window=0):
     if q.shape[1] > 1 and k.shape[1] > LONG_SEQ and q.shape[1] == k.shape[1]:
         if window > 0 or v.shape[-1] != q.shape[-1]:
             return chunked_attention(q, k, v, causal=causal, window=window)
-        # (B, S, H, hd) views as (B, H, S, hd): the kernel reads strides
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal)
-        return out.transpose(1, 2)
+        return FlashAttention.apply(q, k, v, causal)
     return plain_attention(q, k, v, causal=causal, q_offset=q_offset,
                            window=window)
 

@@ -25,14 +25,24 @@ Batch keys, as in the reference: ``tokens`` (B, S), or ``embeds`` (B, S,
 D) in their place; ``mrope_positions`` (3, B, S) for M-RoPE; for the
 encoder-decoder ``enc_embeds`` (B, Se, D), or the encoder's output
 ``enc_memory`` in their place, which skips the encoder.
+
+Training runs the same forward under autograd (``Model.loss``): without
+caches the layers go through ``run_layers_remat``, which checkpoints
+them as the reference's ``scan_layers_remat`` does (``RematPolicy``),
+and a MoE's load-balance aux loss is summed over its layers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+import math
+from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ArchConfig
 from .attention import (
@@ -150,7 +160,10 @@ def _swiglu_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
 
 def _dense_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *, positions,
                  rope, mrope_positions=None, mask=None, cache=None,
-                 cache_index=None, window=0) -> torch.Tensor:
+                 cache_index=None, window=0, with_aux=False
+                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x', the MoE's aux loss where ``with_aux`` and the layer has a
+    MoE, else None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla:
         attn_out, _ = mla_forward(p["attn"], cfg, h, positions=positions,
@@ -166,8 +179,9 @@ def _dense_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *, positions,
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     m = p["mlp"]
     if cfg.moe:                 # the aux loss feeds only training's loss
-        return x + moe_forward(m, cfg, h, with_aux=False)[0]
-    return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+        y, aux = moe_forward(m, cfg, h, with_aux=with_aux)
+        return x + y, aux
+    return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
 
 
 def _ssm_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
@@ -205,14 +219,17 @@ def _jamba_period_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
 
 def _jamba_period(p: dict, cfg: ArchConfig, x: torch.Tensor, *, caches,
                   period: int, positions, rope, mask, cache_index,
-                  window) -> torch.Tensor:
+                  window, with_aux=False
+                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The reference's ``_jamba_period``: sublayer ``attn_index`` is GQA
     attention (windowed by ``window``), the others Mamba-1 in order; an
     FFN follows each, the MoE after odd in-period indices.  ``caches``
     (decode) is the whole stacked cache; this period's slices of it are
-    written in place."""
+    written in place.  Returns (x', the period's summed MoE aux loss
+    where ``with_aux``, else None)."""
     eps = cfg.norm_eps
     mi = di = ei = 0
+    aux_total = None
     for sub in range(cfg.hybrid.period):
         if sub == cfg.hybrid.attn_index:
             ap = p["attn"]
@@ -232,15 +249,18 @@ def _jamba_period(p: dict, cfg: ArchConfig, x: torch.Tensor, *, caches,
         x = x + out
         if sub % 2 == 1:
             fp = p["moe_ffn"][ei]
-            x = x + moe_forward(fp, cfg, rms_norm(x, fp["ln"], eps),
-                                with_aux=False)[0]
+            y, aux = moe_forward(fp, cfg, rms_norm(x, fp["ln"], eps),
+                                 with_aux=with_aux)
+            x = x + y
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
             ei += 1
         else:
             fp = p["dense_ffn"][di]
             x = x + swiglu(rms_norm(x, fp["ln"], eps), fp["w_gate"],
                            fp["w_up"], fp["w_down"])
             di += 1
-    return x
+    return x, aux_total
 
 
 def _gelu_mlp_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
@@ -272,6 +292,101 @@ def _decoder_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
 
 def _mlp(p: dict, h: torch.Tensor) -> torch.Tensor:
     return gelu_mlp(h, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+
+
+def _save_2d_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective checkpointing's policy for ``dots_with_no_batch_dims_
+    saveable``: keep the outputs of products without a batch dimension
+    (``x @ w`` of a projection lowers to ``aten.mm``), recompute the rest
+    (the attention's batched ``bmm`` included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: the reference's ``jax.checkpoint_policies`` the port takes, each as
+#: ``torch.utils.checkpoint`` keywords
+REMAT_POLICIES = {
+    "nothing_saveable": {},
+    "dots_with_no_batch_dims_saveable": {
+        "context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                        _save_2d_products)},
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RematPolicy:
+    """Activation recomputation for training, the reference's
+    ``RematPolicy`` on ``torch.utils.checkpoint`` (non-reentrant).
+
+    ``nothing_saveable`` keeps only each checkpointed block's input and
+    recomputes the block in the backward; ``dots_with_no_batch_dims_
+    saveable`` keeps the 2-D products' outputs as well.  ``scan_group``
+    is the reference's sqrt remat: groups of G layers, each group and
+    each layer in it checkpointed, so about L / G + G block inputs live
+    at once instead of L; 0 picks the largest divisor of L at most √L, 1
+    checkpoints each layer alone."""
+
+    enabled: bool = True
+    policy: str = "nothing_saveable"
+    scan_group: int = 0
+
+    def __post_init__(self):
+        if self.policy not in REMAT_POLICIES:
+            raise ValueError(f"remat policy {self.policy!r}: the port takes "
+                             f"{sorted(REMAT_POLICIES)}")
+
+    def wrap(self, fn: Callable) -> Callable:
+        if not self.enabled:
+            return fn
+        kw = REMAT_POLICIES[self.policy]
+
+        def run(*args):
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return run
+
+    def group_for(self, L: int) -> int:
+        if not self.enabled:
+            return 1
+        if self.scan_group:
+            return self.scan_group if L % self.scan_group == 0 else 1
+        g = math.isqrt(L)
+        while g > 1 and L % g:
+            g -= 1
+        return g
+
+
+#: serving's forward: no checkpoint
+NO_REMAT = RematPolicy(enabled=False)
+
+
+def run_layers_remat(block: Callable, x: torch.Tensor, layers: list,
+                     remat: RematPolicy
+                     ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The reference's ``scan_layers_remat`` over the port's list of
+    layers: ``block(x, layer) -> (x, aux | None)`` run in order, each
+    call checkpointed by ``remat``, and with ``remat.group_for(L)`` G > 1
+    each run of G layers checkpointed as one block too.  Returns (x, the
+    blocks' aux losses that are not None, in layer order)."""
+    one = remat.wrap(block)
+
+    def run(x, group):
+        auxs = []
+        for lp in group:
+            x, aux = one(x, lp)
+            if aux is not None:
+                auxs.append(aux)
+        return x, auxs
+
+    G = remat.group_for(len(layers))
+    if G <= 1:
+        return run(x, layers)
+    grouped = remat.wrap(run)
+    auxs = []
+    for g0 in range(0, len(layers), G):
+        x, a = grouped(x, layers[g0:g0 + G])
+        auxs += a
+    return x, auxs
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator) -> dict:
@@ -320,22 +435,25 @@ def _unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"]
 
 
-def run_encoder(params: dict, cfg: ArchConfig,
-                enc_embeds: torch.Tensor) -> torch.Tensor:
+def run_encoder(params: dict, cfg: ArchConfig, enc_embeds: torch.Tensor,
+                remat: RematPolicy = NO_REMAT) -> torch.Tensor:
     """The encoder over frame embeddings (B, Se, D): non-causal
-    self-attention and the GELU MLP, pre-LN.  Its final norm borrows the
-    decoder's ``final_norm`` scale with its own bias
-    ``enc_final_norm_b``, as the reference's does."""
+    self-attention and the GELU MLP, pre-LN, its layers checkpointed by
+    ``remat``.  Its final norm borrows the decoder's ``final_norm`` scale
+    with its own bias ``enc_final_norm_b``, as the reference's does."""
     x = enc_embeds.to(cfg.param_dtype())
     positions = torch.arange(x.shape[1], device=x.device)
     rope = rotary_tables(cfg, positions, None, cfg.hd)
-    for lp in params["encoder"]:
+
+    def block(x, lp):
         h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
         out, _ = gqa_forward(lp["attn"], cfg, h, positions=positions,
                              causal=False, rope=rope)
         x = x + out
         h = layer_norm(x, lp["ln2"], lp["ln2b"], cfg.norm_eps)
-        x = x + _mlp(lp["mlp"], h)
+        return x + _mlp(lp["mlp"], h), None
+
+    x, _ = run_layers_remat(block, x, params["encoder"], remat)
     return layer_norm(x, params["final_norm"], params["enc_final_norm_b"],
                       cfg.norm_eps)
 
@@ -357,15 +475,25 @@ def _layer_caches(caches: dict, i: int) -> dict:
     return {k: c[i] for k, c in caches.items()}
 
 
+def _cache_of(caches: Optional[dict], i: Optional[int]) -> Optional[dict]:
+    """Layer ``i``'s slices of stacked caches, or None without caches."""
+    return None if caches is None else _layer_caches(caches, i)
+
+
 def lm_forward(
     params: dict, cfg: ArchConfig, batch: dict, *,
+    remat: RematPolicy = NO_REMAT,
     caches: Optional[dict] = None,
     cache_index: Optional[int] = None,
     window_override: Optional[int] = None,
     last_only: bool = False,
-) -> tuple[torch.Tensor, Optional[dict]]:
-    """Returns (logits (B, S, V), caches | None); the caches are updated
-    in place.  last_only: unembed only the final position."""
+    with_aux: bool = False,
+) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
+    """Returns (logits (B, S, V), caches | None, the MoE aux loss summed
+    over the layers: an f32 scalar, 0 without a MoE or ``with_aux``); the
+    caches are updated in place.  last_only: unembed only the final
+    position.  ``remat`` checkpoints the layers of a forward without
+    caches (training's; serving passes none)."""
     x = _embed(params, cfg, batch)
     S = x.shape[1]
     start = 0 if cache_index is None else cache_index
@@ -380,39 +508,53 @@ def lm_forward(
         if caches is not None:
             mask = cache_mask(start, S, _cache_len(cfg, caches), window,
                               x.device)
+    kw = dict(positions=positions, rope=rope, mask=mask,
+              cache_index=cache_index)
+    # block(x, layer, i) -> (x, aux | None); i picks the layer's slice of
+    # the caches (None without caches)
     if cfg.family == "ssm":                      # cache_index plays no part
-        for i, lp in enumerate(params["layers"]):
-            x = _ssm_layer(lp, cfg, x, cache=None if caches is None
-                           else _layer_caches(caches, i))
+        layers = params["layers"]
+
+        def block(x, lp, i):
+            return _ssm_layer(lp, cfg, x, cache=_cache_of(caches, i)), None
     elif cfg.family == "hybrid":
-        for i, pp in enumerate(params["periods"]):
-            x = _jamba_period(pp, cfg, x, caches=caches, period=i,
-                              positions=positions, rope=rope, mask=mask,
-                              cache_index=cache_index, window=window)
+        layers = params["periods"]
+
+        def block(x, pp, i):
+            return _jamba_period(pp, cfg, x, caches=caches, period=i,
+                                 window=window, with_aux=with_aux, **kw)
     elif cfg.family == "encdec":
         memory = batch.get("enc_memory")
         if memory is None:
-            memory = run_encoder(params, cfg, batch["enc_embeds"])
-        for i, lp in enumerate(params["layers"]):
-            x = _decoder_layer(lp, cfg, x, memory, positions=positions,
-                               rope=rope, mask=mask,
-                               cache=None if caches is None
-                               else _layer_caches(caches, i),
-                               cache_index=cache_index)
+            memory = run_encoder(params, cfg, batch["enc_embeds"], remat)
+        layers = params["layers"]
+
+        def block(x, lp, i):
+            return _decoder_layer(lp, cfg, x, memory,
+                                  cache=_cache_of(caches, i), **kw), None
     else:
-        kw = dict(positions=positions, rope=rope,
-                  mrope_positions=batch.get("mrope_positions"), mask=mask,
-                  cache_index=cache_index, window=window)
+        kw.update(mrope_positions=batch.get("mrope_positions"), window=window)
         stack = caches
-        if _first_dense(cfg):
-            x = _dense_layer(params["layer0"],
-                             dataclasses.replace(cfg, moe=None), x,
-                             cache=None if caches is None
-                             else caches["layer0"], **kw)
+        if _first_dense(cfg):       # unrolled, outside the remat, as there
+            x, _ = _dense_layer(params["layer0"],
+                                dataclasses.replace(cfg, moe=None), x,
+                                cache=None if caches is None
+                                else caches["layer0"], **kw)
             stack = None if caches is None else caches["layers"]
-        for i, lp in enumerate(params["layers"]):
-            x = _dense_layer(lp, cfg, x, cache=None if stack is None
-                             else _layer_caches(stack, i), **kw)
+        layers = params["layers"]
+
+        def block(x, lp, i):
+            return _dense_layer(lp, cfg, x, cache=_cache_of(stack, i),
+                                with_aux=with_aux, **kw)
+    auxs: list[torch.Tensor] = []
+    if remat.enabled and caches is None:
+        x, auxs = run_layers_remat(lambda x, lp: block(x, lp, None), x,
+                                   layers, remat)
+    else:       # in this frame, so that no layer's input outlives it
+        for i, lp in enumerate(layers):
+            x, aux = block(x, lp, i)
+            if aux is not None:
+                auxs.append(aux)
     if last_only:
         x = x[:, -1:, :]
     if cfg.family == "encdec":
@@ -420,7 +562,9 @@ def lm_forward(
                        cfg.norm_eps)
     else:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x), caches
+    aux = (torch.stack(auxs).sum() if auxs else
+           torch.zeros((), dtype=torch.float32, device=x.device))
+    return _unembed(params, cfg, x), caches, aux
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:

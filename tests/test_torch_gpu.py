@@ -928,6 +928,111 @@ def test_model_and_serving_on_card_equal_cpu(card):
     assert torch.equal(got.cpu(), want)
 
 
+def _attention_grads(fn, q, k, v, w):
+    """dq, dk, dv of sum(fn(q, k, v) * w), q, k, v as leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    return torch.autograd.grad((out.float() * w).sum(), leaves)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_gradients_on_card(card, dtype):
+    """The flash op's autograd Function (the kernel forward, the
+    recomputed ``chunked_attention`` backward) against autograd through
+    ``plain_attention`` on the card, past ``LONG_SEQ``: 32 query heads
+    over 8, hd 64, causal.  f32 within 1e-5 of each gradient's largest
+    |value|; bf16 against the f32 plain gradients within bf16's 5e-2."""
+    from repro_torch.models.attention import (
+        LONG_SEQ, FlashAttention, plain_attention,
+    )
+    S = LONG_SEQ + 128
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn((1, S, h, 64), generator=gen, device=card)
+               for h in (32, 8, 8))
+    w = torch.randn((1, S, 32, 64), generator=gen, device=card)
+    want = _attention_grads(lambda q, k, v: plain_attention(
+        q, k, v, causal=True, q_offset=0), *(t.to(dtype).float()
+                                             for t in (q, k, v)), w)
+    fa_ops.reset_launches()
+    got = _attention_grads(lambda q, k, v: FlashAttention.apply(q, k, v,
+                                                                True),
+                           *(t.to(dtype) for t in (q, k, v)), w)
+    assert fa_ops.LAUNCHES == {"flash_attention": 1}
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = float((a.float() - b).abs().max())
+        assert err <= tol * float(b.abs().max()), err
+
+
+def test_flash_function_never_reaches_the_plain_version_on_card(
+        card, monkeypatch):
+    """On CUDA tensors the Function's forward launches the kernel and its
+    backward recomputes ``chunked_attention``: the kernel's plain
+    version, made to raise, is never called."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref_mod
+    from repro_torch.models.attention import LONG_SEQ, attention_any
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain flash version ran on the card")
+
+    monkeypatch.setattr(fa_ops, "flash_attention_ref", refuse)
+    monkeypatch.setattr(fa_ref_mod, "flash_attention_ref", refuse)
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn((2, LONG_SEQ + 64, h, 64), generator=gen,
+                           device=card, dtype=torch.bfloat16)
+               .requires_grad_(True) for h in (8, 2, 2))
+    fa_ops.reset_launches()
+    out = attention_any(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == {"flash_attention": 1}
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+#: a training sequence past ``LONG_SEQ`` (2,048)
+LONG_SEQ_TRAIN = 2176
+
+
+def test_train_step_on_card_equals_cpu(card):
+    """Reduced granite in f32 at 2,176 tokens (past ``LONG_SEQ``: the
+    Function and the kernel run): the loss within 1e-5 relative, each
+    gradient leaf within 1e-4 of its largest |value|, and the weights
+    after one ``train_step`` within 1e-5 of their largest |value|."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.train import (
+        TrainConfig, adamw_init, loss_and_grads, make_train_step,
+    )
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(ARCHS["granite-3-2b"].reduced(), dtype="float32")
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    params = cpu.init(0)
+    params_gpu = _to(params, card)
+    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=LONG_SEQ_TRAIN,
+                             global_batch=2, seed=1).batch(0)
+    want = loss_and_grads(cpu, params, {k: torch.from_numpy(v)
+                                        for k, v in batch.items()})
+    fa_ops.reset_launches()
+    got = loss_and_grads(gpu, params_gpu, {k: torch.from_numpy(v).to(card)
+                                           for k, v in batch.items()})
+    assert fa_ops.LAUNCHES["flash_attention"] > 0
+    assert abs(got[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item())
+    for a, b in zip(leaves(got[2]), leaves(want[2])):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), err
+    tc = TrainConfig()
+    p_cpu, _, _ = make_train_step(cpu, tc)(params, adamw_init(params,
+                                                             tc.optimizer),
+                                           batch)
+    p_gpu, _, _ = make_train_step(gpu, tc)(
+        params_gpu, adamw_init(params_gpu, tc.optimizer), batch)
+    for a, b in zip(leaves(p_gpu), leaves(p_cpu)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-5 * float(b.abs().max()), err
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,kv_heads", [(32, 2), (64, 8), (16, 16)])
 def test_flash_kernel_at_hd128_serving_groups(card, dtype, heads, kv_heads):

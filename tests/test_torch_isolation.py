@@ -63,7 +63,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                    "repro_torch.kernels.ssd.build",
                    "repro_torch.kernels.ssd.ops", "repro_torch.models.ssm",
                    "repro_torch.models.model", "repro_torch.serve.engine",
-                   "repro_torch.interop"):
+                   "repro_torch.interop", "repro_torch.tree",
+                   "repro_torch.train.optimizer", "repro_torch.train.step",
+                   "repro_torch.data.pipeline",
+                   "repro_torch.checkpoint.store",
+                   "repro_torch.ft.elastic", "repro_torch.ft.straggler"):
         assert module in out
     assert [m for m in out if _forbidden(m)] == []
     assert [m for m in out if m == "triton" or m.startswith("triton.")] == []
