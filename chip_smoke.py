@@ -143,14 +143,14 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
 9. drives glm4-9b serving the same way at full width and depth (40
    layers, q/k/v biases, 32 query heads over 2 kv heads: 40 flash
    launches at hd 128), its ``generate`` and decode checks at
-   ``GEN_LAYERS_CUT`` (4) of the 40 layers (printed with ``reduced``),
+   ``GEN_LAYERS_CUT`` (2) of the 40 layers (printed with ``reduced``),
    the 2-layer f32 checks with nonzero biases drawn from the seed;
 10. drives qwen2-moe-a2.7b the same way at full width and depth (24
    layers, 60 experts, top 4, a shared expert, 16 heads over 16 at hd
    128): the prefill at the config's capacity factor, which drops
    tokens (the drops of each layer printed); ``generate`` and the
    decode checks drop-free (capacity factor 60) at ``GEN_LAYERS_CUT``
-   (4) layers, each prompt position of the generate routed, layer by
+   (2) layers, each prompt position of the generate routed, layer by
    layer, to the experts the prompts' prefill chose for it (decode's
    own choice would differ where two experts' router logits tie within
    the bf16 rounding: the differing positions of each layer and
@@ -169,8 +169,8 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    ``chunked_attention`` with no flash launch, and that function's
    time in the profiled prefill; ``generate`` for 4 x 520-token prompts
    through the absorbed decode over the latent cache at
-   ``GEN_LAYERS_CUT`` (4) of the 27 layers (printed with ``reduced``),
-   forced to the prefill's experts (3 routings a step); and the 2-layer
+   ``GEN_LAYERS_CUT`` (2) of the 27 layers (printed with ``reduced``),
+   forced to the prefill's experts (1 routing a step); and the 2-layer
    f32 model
    (the dense layer and one MoE layer) at 2,304 tokens, card against
    CPU, then its absorbed decode of the last token against its
@@ -237,7 +237,30 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    rest; then the Function's backward alone at that shape against SDPA's
    (a sub-row of the flash row on the ``kernels`` line, whose launches
    count the train steps' too);
-18. prints the ``kernels`` record, each phase's seconds and, last, the
+18. trains the scan families ("train mamba2-1.3b"): (a) the selective
+   scan's backward kernel against its plain version at jamba's full
+   width (B 2, d_inner 16,384, N 16) over S 512, x, B and C in f32 and
+   bf16, with a final-state cotangent: dx and ddt row by row, dA, dB and
+   dC relative to their largest |value|, within ``ref.BWD_RTOL`` (1e-5),
+   and two runs equal bit for bit; then timed at S 4,096 (its row on the
+   ``kernels`` line); (b) ``SSDScan``'s gradients (the kernel forward,
+   ``ssd_twin`` recomputed in the backward) against autograd through the
+   twin at mamba2's training shape (B 2, S 4,096, 64 heads, N 128, hd
+   64, Q 256), f32 within 1e-5, bf16 within 5e-2, and its backward
+   timed; (c) reduced mamba2-1.3b and reduced jamba (one period) in f32
+   at 2,176 tokens, one ``train_step`` on the card against the CPU
+   under granite's limits, with the launches remat gives (the conv
+   biases drawn from the seed, Mamba's dt init); (d) reduced mamba2 in
+   bf16, 2 + 2 steps against a restore, bit for bit; (e) mamba2-1.3b at
+   full width and all 48 layers as granite trains (2 x 2 sequences of
+   4,096 tokens, bf16, f32 AdamW state, sqrt remat in groups of 6):
+   seconds, tokens/s, peak memory and a profiled step split into
+   ``ssd.cu``, SSD's recompute backward, GEMMs, the optimizer and the
+   rest; and one full-width Mamba-1 sublayer of jamba forward and
+   backward, timed with CUDA events (jamba's period does not fit one card in
+   training: printed with ``reduced``).  From (c) on no call with a CUDA
+   tensor reaches the scans' plain versions;
+19. prints the ``kernels`` record, each phase's seconds and, last, the
    one-line result.
 
 Each serving phase prints its seconds by step, and its decode rate
@@ -259,7 +282,9 @@ them: the hd-64 row counts granite's prefills (whisper-large-v3, at hd
 64, launches none), the hd-128 row those of glm4-9b, qwen2-moe-a2.7b,
 qwen2-72b, qwen2-vl-72b and jamba-1.5-large-398b (deepseek-v2-lite-16b,
 at hd 128, launches none: its prefill takes ``chunked_attention``).  The
-selective scan's launches are jamba's prefill's.
+selective scan's launches are jamba's prefill's and the scan training
+phase's, its backward's that phase's (the reduced jamba step and the
+full-width sublayer); SSD's are mamba2's prefill's and its training's.
 
 Every check raises, so any failure exits non-zero before the result
 line.  Without a CUDA card, or without the repository around it, the
@@ -533,8 +558,9 @@ MAMBA2_LAYERS = 12
 # decode checks, cut from 40, 24 and 27 layers (their 2 x 32,768-token
 # prefills stay at full depth) so that the script keeps inside 600 s
 # beside qwen2-vl-72b, whisper-large-v3, jamba-1.5-large-398b and the
-# train phase (8 layers until the train phase came)
-GEN_LAYERS_CUT = 4
+# train phases (8 layers until granite's train phase came, 4 until the
+# scan families' came)
+GEN_LAYERS_CUT = 2
 # qwen2-vl-72b: one 64 x 64 block of merged patches after 1,024 text
 # positions of the 32,768 (text positions before, side); its f32
 # card-against-CPU check at 512 positions (a 16 x 16 block after 64),
@@ -588,6 +614,26 @@ TRAIN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 TRAIN_CHECK_S = 2_176
 TRAIN_LOSS_RTOL, TRAIN_LEAF_RTOL, TRAIN_PARAM_RTOL = 1e-5, 1e-4, 1e-5
 TRAIN_RESUME_STEPS = 2
+# host seconds a profile's window stays open before the first kernel and
+# after the last (``step_split``), and the training steps profiled at most
+# until one's profile holds every region marker (a CUDA-only profile has
+# lost a record)
+PROFILE_MARGIN_S = 0.05
+PROFILE_ATTEMPTS = 3
+# training the scan families: mamba2-1.3b at full width and depth as
+# granite trains; the selective scan's backward kernel held against its
+# plain version at jamba's full width over a cut S (the plain reverse
+# loop is some twenty launches a step), then timed at jamba's training
+# length; the reduced configs' zero-initialised conv biases drawn
+# N(0, BIAS_STD) for the card-vs-CPU step (``phase_train_scan``)
+TRAIN_SCAN_ARCH = "mamba2-1.3b"
+SCAN_BWD_CHECK_S = 512
+SCAN_BWD_TIMED_S = 4_096
+SCAN_BIASES = ("conv_b", "conv_x_b", "conv_B_b", "conv_C_b")
+# the scan kernels' plain versions, which no CUDA tensor may reach in
+# training outside gates (a) and (b)
+SCAN_PLAIN = ("selective_scan_ref", "selective_scan_bwd_ref")
+SSD_PLAIN = ("ssd_intra_chunk_ref",)
 
 
 class CheckFailed(RuntimeError):
@@ -2194,39 +2240,6 @@ def phase_flash(np, torch):
     return [record, record128]
 
 
-def ssd_inputs(torch, B, S, dtype, seed):
-    """x (B, S, H, hd) N(0, 1) * 0.5 and Bm, Cm (B, S, N) N(0, 1) * 0.3 in
-    ``dtype``; in f32, dt (B, S, H) as the model makes it with Mamba-2's
-    init, softplus(z + dt_bias) with z ~ N(0, 1) and each head's dt_bias
-    softplus^-1 of a log-uniform draw in DT_RANGE, and A =
-    -exp(log(linspace(1, 16, H))) (mamba2's A_log)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    H, hd, N = SSD_HEADS, SSD_HD, SSD_STATE
-    x = (torch.randn((B, S, H, hd), generator=gen, device="cuda") * 0.5
-         ).to(dtype)
-    lo, hi = (float(v) for v in torch.log(torch.tensor(DT_RANGE)))
-    u = torch.exp(torch.empty(H, device="cuda").uniform_(lo, hi, generator=gen))
-    dt = torch.nn.functional.softplus(
-        torch.randn((B, S, H), generator=gen, device="cuda")
-        + torch.log(torch.expm1(u)))
-    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device="cuda")))
-    Bm, Cm = ((torch.randn((B, S, N), generator=gen, device="cuda") * 0.3)
-              .to(dtype) for _ in range(2))
-    return x, dt, A, Bm, Cm
-
-
-def ssd_chunks(x, dt, A, Bm, Cm):
-    """The intra-chunk contract as views of the sequence-major tensors
-    (what ``ops.ssd_scan`` hands the kernel)."""
-    B, S, H, hd = x.shape
-    Q, N = SSD_CHUNK, Bm.shape[-1]
-    nc = S // Q
-    a = (dt * A).view(B, nc, Q, H).permute(0, 3, 1, 2)[..., None]
-    return (a, dt.view(B, nc, Q, H).permute(0, 3, 1, 2)[..., None],
-            Bm.view(B, nc, Q, N), Cm.view(B, nc, Q, N),
-            x.view(B, nc, Q, H, hd).permute(0, 3, 1, 2, 4))
-
-
 def phase_ssd(np, torch):
     """The SSD intra-chunk kernel against its plain version on the card
     in bf16 and f32, alone and inside the whole scan; returns its record
@@ -2296,8 +2309,9 @@ def phase_ssd(np, torch):
     for dtype in ("bfloat16", "float32"):
         tdt = getattr(torch, dtype)
         B, S = PREFILL_BATCH, PREFILL_LEN
-        x, dt, A, Bm, Cm = ssd_inputs(torch, B, S, tdt, 21)
-        args = ssd_chunks(x, dt, A, Bm, Cm)
+        x, dt, A, Bm, Cm = ref.ssd_inputs(B, S, tdt, 21, SSD_HEADS, SSD_HD,
+                                          SSD_STATE)
+        args = ref.ssd_chunks(x, dt, A, Bm, Cm, SSD_CHUNK)
         got = ops.ssd_intra_chunk(*args)
         torch.cuda.synchronize()
         want = ref.ssd_intra_chunk_ref(*args)
@@ -2356,7 +2370,8 @@ def phase_ssd(np, torch):
         # the whole scan: y and the final state, at S 32,768 and ragged
         for S_scan in (S, RAGGED_S):
             if S_scan != S:
-                x, dt, A, Bm, Cm = ssd_inputs(torch, B, S_scan, tdt, 22)
+                x, dt, A, Bm, Cm = ref.ssd_inputs(
+                    B, S_scan, tdt, 22, SSD_HEADS, SSD_HD, SSD_STATE)
             y, st = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=SSD_CHUNK)
             y_p, st_p = plain_scan(x, dt, A, Bm, Cm)
             tag = f"({dtype}, S {S_scan})"
@@ -2435,10 +2450,11 @@ def all_finite(torch, t) -> bool:
     return all(bool(torch.isfinite(c).all()) for c in t.split(4096, dim=1))
 
 
-def draw_biases(torch, params, seed):
-    """Every bias the reference's init makes zero (``BIASES``: q/k/v, the
-    GELU MLP's and the layer norms') drawn N(0, BIAS_STD) from ``seed``,
-    walking the tree in its order, so that a check sees them."""
+def draw_biases(torch, params, seed, names=BIASES):
+    """Every bias the reference's init makes zero (``names``; by default
+    ``BIASES``: q/k/v, the GELU MLP's and the layer norms') drawn N(0,
+    BIAS_STD) from ``seed``, walking the tree in its order, so that a
+    check sees them."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
     def walk(tree):
@@ -2446,7 +2462,7 @@ def draw_biases(torch, params, seed):
         for k, v in items:
             if isinstance(v, (dict, list)):
                 walk(v)
-            elif k in BIASES:
+            elif k in names:
                 tree[k] = (torch.randn(v.shape, generator=gen)
                            * BIAS_STD).to(v.device, v.dtype)
     walk(params)
@@ -4015,94 +4031,100 @@ def flash_backward_record(torch):
             "bound_by": b_by, "ms_over_library": ms / library_ms}
 
 
-def step_split(torch, fn, regions: list) -> tuple[dict, float, object]:
+def step_split(torch, fn, regions: list, named: dict
+               ) -> tuple[dict, float, object, bool]:
     """Run ``fn`` once under ``torch.profiler`` (device activity only)
     and split its device seconds: a kernel between the i-th pair of
     spin kernels goes to ``regions[i]`` (the marked regions, which do not
     nest, enqueue on one stream in the order they were entered); the
-    rest to ``flash_forward``, ``gemm`` or ``other`` by name.  Returns
-    (split, host seconds, fn's result)."""
+    rest to the first key of ``named`` ({key: name parts}) whose parts
+    its name holds, else to ``gemm`` or ``other`` by name.  Returns
+    (split, host seconds, fn's result, whether every marker of every
+    region entered was recorded: a CUDA-only profile has been seen to
+    lose one of some 10^5 records, and a lost marker shifts the
+    split)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the window stays open a margin before the first kernel and after
+        # the last ends: without it a step's profile lost a marker in 2 of
+        # 2 full runs, with it in none of 4
+        time.sleep(PROFILE_MARGIN_S)
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    split = dict.fromkeys(("flash_forward", "chunked_backward", "gemm",
-                           "optimizer", "other"), 0.0)
+        time.sleep(PROFILE_MARGIN_S)
+    # the device activities as recorded, without the profiler's parse
+    # into its event tree (seconds at a step's some 10^5 kernels)
+    kernels = sorted((e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.start_ns())
+    split = dict.fromkeys((*named, *regions, "gemm", "other"), 0.0)
     gemm = ("nvjet", "gemm", "cutlass", "xmma")
     opened, inside = 0, False
     for e in kernels:
-        name = e.name.lower()
+        name = e.name().lower()
         if "spin_kernel" in name:
             opened += not inside
             inside = not inside
             continue
-        key = (regions[opened - 1] if inside else
-               "flash_forward" if "flash_fwd" in name else
-               "gemm" if any(w in name for w in gemm) else "other")
-        split[key] += e.time_range.elapsed_us() / 1e6
-    check(opened == len(regions) and not inside,
-          f"{opened} marked regions on the device, {len(regions)} entered")
-    return split, wall, out
+        key = regions[opened - 1] if inside else next(
+            (k for k, parts in named.items() if any(w in name for w in parts)),
+            "gemm" if any(w in name for w in gemm) else "other")
+        split[key] += (e.end_ns() - e.start_ns()) / 1e9
+    return split, wall, out, opened == len(regions) and not inside
 
 
-def flash_per_microbatch(remat, layers: int) -> int:
-    """Flash launches of one microbatch's forward and backward under
-    ``remat``'s sqrt grouping (G layers a group): the forward's, the
-    group recomputes' (non-reentrant checkpointing stops a recompute
-    once it has what the backward needs: each group's last layer is
-    not rerun there) and each layer's own recompute."""
+def marking(torch, regions: list, name: str):
+    """A ``patched`` maker: each call of the function it wraps appends
+    ``name`` to ``regions`` and runs between two spin kernels, which mark
+    it on the stream for ``step_split``."""
+    def wrap(real):
+        def fn(*args, **kw):
+            regions.append(name)
+            torch.cuda._sleep(1)          # a spin kernel opens the region
+            out = real(*args, **kw)
+            torch.cuda._sleep(1)          # and one closes it
+            return out
+        return fn
+    return wrap
+
+
+def remat_launches(remat, layers: int) -> int:
+    """Launches of a kernel that each layer runs once, in one
+    microbatch's forward and backward under ``remat``'s sqrt grouping (G
+    layers a group): the forward's, the group recomputes' (non-reentrant
+    checkpointing stops a recompute once it has what the backward needs:
+    each group's last layer is not rerun there) and each layer's own
+    recompute."""
     G = remat.group_for(layers)
     return 3 * layers - (layers // G if G > 1 else layers)
 
 
-def phase_train(np, torch):
-    """Training: gates (a) to (c) on the Function and a reduced granite,
-    then granite-3-2b trained at full width and depth (gate (d)).
-    Returns (the flash launches of the full-width steps, the backward's
-    record for the kernels line)."""
-    import tempfile
+def counted(*kernel_ops) -> dict:
+    """Every launch counter of the given kernel families' ``ops``."""
+    return {k: v for ops in kernel_ops for k, v in ops.LAUNCHES.items()}
 
-    from repro_torch.checkpoint import restore, save
-    from repro_torch.configs import TRAIN_4K, get_arch
+
+def train_card_vs_cpu(torch, label: str, cfg, params_cpu, seq: int,
+                      kernel_ops) -> tuple[dict, dict]:
+    """One ``train_step`` (the default ``TrainConfig``) of ``cfg`` from
+    ``params_cpu`` on the CPU and from a copy of them on the card, on 2
+    sequences of ``seq`` tokens: the loss within ``TRAIN_LOSS_RTOL``
+    relative, each gradient leaf within ``TRAIN_LEAF_RTOL`` and each
+    weight after the update within ``TRAIN_PARAM_RTOL`` of its largest
+    |value|.  Returns (the record, the card step's launches of
+    ``kernel_ops``, each reset just before it)."""
     from repro_torch.data import SyntheticDataset
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models import Model, attention
-    from repro_torch.models.attention import LONG_SEQ
-    from repro_torch.train import (
-        AdamWConfig, TrainConfig, adamw_init, init_train_state,
-        make_train_step,
-    )
+    from repro_torch.models import Model
+    from repro_torch.train import TrainConfig, adamw_init, make_train_step
     from repro_torch.train import step as step_mod
-    from repro_torch.tree import leaves, rebuild
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    laps = Laps()
-    record = {"phase": f"train {TRAIN_ARCH}"}
-
-    # (a) the Function's gradients on the card
-    record["grad_check"] = {
-        "shape": [1, 4096, FLASH_HEADS, FLASH_KV_HEADS, FLASH_HD],
-        "tol": TRAIN_GRAD_TOL,
-        **{dtype: attention_grad_check(torch, dtype, 4096, FLASH_HEADS,
-                                       FLASH_KV_HEADS, FLASH_HD)
-           for dtype in ("float32", "bfloat16")}}
-    laps.lap("grad_check")
-
-    # (b) reduced granite in f32 past LONG_SEQ: card against CPU
-    check(TRAIN_CHECK_S > LONG_SEQ, "the check must take the flash op")
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).reduced(), dtype="float32")
+    from repro_torch.tree import leaves
     cpu, card = Model(cfg, device="cpu"), Model(cfg)
-    params_cpu = cpu.init(SERVE_SEED)
     params = _to(params_cpu, "cuda")
-    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=TRAIN_CHECK_S,
-                             global_batch=2, seed=1).batch(0)
+    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=seq, global_batch=2,
+                             seed=1).batch(0)
     tc = TrainConfig()
     seen = []
 
@@ -4115,33 +4137,45 @@ def phase_train(np, torch):
     with patched(step_mod, "loss_and_grads", recording):
         p_cpu, _, _ = make_train_step(cpu, tc)(
             params_cpu, adamw_init(params_cpu, tc.optimizer), batch)
-        ops.reset_launches()
+        for ops in kernel_ops:
+            ops.reset_launches()
         p_card, _, _ = make_train_step(card, tc)(
             params, adamw_init(params, tc.optimizer), batch)
         torch.cuda.synchronize()
+    launches = counted(*kernel_ops)
     want, got = seen
-    want_flash = flash_per_microbatch(card.remat, cfg.num_layers)
-    check(ops.LAUNCHES["flash_attention"] == want_flash,
-          f"{ops.LAUNCHES} flash launches in a reduced step, not "
-          f"{want_flash}")
     loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
     grad_rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
                    for a, b in zip(leaves(got[2]), leaves(want[2])))
     param_rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
                     for a, b in zip(leaves(p_card), leaves(p_cpu)))
-    record["card_vs_cpu"] = {
-        "config": f"{TRAIN_ARCH} reduced, f32", "seq": TRAIN_CHECK_S,
-        "batch": 2, "loss_rel": loss_rel, "grad_leaf_rel_max": grad_rel,
-        "param_rel_max": param_rel}
-    check(loss_rel <= TRAIN_LOSS_RTOL, f"train loss card vs CPU {loss_rel}")
-    check(grad_rel <= TRAIN_LEAF_RTOL, f"gradients card vs CPU {grad_rel}")
-    check(param_rel <= TRAIN_PARAM_RTOL, f"updated weights card vs CPU "
-                                         f"{param_rel}")
-    del cpu, card, params_cpu, params, want, got, seen, p_cpu, p_card
-    laps.lap("card_vs_cpu")
+    record = {"config": f"{label} reduced, f32", "seq": seq, "batch": 2,
+              "loss_rel": loss_rel, "grad_leaf_rel_max": grad_rel,
+              "param_rel_max": param_rel, "launches": launches}
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"{label}: train loss card vs CPU "
+                                       f"{loss_rel}")
+    check(grad_rel <= TRAIN_LEAF_RTOL, f"{label}: gradients card vs CPU "
+                                       f"{grad_rel}")
+    check(param_rel <= TRAIN_PARAM_RTOL, f"{label}: updated weights card vs "
+                                         f"CPU {param_rel}")
+    return record, launches
 
-    # (c) resume bit for bit: 2 steps, save, 2 more == restore, 2 steps
-    cfg = get_arch(TRAIN_ARCH).reduced()
+
+def resume_gate(torch, label: str, cfg) -> dict:
+    """``cfg`` on the card, 2 sequences of ``TRAIN_CHECK_S`` tokens a
+    step: ``TRAIN_RESUME_STEPS`` steps, a checkpoint, as many more,
+    against a restore (into zeros of the live tree's types) and the same
+    steps: every weight and optimizer state bit for bit, and no restored
+    leaf sharing the live tree's storage.  Returns the record."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import Model
+    from repro_torch.train import (
+        AdamWConfig, TrainConfig, init_train_state, make_train_step,
+    )
+    from repro_torch.tree import leaves, rebuild
     model = Model(cfg)
     tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3))
     step = make_train_step(model, tc)
@@ -4168,18 +4202,35 @@ def phase_train(np, torch):
         pb, ob = run(restored["params"], restored["opt"], n, n)
     unequal = sum(int((a != b).sum()) for a, b in
                   zip(leaves([pa, oa]), leaves([pb, ob])))
-    record["resume"] = {"config": f"{TRAIN_ARCH} reduced, bf16",
-                        "seq": TRAIN_CHECK_S, "steps": [n, n],
-                        "unequal_elements": unequal,
-                        "leaves_sharing_storage": shared}
     check(at == n and shared == 0 and unequal == 0,
-          f"resumed training differs in {unequal} elements "
+          f"{label}: resumed training differs in {unequal} elements "
           f"({shared} restored leaves share the live tree's storage)")
-    del model, params, opt, state, pa, oa, pb, ob, restored, template
-    laps.lap("resume")
+    return {"config": f"{label} reduced, {cfg.dtype}", "seq": TRAIN_CHECK_S,
+            "steps": [n, n], "unequal_elements": unequal,
+            "leaves_sharing_storage": shared}
 
-    # (d) full width and depth
-    full = get_arch(TRAIN_ARCH)
+
+def train_full_width(np, torch, arch: str, marks: dict, named: dict,
+                     kernel_ops, laps) -> tuple[dict, dict]:
+    """``arch`` at full width and depth on ``train_4k``'s 4,096 tokens,
+    its global batch cut to ``TRAIN_MICRO`` x ``TRAIN_ACCUM`` sequences
+    (accumulated microbatches), bf16 weights, f32 AdamW state, the
+    default sqrt remat: a warm-up step, ``TRAIN_TIMED_STEPS`` timed ones
+    (seconds, tokens/s, peak memory, loss and grad norm, all finite) and
+    one profiled step split by ``step_split``: ``marks`` {region:
+    (object, attribute)} marked on the stream, ``named`` kernels by
+    name.  Returns (the record, the timed steps' launches of
+    ``kernel_ops``)."""
+    from repro_torch.configs import TRAIN_4K, get_arch
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import Model
+    from repro_torch.train import (
+        AdamWConfig, TrainConfig, init_train_state, make_train_step,
+    )
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import leaves
+
+    full = get_arch(arch)
     model = Model(full)
     tc = TrainConfig(optimizer=AdamWConfig(), grad_accum=TRAIN_ACCUM)
     (params, opt), init_s, _ = timed(
@@ -4188,19 +4239,18 @@ def phase_train(np, torch):
     ds = SyntheticDataset(vocab=full.vocab, seq_len=seq,
                           global_batch=batch_size, seed=0)
     step = make_train_step(model, tc)
-    G = model.remat.group_for(full.num_layers)
-    n_params = sum(t.numel() for t in leaves(params))
-    record.update(
-        arch=TRAIN_ARCH, layers=full.num_layers, seq=seq,
-        global_batch=batch_size, micro_batch=TRAIN_MICRO,
-        grad_accum=TRAIN_ACCUM, cut=f"global batch {TRAIN_4K.global_batch}"
-        f" -> {batch_size} (one card)", dtype=full.dtype,
-        state_dtype=tc.optimizer.state_dtype,
-        remat={"policy": model.remat.policy, "group": G}, params=n_params,
-        init_s=init_s)
+    record = dict(
+        arch=arch, layers=full.num_layers, seq=seq, global_batch=batch_size,
+        micro_batch=TRAIN_MICRO, grad_accum=TRAIN_ACCUM,
+        cut=f"global batch {TRAIN_4K.global_batch} -> {batch_size} (one "
+            f"card)", dtype=full.dtype, state_dtype=tc.optimizer.state_dtype,
+        remat={"policy": model.remat.policy,
+               "group": model.remat.group_for(full.num_layers)},
+        params=sum(t.numel() for t in leaves(params)), init_s=init_s)
     _, warm_s, _ = timed(lambda: step(params, opt, ds.batch(0)))
-    laps.lap("train_warmup")
-    ops.reset_launches()
+    laps.lap(f"{arch} warmup")
+    for ops in kernel_ops:
+        ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     steps = []
     for i in range(1, TRAIN_TIMED_STEPS + 1):
@@ -4210,65 +4260,464 @@ def phase_train(np, torch):
         torch.cuda.synchronize()
         steps.append({"step": i, "s": time.perf_counter() - t,
                       **{k: float(v) for k, v in m.items()}})
-    flash = ops.LAUNCHES["flash_attention"]
+    launches = counted(*kernel_ops)
     peak = torch.cuda.max_memory_allocated()
     step_s = sorted(s["s"] for s in steps)[len(steps) // 2]
     record.update(
         warmup_s=warm_s, steps=steps, step_s_median=step_s,
         tokens_per_s=batch_size * seq / step_s, peak_bytes=peak,
-        peak_gb=peak / 1e9, flash_launches=flash,
-        flash_launches_per_step=flash / TRAIN_TIMED_STEPS,
-        flash_launches_per_step_expected=TRAIN_ACCUM * flash_per_microbatch(
-            model.remat, full.num_layers))
-    laps.lap("train_steps")
+        peak_gb=peak / 1e9, launches=launches)
+    laps.lap(f"{arch} steps")
 
-    # where one step's time goes: the kernels of the chunked backward, of
-    # the optimizer, the flash kernel's forward, the GEMMs and the rest
-    # (profiled step: device activity only, regions marked on the stream)
-    def marked(name):
-        def wrap(real):
-            def fn(*args, **kw):
-                regions.append(name)
-                torch.cuda._sleep(1)          # a spin kernel opens the region
-                out = real(*args, **kw)
-                torch.cuda._sleep(1)          # and one closes it
-                return out
-            return fn
-        return wrap
-
-    regions = []
-    with patched(attention.FlashAttention, "backward",
-                 marked("chunked_backward")), \
-            patched(step_mod, "adamw_update", marked("optimizer")):
-        split, wall, m = step_split(
-            torch, lambda: step(params, opt, ds.batch(TRAIN_TIMED_STEPS + 1)),
-            regions)
+    # where one step's time goes (profiled step: device activity only,
+    # regions marked on the stream); a step whose profile lost a marker is
+    # profiled again, up to PROFILE_ATTEMPTS steps
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        regions = []
+        with contextlib.ExitStack() as stack:
+            for region, (obj, attr) in marks.items():
+                stack.enter_context(patched(obj, attr,
+                                            marking(torch, regions, region)))
+            stack.enter_context(patched(step_mod, "adamw_update",
+                                        marking(torch, regions, "optimizer")))
+            split, wall, m, whole = step_split(
+                torch, lambda i=attempt: step(
+                    params, opt, ds.batch(TRAIN_TIMED_STEPS + i)),
+                regions, named)
+        if whole:
+            break
+    check(whole, f"{arch}: each of {PROFILE_ATTEMPTS} profiled steps lost "
+                 f"a region's marker")
     device_s = sum(split.values())
     record["profiled_step"] = {
+        "attempts": attempt,
         "host_s": wall, "device_s": device_s, "busy_share": device_s / wall,
-        "regions": len(regions), "split_s": split,
+        "regions": {r: regions.count(r) for r in dict.fromkeys(regions)},
+        "split_s": split,
         "split_share": {k: v / device_s for k, v in split.items()}
         if device_s else None,
         "loss": float(m[2]["loss"]), "grad_norm": float(m[2]["grad_norm"])}
-    check(regions.count("chunked_backward") == TRAIN_ACCUM * full.num_layers,
-          f"{regions.count('chunked_backward')} flash backwards in a step")
-    laps.lap("train_profile")
-    del params, opt, model, step
+    laps.lap(f"{arch} profile")
+    losses = [s["loss"] for s in steps] + [record["profiled_step"]["loss"]]
+    norms = [s["grad_norm"] for s in steps] + [
+        record["profiled_step"]["grad_norm"]]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"{arch}: training losses {losses} or grad norms {norms} not "
+          f"finite")
+    check(device_s > 0, f"{arch}: the profiled step shows no device time")
+    return record, launches
+
+
+def phase_train(np, torch):
+    """Training: gates (a) to (c) on the Function and a reduced granite,
+    then granite-3-2b trained at full width and depth (gate (d)).
+    Returns (the flash launches of the full-width steps, the backward's
+    record for the kernels line)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import Model, attention
+    from repro_torch.models.attention import LONG_SEQ
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    laps = Laps()
+    record = {"phase": f"train {TRAIN_ARCH}"}
+
+    # (a) the Function's gradients on the card
+    record["grad_check"] = {
+        "shape": [1, 4096, FLASH_HEADS, FLASH_KV_HEADS, FLASH_HD],
+        "tol": TRAIN_GRAD_TOL,
+        **{dtype: attention_grad_check(torch, dtype, 4096, FLASH_HEADS,
+                                       FLASH_KV_HEADS, FLASH_HD)
+           for dtype in ("float32", "bfloat16")}}
+    laps.lap("grad_check")
+
+    # (b) reduced granite in f32 past LONG_SEQ: card against CPU
+    check(TRAIN_CHECK_S > LONG_SEQ, "the check must take the flash op")
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).reduced(), dtype="float32")
+    record["card_vs_cpu"], launches = train_card_vs_cpu(
+        torch, TRAIN_ARCH, cfg, Model(cfg, device="cpu").init(SERVE_SEED),
+        TRAIN_CHECK_S, (ops,))
+    want_flash = remat_launches(Model(cfg).remat, cfg.num_layers)
+    check(launches["flash_attention"] == want_flash,
+          f"{launches} flash launches in a reduced step, not {want_flash}")
+    laps.lap("card_vs_cpu")
+
+    # (c) resume bit for bit: 2 steps, save, 2 more == restore, 2 steps
+    record["resume"] = resume_gate(torch, TRAIN_ARCH,
+                                   get_arch(TRAIN_ARCH).reduced())
+    laps.lap("resume")
+
+    # (d) full width and depth: the kernels of the chunked backward, of
+    # the optimizer, the flash kernel's forward, the GEMMs and the rest
+    full = get_arch(TRAIN_ARCH)
+    steps, launches = train_full_width(
+        np, torch, TRAIN_ARCH,
+        {"chunked_backward": (attention.FlashAttention, "backward")},
+        {"flash_forward": ("flash_fwd",)}, (ops,), laps)
+    flash = launches["flash_attention"]
+    record.update(
+        steps, flash_launches=flash,
+        flash_launches_per_step=flash / TRAIN_TIMED_STEPS,
+        flash_launches_per_step_expected=TRAIN_ACCUM * remat_launches(
+            Model(full).remat, full.num_layers))
+    backwards = steps["profiled_step"]["regions"].get("chunked_backward", 0)
+    check(backwards == TRAIN_ACCUM * full.num_layers,
+          f"{backwards} flash backwards in a step")
     torch.cuda.empty_cache()
     backward = flash_backward_record(torch)
     laps.lap("flash_backward")
     record["flash_backward"] = backward
     record["seconds"] = laps.seconds
     emit(record)
-    losses = [s["loss"] for s in steps] + [record["profiled_step"]["loss"]]
-    norms = [s["grad_norm"] for s in steps] + [
-        record["profiled_step"]["grad_norm"]]
-    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
-          f"training losses {losses} or grad norms {norms} not finite")
     check(flash > 0, "the full-width training steps launched no flash "
                      "kernel")
-    check(device_s > 0, "the profiled step shows no device time")
     return flash, backward
+
+
+@contextlib.contextmanager
+def plain_scan_spies(torch):
+    """Counts, by name, the calls on CUDA tensors of the scan kernels'
+    plain versions (``selective_scan_ref``, ``selective_scan_bwd_ref``,
+    ``ssd_intra_chunk_ref``) under every name a module of the port holds
+    them by; each call still runs."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    calls = {}
+
+    def spy(name):
+        def make(real):
+            def fn(*args, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in args):
+                    calls[name] = calls.get(name, 0) + 1
+                return real(*args, **kw)
+            return fn
+        return make
+
+    with contextlib.ExitStack() as stack:
+        for mod, names in ((ss_ops, SCAN_PLAIN), (ss_ref, SCAN_PLAIN),
+                           (ssd_ops, SSD_PLAIN), (ssd_ref, SSD_PLAIN)):
+            for name in names:
+                stack.enter_context(patched(mod, name, spy(name)))
+        yield calls
+
+
+def scan_bwd_gate(torch) -> tuple[dict, dict]:
+    """Gate (a): the selective-scan backward kernel against
+    ``selective_scan_bwd_ref`` on the card at jamba's full width (B 2,
+    d_inner 16,384, N 16) over ``SCAN_BWD_CHECK_S`` steps, x, B and C in
+    f32 and in bf16, with a final-state cotangent: dx and ddt row by row,
+    dA, dB and dC relative to each one's largest |value|, all within
+    ``ref.BWD_RTOL``, and two runs equal bit for bit; then the kernel
+    timed alone at ``SCAN_BWD_TIMED_S`` steps (bf16) beside the forward
+    kernel.  Returns (the gate's record, the ``kernels`` row)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.selective_scan import build, ops, ref
+    from repro_torch.models.ssm import mamba1_dims
+
+    cfg = get_arch(JAMBA)
+    D, N = mamba1_dims(cfg)[0], cfg.ssm.d_state
+    B, S = TRAIN_MICRO, SCAN_BWD_CHECK_S
+    log = build.build().with_suffix(".log").read_text()
+    report = {dt: ptxas_report(log, f"selective_scan_bwd_kernelI{mangled}")[0]
+              for dt, mangled in (("bfloat16", "13__nv_bfloat16"),
+                                  ("float32", "f"))}
+    check(all(set(r) == {str(N)} for r in report.values()),
+          f"selective_scan_bwd instances {report} are not N {N}")
+    for dt, insts in report.items():
+        for inst, r in insts.items():
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                  f"selective_scan_bwd_kernel<{dt}, {inst}> spills: {r}")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 31)
+    checks, failures = [], []
+    for dtype in ("float32", "bfloat16"):
+        args = ref.scan_inputs(B, S, D, getattr(torch, dtype), S + 1)
+        gy = torch.randn((B, S, D), generator=gen, device="cuda")
+        gh = torch.randn((B, D, N), generator=gen, device="cuda")
+        got = ops.selective_scan_bwd(*args, gy, gh)
+        again = ops.selective_scan_bwd(*args, gy, gh)
+        torch.cuda.synchronize()
+        want = ref.selective_scan_bwd_ref(*args, gy, gh)
+        errs = {k: float(ref.row_errors(g, w).max())
+                for k, g, w in zip(("dx_row", "ddt_row"), got, want)}
+        errs.update({k: float((g - w).abs().max() / w.abs().max())
+                     for k, g, w in zip(("dA", "dB", "dC"), got[2:],
+                                        want[2:])})
+        rec = {"dtype": dtype, "B": B, "S": S, "D": D, "N": N,
+               "errors": errs, "limit": ref.BWD_RTOL,
+               "max_abs_err": max(float((g - w).abs().max())
+                                  for g, w in zip(got, want)),
+               "unequal_between_runs": sum(int((a != b).sum())
+                                           for a, b in zip(got, again))}
+        failures += [f"selective_scan_bwd {k} ({dtype}): {v} > "
+                     f"{ref.BWD_RTOL}" for k, v in errs.items()
+                     if not v <= ref.BWD_RTOL]
+        if rec["unequal_between_runs"]:
+            failures.append(f"selective_scan_bwd ({dtype}): two runs differ "
+                            f"in {rec['unequal_between_runs']} elements")
+        if dtype == "bfloat16":
+            rec["plain_ms"] = cuda_ms(
+                lambda a=(*args, gy, gh): ref.selective_scan_bwd_ref(*a), 1)
+            checked = rec
+        checks.append(rec)
+        del args, gy, gh, got, again, want
+    check(not failures, "; ".join(failures))
+
+    # the kernel alone at jamba's training length
+    S = SCAN_BWD_TIMED_S
+    args = ref.scan_inputs(B, S, D, torch.bfloat16, 7)
+    gy = torch.randn((B, S, D), generator=gen, device="cuda")
+    ms = cuda_ms(lambda: ops.selective_scan_bwd(*args, gy), 5)
+    fwd_ms = cuda_ms(lambda: ops.selective_scan(*args), 5)
+    del args, gy
+    # x (bf16), dt and gy read, dx and ddt written (f32); B and C read
+    # (bf16), dB and dC written (f32); A read, dA written
+    moved = B * S * D * (2 + 4 + 4 + 4 + 4) + 2 * B * S * N * (2 + 4) \
+        + 2 * D * N * 4
+    b_ms, b_by = bound(moved, B * S * D * N, EXP_PER_S)
+    inst = report["bfloat16"][str(N)]
+    row = {"name": "selective_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/selective_scan/csrc/"
+                     "selective_scan.cu",
+           "replaces": "src/repro/models/ssm.py:269",
+           "replaces_what": "jax.grad of mamba1_forward's lax.scan (the "
+                            "JAX package has no backward Pallas kernel)",
+           "shape": [B, S, D, N], "dtype": "bfloat16",
+           "max_abs_err": checked["max_abs_err"],
+           "max_rel_err": max(checked["errors"].values()), "ms": ms,
+           "plain_ms": checked["plain_ms"],
+           "plain_ms_at": f"S {checked['S']} (the plain reverse loop, "
+                          f"host-bound)",
+           "bound_ms": b_ms, "bound_by": b_by, "exp_per_s": EXP_PER_S,
+           "library_ms": None, "forward_ms": fwd_ms,
+           "registers": inst["registers"],
+           "spill_bytes": inst["spill_stores"] + inst["spill_loads"]}
+    return {"checks": checks, "ptxas": report}, row
+
+
+def ssd_grad_gate(torch) -> tuple[dict, dict]:
+    """Gate (b): ``SSDScan``'s gradients (the kernel forward, the
+    recompute of ``ssd_twin`` backward) against autograd through
+    ``ssd_twin`` on the card at mamba2-1.3b's training shape (B 2, S
+    4,096, H 64, N 128, hd 64, Q 256): f32 within 1e-5 of each
+    gradient's largest |value|, bf16 against the twin in f32 within
+    5e-2 (``TRAIN_GRAD_TOL``); then the Function's backward timed in
+    bf16 against autograd through the twin's own graph.  Returns (the
+    gate's record, the backward's record for the ``kernels`` line)."""
+    from repro_torch.kernels.ssd import ref
+    from repro_torch.models.ssm import SSDScan, ssd_twin
+    B, S, H, hd, N, Q = TRAIN_MICRO, 4096, SSD_HEADS, SSD_HD, SSD_STATE, \
+        SSD_CHUNK
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 41)
+    w = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+
+    def grads(fn, xs):
+        leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+        y, _ = fn(*leaves)
+        return torch.autograd.grad((y.float() * w).sum(), leaves)
+
+    rels = {}
+    for dtype in ("float32", "bfloat16"):
+        args = ref.ssd_inputs(B, S, getattr(torch, dtype), 41, H, hd, N)
+        got = grads(lambda *a: SSDScan.apply(*a, Q), args)
+        want = grads(lambda *a: ssd_twin(*a, chunk=Q),
+                     [a.float() for a in args])
+        rels[dtype] = [float((g.float() - ww).abs().max() / ww.abs().max())
+                       for g, ww in zip(got, want)]
+        check([g.dtype for g in got] == [a.dtype for a in args],
+              "SSDScan's gradient types")
+        check(max(rels[dtype]) <= TRAIN_GRAD_TOL[dtype],
+              f"SSDScan gradients ({dtype}) against ssd_twin's: "
+              f"{rels[dtype]} > {TRAIN_GRAD_TOL[dtype]} of the largest")
+        del args, got, want
+
+    args = [a.requires_grad_(True) for a in
+            ref.ssd_inputs(B, S, torch.bfloat16, 42, H, hd, N)]
+    g = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    y, _ = SSDScan.apply(*args, Q)
+    ms = cuda_ms(lambda: torch.autograd.grad(y, args, g, retain_graph=True),
+                 3)
+    y_twin, _ = ssd_twin(*args, chunk=Q)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(y_twin, args, g,
+                                                   retain_graph=True), 3)
+    del y, y_twin, args, g
+    # the least work: x, B, C and dy read and dx, dB, dC written in bf16,
+    # dt read and ddt written in f32; twice the forward's products (C Bᵀ
+    # and w x over the causal pairs, the chunk states), on the tensor cores
+    nc, pairs = S // Q, Q * (Q + 1) // 2
+    moved = 2 * (2 * B * S * H * hd * 2 + 2 * B * S * N * 2) \
+        + 2 * B * S * H * 4
+    flops = 2 * B * H * nc * (2 * pairs * (N + hd) + 2 * Q * N * hd)
+    b_ms, b_by = bound(moved, flops, BF16_FLOPS_PER_S)
+    return {"shape": [B, S, H, N, hd, Q], "tol": TRAIN_GRAD_TOL,
+            **rels}, {
+        "what": "SSDScan.backward: ssd_twin recomputed and differentiated "
+                "(torch ops, no kernel of its own)",
+        "shape": [B, S, H, N, hd, Q], "dtype": "bfloat16", "ms": ms,
+        "plain_ms": plain_ms,
+        "plain": "autograd through ssd_twin's own graph (its forward kept)",
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def jamba_sublayer_record(torch) -> dict:
+    """One Mamba-1 sublayer of jamba-1.5-large-398b at full width
+    (d_model 8,192, d_inner 16,384, N 16), bf16 seeded weights with
+    Mamba's dt init, on ``TRAIN_MICRO`` x 4,096 tokens: its forward
+    and its backward (``SelectiveScan``'s kernels) timed with CUDA
+    events.  Returns its record, with the timed runs' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.selective_scan import ops
+    from repro_torch.models.common import InitCtx
+    from repro_torch.models.ssm import init_mamba1, mamba1_forward
+
+    cfg = get_arch(JAMBA)
+    B, S = TRAIN_MICRO, 4096
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 51)
+    p = init_mamba1(InitCtx(generator=gen, dtype=cfg.param_dtype()), cfg)
+    mamba_dt_bias(torch, [p], SERVE_SEED)
+    weights = [t.requires_grad_(True) for t in p.values()]
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    g = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def forward():
+        return mamba1_forward(p, cfg, x)[0]
+
+    grads = torch.autograd.grad(forward(), [x, *weights], g)
+    check(all(bool(torch.isfinite(t).all()) for t in grads),
+          "jamba sublayer gradients not finite")
+    del grads
+    ops.reset_launches()
+    fwd_ms = cuda_ms(forward, 3)
+    out = forward()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, [x, *weights], g,
+                                                 retain_graph=True), 3)
+    del out
+    launches = dict(ops.LAUNCHES)
+    return {"what": f"{JAMBA} Mamba-1 sublayer, full width, forward and "
+                    f"backward", "shape": [B, S, cfg.d_model],
+            "d_inner": cfg.ssm.expand * cfg.d_model, "dtype": cfg.dtype,
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "launches": launches}
+
+
+def phase_train_scan(np, torch):
+    """Training the scan families: gates (a) and (b) on the two scans'
+    gradients, (c) reduced mamba2-1.3b and jamba trained a step card
+    against CPU, (d) a mamba2 restart bit for bit, (e) mamba2-1.3b
+    trained at full width and depth, and one full-width Mamba-1
+    sublayer of jamba forward and backward (jamba's whole period does
+    not fit one card in training).  The scans' plain versions must see
+    no CUDA tensor from (c) on.  Returns (the main path's launches of
+    the two scans' kernels: (c)'s card steps, (e)'s timed steps and the
+    sublayer's timed runs; the backward kernel's ``kernels`` row; SSD's
+    backward record)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import Model, ssm
+    from repro_torch.models.attention import LONG_SEQ
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    laps = Laps()
+    record = {"phase": f"train {TRAIN_SCAN_ARCH}",
+              "reduced": [f"{JAMBA} is not trained end to end: one period "
+                          f"at full width holds about 16e9 parameters, "
+                          f"some 190 GB of bf16 weights and gradients and "
+                          f"f32 moments; it runs gate (a) at full Mamba-1 "
+                          f"width, gate (c) reduced, and one full-width "
+                          f"Mamba-1 sublayer's forward and backward"]}
+    launches = dict.fromkeys(("ssd_intra_chunk", "selective_scan",
+                              "selective_scan_bwd"), 0)
+
+    # (a) the selective scan's backward kernel; (b) SSD's Function
+    record["scan_bwd_check"], bwd_row = scan_bwd_gate(torch)
+    laps.lap("scan_bwd_check")
+    record["ssd_grad_check"], ssd_backward = ssd_grad_gate(torch)
+    laps.lap("ssd_grad_check")
+    torch.cuda.empty_cache()
+
+    with plain_scan_spies(torch) as plain_calls:
+        # (c) reduced configs in f32, card against CPU; jamba past LONG_SEQ
+        check(TRAIN_CHECK_S > LONG_SEQ, "the check must take the flash op")
+        record["card_vs_cpu"] = {}
+        for arch in (TRAIN_SCAN_ARCH, JAMBA):
+            cfg = dataclasses.replace(get_arch(arch).reduced(),
+                                      dtype="float32")
+            params = Model(cfg, device="cpu").init(SERVE_SEED)
+            # the reference's zero-initialised leaves drawn from the seed:
+            # a leaf of zeros is, after one step, the AdamW update alone,
+            # whose last bits follow the division by each gradient's own
+            # size, and not the weights
+            draw_biases(torch, params, SERVE_SEED, SCAN_BIASES)
+            mixers = (params["layers"] if cfg.family == "ssm" else
+                      [m for per in params["periods"] for m in per["mamba"]])
+            mamba_dt_bias(torch, [m["mixer"] for m in mixers], SERVE_SEED)
+            rec, got = train_card_vs_cpu(torch, arch, cfg, params,
+                                         TRAIN_CHECK_S,
+                                         (ssd_ops, ss_ops, fa_ops))
+            per_mb = remat_launches(Model(cfg).remat, len(
+                params["layers"] if cfg.family == "ssm"
+                else params["periods"]))
+            if cfg.family == "ssm":
+                want = {"ssd_intra_chunk": per_mb}
+            else:
+                m1 = cfg.hybrid.period - 1          # Mamba-1 sublayers a period
+                want = {"flash_attention": per_mb,
+                        "selective_scan": m1 * per_mb,
+                        "selective_scan_bwd": m1 * len(params["periods"])}
+            rec["launches_expected"] = want
+            check(all(got[k] == v for k, v in want.items()),
+                  f"{arch}: launches {got} in a reduced step, not {want}")
+            for k in launches:
+                launches[k] += got[k]
+            record["card_vs_cpu"][arch] = rec
+            del params
+        laps.lap("card_vs_cpu")
+
+        # (d) resume bit for bit
+        record["resume"] = resume_gate(torch, TRAIN_SCAN_ARCH,
+                                       get_arch(TRAIN_SCAN_ARCH).reduced())
+        laps.lap("resume")
+
+        # (e) full width and depth
+        full = get_arch(TRAIN_SCAN_ARCH)
+        steps, got = train_full_width(
+            np, torch, TRAIN_SCAN_ARCH,
+            {"ssd_backward": (ssm.SSDScan, "backward")},
+            {"ssd_forward": ("ssd_chunk",)}, (ssd_ops,), laps)
+        want = TRAIN_TIMED_STEPS * TRAIN_ACCUM * remat_launches(
+            Model(full).remat, full.num_layers)
+        record.update(steps, ssd_launches_expected=want)
+        check(got["ssd_intra_chunk"] == want,
+              f"{got} SSD launches in {TRAIN_TIMED_STEPS} steps, not {want}")
+        backwards = steps["profiled_step"]["regions"].get("ssd_backward", 0)
+        check(backwards == TRAIN_ACCUM * full.num_layers,
+              f"{backwards} SSD backwards in a step")
+        launches["ssd_intra_chunk"] += got["ssd_intra_chunk"]
+        torch.cuda.empty_cache()
+
+        # one full-width Mamba-1 sublayer of jamba
+        record["jamba_sublayer"] = sub = jamba_sublayer_record(torch)
+        for k in ("selective_scan", "selective_scan_bwd"):
+            launches[k] += sub["launches"][k]
+        laps.lap("jamba_sublayer")
+    record["plain_calls_on_card"] = plain_calls
+    record["launches"] = launches
+    record["seconds"] = laps.seconds
+    emit(record)
+    check(not plain_calls, f"a scan's plain version ran on the card: "
+                           f"{plain_calls}")
+    check(all(launches.values()), f"a scan kernel never launched in "
+                                  f"training: {launches}")
+    return launches, bwd_row, ssd_backward
 
 
 def _leaves(tree):
@@ -4364,9 +4813,18 @@ def main() -> int:
     train_flash, flash_backward = timed_phase(f"train {TRAIN_ARCH}",
                                               phase_train, np, torch)
     launches["flash_attention"] += train_flash
-    flash_row = next(r for r in records if r["name"] == "flash_attention")
-    flash_row["train_launches"] = train_flash
-    flash_row["backward"] = flash_backward
+    row = {r["name"]: r for r in records}
+    row["flash_attention"]["train_launches"] = train_flash
+    row["flash_attention"]["backward"] = flash_backward
+    scan_train, bwd_row, ssd_backward = timed_phase(
+        f"train {TRAIN_SCAN_ARCH}", phase_train_scan, np, torch)
+    records.insert(records.index(row["selective_scan"]) + 1, bwd_row)
+    launches["selective_scan_bwd"] = 0
+    for name, count in scan_train.items():
+        launches[name] += count
+        if name in row:
+            row[name]["train_launches"] = count
+    row["ssd_intra_chunk"]["backward"] = ssd_backward
     for r in records:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"its path never launched {r['name']}")

@@ -1,5 +1,6 @@
 // Mamba-1's selective scan over time, for sm_90a, with x, B and C in bf16
-// or f32 and every product and sum in f32.
+// or f32 and every product and sum in f32: the forward (selective_scan)
+// and, below it, its backward (selective_scan_bwd).
 //
 // Replaces no Pallas kernel: the JAX package runs this recurrence as one
 // lax.scan over time in mamba1_forward (src/repro/models/ssm.py:256-269),
@@ -396,6 +397,336 @@ int occupancy() {
   return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
+// ---------------------------------------------------------------------------
+// The backward: selective_scan_bwd.
+//
+// Replaces no Pallas kernel either: the JAX package differentiates the
+// lax.scan of mamba1_forward (src/repro/models/ssm.py:269) with jax.grad,
+// which XLA runs as a reverse device loop.  In eager PyTorch autograd
+// through the step loop is some twenty launches a step, forward and
+// backward.  With a_t = exp(dt_t A), the carry g_t = gy_t C_t + a_{t+1}
+// g_{t+1} (g after the last step: the final state's cotangent), per batch
+// row b, channel c and state n:
+//   dx_t[c]  = dt_t[c] sum_n g_t[n] B_t[n]
+//   ddt_t[c] = sum_n g_t[n] (A[c, n] a_t[n] h_{t-1}[n] + B_t[n] x_t[c])
+//   dA[c, n] = sum_{b, t} g_t[n] dt_t[c] a_t[n] h_{t-1}[n]
+//   dB_t[n]  = sum_c g_t[n] dt_t[c] x_t[c]
+//   dC_t[n]  = sum_c gy_t[c] h_t[n]
+// The reverse walk needs h_{t-1} and h_t, last step first.  They are
+// recomputed, not saved by the forward: the forward kernel stays the
+// serving path's, bit for bit, and under remat it runs two or three
+// times a training step, so a saved state (268 MB a sublayer at jamba's
+// training shape, B 2, S 4,096, D 16,384) would be written that often
+// and live from the forward to the backward.  The recompute costs about
+// three forward scans of arithmetic and keeps nothing between the two.
+//   * Phase 1: one thread a (batch row, channel), as the forward, scans
+//     from h = 0 and writes the state before every BWD_TILE-step tile to
+//     a scratch (B, S / BWD_TILE, D, N) f32 (268 MB at that shape).
+//   * Phase 2 walks the tiles last first.  A tile's state is replayed
+//     once to keep the state before each of its SUB-step sub-tiles in
+//     shared memory; then, last sub-tile first, the sub-tile is replayed
+//     with each step's state kept in shared memory (SUB x N x CHANNELS
+//     f32, 32 KB: a thread reads only its own column, so no barrier
+//     guards it), and walked backwards: g carried in registers, dx, ddt
+//     written, dA accumulated in registers over the whole walk.
+//   * dB and dC sum over all D channels.  Each warp sums its 32 lanes'
+//     16 terms by a halving exchange of shuffles (16 a vector, lane l
+//     ends with state l / 2's sum), the block adds its two warps, and
+//     each block writes its (B, S, N) partial sums; a second kernel adds
+//     the D / CHANNELS partials in block order, and dA's B partials in
+//     batch order.  No atomics: two runs agree bit for bit.
+//   * x, dt, B and C are read through their batch and step strides, as
+//     in the forward (B and C staged a sub-tile at a time in shared
+//     memory, converted to f32); gy and the outputs are contiguous.  The
+//     state's replay rounds as the forward does, so h_t is the forward's.
+// Bound at (B 2, S 4,096, D 16,384, N 16): 2.1e9 exponentials a pass at
+// 4.18e12/s, 0.51 ms, and about 2.4 GB of x, dt, gy, dx and ddt at
+// 3.35 TB/s, 0.72 ms.  The kernel takes about four exponentials an
+// element (phase 1, the two replays and the walk), so it is a simple
+// kernel several times its bound; its time is in PERF.md.
+
+constexpr int BWD_TILE = 32;   // steps between two saved states
+constexpr int SUB = 8;         // steps a sub-tile keeps in shared memory
+constexpr int SUBS = BWD_TILE / SUB;
+constexpr int BWD_MIN_BLOCKS = 4;
+constexpr int WARPS = THREADS / 32;
+static_assert(BWD_TILE % SUB == 0 && THREADS % 32 == 0, "tiling");
+
+struct BwdParams {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const void* Bm;
+  const void* Cm;
+  const float* gy;      // (B, S, D) contiguous
+  const float* gh;      // (B, D, N) contiguous, or null: zero
+  float* ck;            // (B, ceil(S / BWD_TILE), D, N) scratch
+  float* dx;            // (B, S, D)
+  float* ddt;           // (B, S, D)
+  float* dB_part;       // (D / CHANNELS blocks, B, S, N)
+  float* dC_part;       // (D / CHANNELS blocks, B, S, N)
+  float* dA_part;       // (B, D, N)
+  int B, S, D;
+  long long x_sb, x_ss, d_sb, d_ss, b_sb, b_ss, c_sb, c_ss;
+};
+
+// Shared memory of one backward block, in floats.
+template <int N>
+struct BwdLayout {
+  static constexpr int HS = 0;                          // [SUB][N][THREADS]
+  static constexpr int STARTS = HS + SUB * N * THREADS; // [SUBS][N][THREADS]
+  static constexpr int SB = STARTS + SUBS * N * THREADS;   // [SUB][N]
+  static constexpr int SC = SB + SUB * N;                   // [SUB][N]
+  static constexpr int RED = SC + SUB * N;     // [WARPS][SUB][2][N]
+  static constexpr int FLOATS = RED + WARPS * SUB * 2 * N;
+  static constexpr int BYTES = FLOATS * 4;
+};
+
+// The sum over a warp's 32 lanes of v[n], n < 16: at each of four
+// exchanges a lane keeps half its sums and sends its partner the other
+// half, then pairs of lanes add; lane l returns the sum of v[l >> 1].
+__device__ __forceinline__ float warp_sum16(const float (&v)[16]) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float w8[8], w4[4], w2[2];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w8[i] = (b4 ? v[8 + i] : v[i]) +
+            __shfl_xor_sync(full, b4 ? v[i] : v[8 + i], 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w4[i] = (b3 ? w8[4 + i] : w8[i]) +
+            __shfl_xor_sync(full, b3 ? w8[i] : w8[4 + i], 8);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    w2[i] = (b2 ? w4[2 + i] : w4[i]) +
+            __shfl_xor_sync(full, b2 ? w4[i] : w4[2 + i], 4);
+  const float w1 = (b1 ? w2[1] : w2[0]) +
+                   __shfl_xor_sync(full, b1 ? w2[0] : w2[1], 2);
+  return w1 + __shfl_xor_sync(full, w1, 1);
+}
+
+// B and C of steps t0 .. t0 + steps - 1 to f32 in shared memory, zeros
+// past the last step; barriers on both sides, so that no thread still
+// reads the sub-tile before and every thread sees this one.
+template <typename T, int N>
+__device__ __forceinline__ void stage_bc(const BwdParams& p, long long b,
+                                         int t0, int steps, float* sB,
+                                         float* sC, int tid) {
+  __syncthreads();
+  const T* Bg = static_cast<const T*>(p.Bm) + b * p.b_sb;
+  const T* Cg = static_cast<const T*>(p.Cm) + b * p.c_sb;
+  for (int i = tid; i < SUB * N; i += THREADS) {
+    const int j = i / N, n = i - j * N;
+    const long long t = t0 + j;
+    sB[i] = j < steps ? to_f32(Bg[t * p.b_ss + n]) : 0.f;
+    sC[i] = j < steps ? to_f32(Cg[t * p.c_ss + n]) : 0.f;
+  }
+  __syncthreads();
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(THREADS, BWD_MIN_BLOCKS)
+selective_scan_bwd_kernel(BwdParams p) {
+  static_assert(N == 16, "warp_sum16 sums 16 states");
+  using Lay = BwdLayout<N>;
+  extern __shared__ __align__(16) float fsmem[];
+  float* hs = fsmem + Lay::HS;
+  float* starts = fsmem + Lay::STARTS;
+  float* sB = fsmem + Lay::SB;
+  float* sC = fsmem + Lay::SC;
+  float* red = fsmem + Lay::RED;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long b = blockIdx.y;
+  const int c = blockIdx.x * CHANNELS + tid;
+  const bool live = c < p.D;
+  const int S = p.S, D = p.D;
+  const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
+  // this thread's channel of x and dt (a dead channel reads channel 0 and
+  // takes zeros), and of gy, dx and ddt
+  const int cc = live ? c : 0;
+  const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + cc;
+  const float* dg = p.dt + b * p.d_sb + cc;
+  const long long row = b * S * D + cc;
+
+  float a[N], h[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    a[n] = live ? p.A[static_cast<long long>(c) * N + n] : 0.f;
+    h[n] = 0.f;
+  }
+  auto load_xd = [&](long long t, float& xv, float& dv) {
+    xv = live ? to_f32(xg[t * p.x_ss]) : 0.f;
+    dv = live ? dg[t * p.d_ss] : 0.f;
+  };
+  // one step of the forward, rounded as selective_scan_kernel rounds it
+  auto advance = [&](int j, long long t) {
+    float xv, dv;
+    load_xd(t, xv, dv);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float dA = expf(__fmul_rn(dv, a[n]));
+      const float dBx = __fmul_rn(__fmul_rn(dv, sB[j * N + n]), xv);
+      h[n] = __fadd_rn(__fmul_rn(dA, h[n]), dBx);
+    }
+  };
+  float* ck = p.ck + (b * tiles * D + c) * N;     // tile 0's saved state
+
+  // phase 1: the state before each tile
+  for (int t0 = 0; t0 < S; t0 += SUB) {
+    const int steps = min(SUB, S - t0);
+    if (t0 % BWD_TILE == 0 && live) {
+      float4* dst = reinterpret_cast<float4*>(
+          ck + static_cast<long long>(t0 / BWD_TILE) * D * N);
+#pragma unroll
+      for (int u = 0; u < N / 4; ++u)
+        dst[u] = make_float4(h[4 * u], h[4 * u + 1], h[4 * u + 2],
+                             h[4 * u + 3]);
+    }
+    stage_bc<T, N>(p, b, t0, steps, sB, sC, tid);
+    for (int j = 0; j < steps; ++j) advance(j, t0 + j);
+  }
+
+  // phase 2: the tiles in reverse
+  float g[N], dA_acc[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    g[n] = (live && p.gh) ? p.gh[(b * D + c) * N + n] : 0.f;
+    dA_acc[n] = 0.f;
+  }
+  for (int k = tiles - 1; k >= 0; --k) {
+    const int T0 = k * BWD_TILE;
+    const int subs = (min(BWD_TILE, S - T0) + SUB - 1) / SUB;
+    if (live) {
+      const float4* src = reinterpret_cast<const float4*>(
+          ck + static_cast<long long>(k) * D * N);
+#pragma unroll
+      for (int u = 0; u < N / 4; ++u) {
+        const float4 v = src[u];
+        h[4 * u] = v.x; h[4 * u + 1] = v.y;
+        h[4 * u + 2] = v.z; h[4 * u + 3] = v.w;
+      }
+    }
+    // the state before each sub-tile of the tile
+    for (int s = 0; s < subs; ++s) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) starts[(s * N + n) * THREADS + tid] = h[n];
+      if (s + 1 < subs) {
+        const int t0 = T0 + s * SUB;
+        stage_bc<T, N>(p, b, t0, SUB, sB, sC, tid);
+        for (int j = 0; j < SUB; ++j) advance(j, t0 + j);
+      }
+    }
+    for (int s = subs - 1; s >= 0; --s) {
+      const int t0 = T0 + s * SUB, steps = min(SUB, S - t0);
+#pragma unroll
+      for (int n = 0; n < N; ++n) h[n] = starts[(s * N + n) * THREADS + tid];
+      stage_bc<T, N>(p, b, t0, steps, sB, sC, tid);
+      for (int j = 0; j < steps; ++j) {       // h_t of each step, kept
+        advance(j, t0 + j);
+#pragma unroll
+        for (int n = 0; n < N; ++n) hs[(j * N + n) * THREADS + tid] = h[n];
+      }
+      for (int j = steps - 1; j >= 0; --j) {  // the walk back
+        const long long t = t0 + j;
+        float xv, dv;
+        load_xd(t, xv, dv);
+        const float gv = live ? p.gy[row + t * D] : 0.f;
+        const float* prev = j ? hs + (j - 1) * N * THREADS
+                              : starts + s * N * THREADS;
+        float vB[N], vC[N], sdx = 0.f, sdt = 0.f;
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const float bv = sB[j * N + n];
+          const float an = expf(__fmul_rn(dv, a[n]));
+          const float ah = an * prev[n * THREADS + tid];  // a_t h_{t-1}
+          g[n] = fmaf(gv, sC[j * N + n], g[n]);
+          vB[n] = g[n] * dv * xv;
+          vC[n] = gv * hs[(j * N + n) * THREADS + tid];
+          sdx = fmaf(g[n], bv, sdx);
+          sdt = fmaf(g[n], fmaf(a[n], ah, bv * xv), sdt);
+          dA_acc[n] = fmaf(g[n] * dv, ah, dA_acc[n]);
+          g[n] *= an;                          // carried to step t - 1
+        }
+        if (live) {
+          p.dx[row + t * D] = dv * sdx;
+          p.ddt[row + t * D] = sdt;
+        }
+        const float sumB = warp_sum16(vB), sumC = warp_sum16(vC);
+        if ((lane & 1) == 0) {
+          red[((warp * SUB + j) * 2) * N + (lane >> 1)] = sumB;
+          red[((warp * SUB + j) * 2 + 1) * N + (lane >> 1)] = sumC;
+        }
+      }
+      __syncthreads();
+      // the block's partial sums of the sub-tile, its warps in order
+      for (int i = tid; i < steps * 2 * N; i += THREADS) {
+        const int j = i / (2 * N), w = (i / N) & 1, n = i % N;
+        float v = red[((0 * SUB + j) * 2 + w) * N + n];
+#pragma unroll
+        for (int q = 1; q < WARPS; ++q) v += red[((q * SUB + j) * 2 + w) * N + n];
+        float* part = w ? p.dC_part : p.dB_part;
+        part[((static_cast<long long>(blockIdx.x) * p.B + b) * S + t0 + j) *
+                 N + n] = v;
+      }
+      // the next stage_bc's first barrier keeps red until these reads end
+    }
+  }
+  if (live) {
+    float4* dst = reinterpret_cast<float4*>(p.dA_part + (b * D + c) * N);
+#pragma unroll
+    for (int u = 0; u < N / 4; ++u)
+      dst[u] = make_float4(dA_acc[4 * u], dA_acc[4 * u + 1],
+                           dA_acc[4 * u + 2], dA_acc[4 * u + 3]);
+  }
+}
+
+// out[i] = part[0][i] + part[1][i] + ... + part[parts - 1][i], in order
+__global__ void sum_parts_kernel(const float* part, float* out, int parts,
+                                 long long n) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= n) return;
+  float v = part[i];
+  for (int k = 1; k < parts; ++k) v += part[k * n + i];
+  out[i] = v;
+}
+
+int sum_parts(const float* part, float* out, int parts, long long n,
+              cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  sum_parts_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      part, out, parts, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const BwdParams& p, int N, float* dA, float* dB, float* dC,
+               cudaStream_t stream) {
+  if (N != 16) return cudaErrorInvalidValue;
+  constexpr int bytes = BwdLayout<16>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      selective_scan_bwd_kernel<T, 16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const int nblk = (p.D + CHANNELS - 1) / CHANNELS;
+  selective_scan_bwd_kernel<T, 16>
+      <<<dim3(nblk, p.B), THREADS, bytes, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long bsn = static_cast<long long>(p.B) * p.S * N;
+  int rc = sum_parts(p.dB_part, dB, nblk, bsn, stream);
+  if (rc == 0) rc = sum_parts(p.dC_part, dC, nblk, bsn, stream);
+  if (rc == 0)
+    rc = sum_parts(p.dA_part, dA, p.B, static_cast<long long>(p.D) * N,
+                   stream);
+  return rc;
+}
+
 }  // namespace
 
 // x, Bm, Cm: bf16 (bf16 != 0) or f32, read through their batch and step
@@ -428,4 +759,35 @@ extern "C" int selective_scan_blocks_per_sm(int bf16, int aligned) {
     return aligned ? occupancy<__nv_bfloat16, 1>()
                    : occupancy<__nv_bfloat16, 0>();
   return aligned ? occupancy<float, 1>() : occupancy<float, 0>();
+}
+
+
+// The backward of selective_scan.  x, dt, A, Bm, Cm as there; gy (B, S,
+// D) f32 contiguous; gh (B, D, N) f32 contiguous or null (zero).  Writes
+// dx, ddt (B, S, D), dA (D, N), dB, dC (B, S, N), all f32 contiguous,
+// through the scratch ck (B, ceil(S / 32), D, N), dB_part and dC_part
+// (ceil(D / 64), B, S, N) and dA_part (B, D, N).  Launches on ``stream``
+// (the scan, then three ordered sums), allocates nothing, does not
+// synchronise; returns the first launch error.
+extern "C" int selective_scan_bwd(
+    const void* x, const void* dt, const void* A, const void* Bm,
+    const void* Cm, const void* gy, const void* gh, void* dx, void* ddt,
+    void* dA, void* dB, void* dC, void* ck, void* dB_part, void* dC_part,
+    void* dA_part, int bf16, int B, int S, int D, int N, long long x_sb,
+    long long x_ss, long long d_sb, long long d_ss, long long b_sb,
+    long long b_ss, long long c_sb, long long c_ss, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || D < 1) return cudaErrorInvalidValue;
+  const BwdParams p{x, static_cast<const float*>(dt),
+                    static_cast<const float*>(A), Bm, Cm,
+                    static_cast<const float*>(gy),
+                    static_cast<const float*>(gh), static_cast<float*>(ck),
+                    static_cast<float*>(dx), static_cast<float*>(ddt),
+                    static_cast<float*>(dB_part),
+                    static_cast<float*>(dC_part),
+                    static_cast<float*>(dA_part), B, S, D,
+                    x_sb, x_ss, d_sb, d_ss, b_sb, b_ss, c_sb, c_ss};
+  auto st = static_cast<cudaStream_t>(stream);
+  auto f = [](void* q) { return static_cast<float*>(q); };
+  return bf16 ? launch_bwd<__nv_bfloat16>(p, N, f(dA), f(dB), f(dC), st)
+              : launch_bwd<float>(p, N, f(dA), f(dB), f(dC), st);
 }

@@ -1,21 +1,26 @@
-"""Mamba-1's selective scan: a CUDA tensor launches the kernel
-(``csrc/selective_scan.cu``) or raises; a CPU tensor takes the plain
-version in ``ref.py``.  ``LAUNCHES`` counts kernel launches (CPU calls
-never count), so a run can show that it went through the kernel."""
+"""Mamba-1's selective scan and its backward: a CUDA tensor launches the
+kernel (``csrc/selective_scan.cu``) or raises; a CPU tensor takes the
+plain version in ``ref.py``.  ``LAUNCHES`` counts kernel launches (CPU
+calls never count), so a run can show that it went through the
+kernel."""
 
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .ref import selective_scan_ref
+from .ref import selective_scan_bwd_ref, selective_scan_ref
 
 #: kernel launches, counted only where the kernel launches
-LAUNCHES = {"selective_scan": 0}
+LAUNCHES = {"selective_scan": 0, "selective_scan_bwd": 0}
 #: channels a block scans (one thread each) and time steps a stage of its
 #: two-stage ring holds: ``CHANNELS`` and ``TILE`` in the source (the
 #: tests check that the two agree)
 BLOCK_CHANNELS, TILE_STEPS = 64, 32
+#: the backward's steps between two saved states, and the steps of a
+#: sub-tile it keeps in shared memory: ``BWD_TILE`` and ``SUB`` in the
+#: source
+BWD_TILE_STEPS, BWD_SUB_STEPS = 32, 8
 #: state sizes N the kernel is built for (Jamba's d_state, full and
 #: reduced)
 KERNEL_STATES = (16,)
@@ -50,6 +55,25 @@ def _check(x, dt, A, Bm, Cm) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
+def _check_kernel(x, dt, A, Bm, Cm) -> None:
+    """What the kernels take beyond ``_check``: N 16 and a unit stride
+    along each row."""
+    N = A.shape[1]
+    if N not in KERNEL_STATES:
+        raise ValueError(f"the kernel takes N in {KERNEL_STATES}, got {N}")
+    for name, t in (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit stride on its last dim, "
+                             f"got strides {t.stride()}")
+
+
+def _strides(x, dt, Bm, Cm) -> tuple[int, ...]:
+    """The batch and step strides of x, dt, Bm and Cm, as the kernels
+    read them."""
+    return (*x.stride()[:2], *dt.stride()[:2], *Bm.stride()[:2],
+            *Cm.stride()[:2])
+
+
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,14 +86,9 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, Bm, Cm)
     if x.device.type == "cpu":
         return selective_scan_ref(x, dt, A, Bm, Cm)
+    _check_kernel(x, dt, A, Bm, Cm)
     Bsz, S, D = x.shape
     N = A.shape[1]
-    if N not in KERNEL_STATES:
-        raise ValueError(f"the kernel takes N in {KERNEL_STATES}, got {N}")
-    for name, t in (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} needs a unit stride on its last dim, "
-                             f"got strides {t.stride()}")
     A = A.contiguous()
     y = torch.empty((Bsz, S, D), dtype=torch.float32, device=x.device)
     h = torch.empty((Bsz, D, N), dtype=torch.float32, device=x.device)
@@ -81,9 +100,64 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), h.data_ptr(),
             int(x.dtype == torch.bfloat16), Bsz, S, D, N,
-            *x.stride()[:2], *dt.stride()[:2], *Bm.stride()[:2],
-            *Cm.stride()[:2], stream)
+            *_strides(x, dt, Bm, Cm), stream)
     if rc != 0:
         raise RuntimeError(f"selective_scan launch failed with CUDA error {rc}")
     LAUNCHES["selective_scan"] += 1
     return y, h
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, gy: torch.Tensor,
+                       gh: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``selective_scan`` in x, dt, A, Bm and Cm, given
+    the cotangents ``gy`` (B, S, D) f32 of y and ``gh`` (B, D, N) f32 of
+    the final state (None: zero).  The inputs as ``selective_scan``
+    takes them.  Returns (dx, ddt (B, S, D), dA (D, N), dB, dC (B, S,
+    N)), all f32; two runs on the card agree bit for bit (the sums over
+    channels and batch rows add block partials in a fixed order)."""
+    _check(x, dt, A, Bm, Cm)
+    Bsz, S, D = x.shape
+    N = A.shape[1]
+    if tuple(gy.shape) != (Bsz, S, D) or gy.dtype != torch.float32:
+        raise ValueError(f"gy must be float32 {(Bsz, S, D)}, got "
+                         f"{gy.dtype} {tuple(gy.shape)}")
+    if gh is not None and (tuple(gh.shape) != (Bsz, D, N)
+                           or gh.dtype != torch.float32):
+        raise ValueError(f"gh must be float32 {(Bsz, D, N)}, got "
+                         f"{gh.dtype} {tuple(gh.shape)}")
+    if any(t.device != x.device for t in (gy, gh) if t is not None):
+        raise ValueError("gy and gh must lie on x's device")
+    if x.device.type == "cpu":
+        return selective_scan_bwd_ref(x, dt, A, Bm, Cm, gy, gh)
+    _check_kernel(x, dt, A, Bm, Cm)
+    A, gy = A.contiguous(), gy.contiguous()
+    gh = None if gh is None else gh.contiguous()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    dx, ddt, dA = empty(Bsz, S, D), empty(Bsz, S, D), empty(D, N)
+    dB, dC = empty(Bsz, S, N), empty(Bsz, S, N)
+    if dx.numel() == 0:
+        return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
+    blocks = -(-D // BLOCK_CHANNELS)
+    ck = empty(Bsz, -(-S // BWD_TILE_STEPS), D, N)
+    parts = (empty(blocks, Bsz, S, N), empty(blocks, Bsz, S, N),
+             empty(Bsz, D, N))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = build.load().selective_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), gy.data_ptr(), None if gh is None else
+            gh.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), ck.data_ptr(),
+            *(t.data_ptr() for t in parts),
+            int(x.dtype == torch.bfloat16), Bsz, S, D, N,
+            *_strides(x, dt, Bm, Cm), stream)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_bwd launch failed with CUDA "
+                           f"error {rc}")
+    LAUNCHES["selective_scan_bwd"] += 1
+    return dx, ddt, dA, dB, dC

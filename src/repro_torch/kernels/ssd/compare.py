@@ -4,9 +4,9 @@
     git show <rev>:src/repro_torch/kernels/ssd/csrc/ssd.cu > _checkout/old.cu
     PYTHONPATH=src python3 -m repro_torch.kernels.ssd.compare _checkout/old.cu [...]
 
-(``_checkout/`` is gitignored.)  Every build runs bf16 at
-``chip_smoke.py``'s serving shape (B 2, 64 heads, S 32,768, N 128, hd
-64, Q 256) on its inputs and must keep this entry point's signature; an
+(``_checkout/`` is gitignored.)  Every build runs bf16 at mamba2-1.3b's
+serving shape (B 2, 64 heads, S 32,768, N 128, hd 64, Q 256) on
+``ref.ssd_inputs`` and must keep this entry point's signature; an
 edited copy of this checkout's source finds ``kernels/csrc/hopper.cuh``
 through ``-I``.  Prints the card, each build's row errors against the
 plain version and the median ms of each over rounds that alternate
@@ -26,8 +26,25 @@ import torch
 from .. import nvcc
 from . import build, ref
 
-ROOT = Path(__file__).resolve().parents[4]
 ROUNDS, REPS = 6, 5
+#: batch rows and tokens of the serving prefill, mamba2-1.3b's chunk
+B, S, Q = 2, 32_768, 256
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median device ms of ``fn`` over ``reps`` CUDA-event-timed runs,
+    after one warm-up run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
 
 
 def _load(src: Path):
@@ -40,14 +57,9 @@ def _load(src: Path):
 
 
 def main(others: list[str]) -> None:
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
-
-    x, dt, A, Bm, Cm = cs.ssd_inputs(torch, cs.PREFILL_BATCH, cs.PREFILL_LEN,
-                                     torch.bfloat16, 21)
-    args = cs.ssd_chunks(x, dt, A, Bm, Cm)
+    args = ref.ssd_chunks(*ref.ssd_inputs(B, S, torch.bfloat16, 21), Q)
     a, d, b, c, xk = args
-    B, H, nc, Q, hd = xk.shape
+    _, H, nc, _, hd = xk.shape
     N = b.shape[-1]
     y = torch.empty((B, nc, Q, H, hd), dtype=xk.dtype,
                     device="cuda").permute(0, 3, 1, 2, 4)
@@ -82,7 +94,7 @@ def main(others: list[str]) -> None:
     times = {name: [] for name in runs}
     for r in range(ROUNDS):
         for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
-            times[name].append(cs.cuda_ms(runs[name], REPS))
+            times[name].append(cuda_ms(runs[name], REPS))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -17,8 +17,8 @@ import torch
 
 from ..flash_attention.ref import row_errors
 
-__all__ = ["NEG", "ROW_RTOL", "STATE_ROW_RTOL", "row_errors",
-           "ssd_intra_chunk_ref"]
+__all__ = ["DT_RANGE", "NEG", "ROW_RTOL", "STATE_ROW_RTOL", "row_errors",
+           "ssd_chunks", "ssd_inputs", "ssd_intra_chunk_ref"]
 
 NEG = -1e30
 #: the largest ``row_errors`` of y the kernel may show against this
@@ -31,6 +31,9 @@ ROW_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 #: inputs the kernel splits B .* dt .* decay into bf16 hi + lo, a residue
 #: of ~2^-17 per product
 STATE_ROW_RTOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
+#: the range of Mamba-2's dt init, log-uniform, from which ``ssd_inputs``
+#: draws each head's dt_bias (chunk decays at Q 256 then exceed 1e-2)
+DT_RANGE = (1e-3, 1e-1)
 
 
 def ssd_intra_chunk_ref(a: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
@@ -59,3 +62,43 @@ def ssd_intra_chunk_ref(a: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     s_loc = torch.einsum("bcjn,bhcjd->bhcnd", Bm.float(), xw)
     dec = torch.exp(cum_last)[..., None]                     # (B,H,nc,1,1)
     return y.to(x.dtype), s_loc, dec
+
+
+def ssd_inputs(B: int, S: int, dtype: torch.dtype, seed: int, H: int = 64,
+               hd: int = 64, N: int = 128, device: str = "cuda"
+               ) -> tuple[torch.Tensor, ...]:
+    """Inputs of the scan as mamba2's layer makes them (its defaults are
+    mamba2-1.3b's heads), drawn on ``device`` from ``seed``: x (B, S, H,
+    hd) N(0, 1) * 0.5 and Bm, Cm (B, S, N) N(0, 1) * 0.3 in ``dtype``;
+    in f32, dt (B, S, H) = softplus(z + dt_bias) with z ~ N(0, 1) and
+    each head's dt_bias softplus^-1 of a log-uniform draw in
+    ``DT_RANGE`` (Mamba-2's init), and A = -exp(log(linspace(1, 16, H)))
+    (mamba2's A_log)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((B, S, H, hd), generator=gen, device=device) * 0.5
+         ).to(dtype)
+    lo, hi = (float(v) for v in torch.log(torch.tensor(DT_RANGE)))
+    u = torch.exp(torch.empty(H, device=device).uniform_(lo, hi,
+                                                         generator=gen))
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=device)
+        + torch.log(torch.expm1(u)))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device=device)))
+    Bm, Cm = ((torch.randn((B, S, N), generator=gen, device=device) * 0.3)
+              .to(dtype) for _ in range(2))
+    return x, dt, A, Bm, Cm
+
+
+def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+               ) -> tuple[torch.Tensor, ...]:
+    """The intra-chunk contract (a, dt, Bm, Cm, x) as views of the
+    sequence-major scan inputs, S a multiple of ``chunk``: what
+    ``ops.ssd_scan`` hands the kernel."""
+    B, S, H, hd = x.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    a = (dt * A).view(B, nc, chunk, H).permute(0, 3, 1, 2)[..., None]
+    return (a, dt.view(B, nc, chunk, H).permute(0, 3, 1, 2)[..., None],
+            Bm.view(B, nc, chunk, N), Cm.view(B, nc, chunk, N),
+            x.view(B, nc, chunk, H, hd).permute(0, 3, 1, 2, 4))

@@ -79,15 +79,7 @@ class Model:
         """(loss, {"ce", "moe_aux"}) over ``batch`` (its ``labels`` (B,
         S) beside the forward's keys), differentiable in ``params``: the
         token cross-entropy plus ``moe_aux_weight`` times the summed MoE
-        aux loss.  SSM and hybrid configs raise: their scans have no
-        backward in the port yet."""
-        if self.cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the port's Model.loss has no backward "
-                f"through the {self.cfg.family} family's scans yet (SSD's "
-                f"ssd_scan writes its states with out= and +=, and the "
-                f"selective scan has no backward); training runs the "
-                f"attention families")
+        aux loss."""
         logits, _, aux = lm_forward(params, self.cfg, batch,
                                     remat=self.remat, with_aux=True)
         ce = cross_entropy(logits, batch["labels"])

@@ -8,14 +8,18 @@ the selective scan over time and a decode step advances its (d_inner,
 d_state) state by one token.
 
 ``ssd_chunked`` routes as ``attention.attention_any`` routes the flash
-op: a CUDA tensor goes to ``kernels.ssd.ops.ssd_scan`` (the intra-chunk
-part in the CUDA kernel, the inter-chunk scan in torch ops); a CPU
-tensor takes the plain twin of the reference's ``ssd_chunked``, which
-materialises every chunk's (Q, Q) decay matrix.  The reference's model
-calls only its XLA twin; its Pallas kernel is reached only through its
-``kernels/ssd/ops.py``.  Mamba-1's prefill scan is
-``kernels.selective_scan.ops.selective_scan``: the CUDA kernel on a CUDA
-tensor, the reference's step loop in torch ops on a CPU tensor.
+op: a CUDA tensor goes to ``SSDScan``, whose forward is
+``kernels.ssd.ops.ssd_scan`` (the intra-chunk part in the CUDA kernel,
+the inter-chunk scan in torch ops) and whose backward differentiates
+``ssd_twin`` recomputed; a CPU tensor takes ``ssd_twin``, the plain twin
+of the reference's ``ssd_chunked``, which materialises every chunk's
+(Q, Q) decay matrix.  The reference's model calls only its XLA twin
+(``jax.grad`` differentiates it); its Pallas kernel is reached only
+through its ``kernels/ssd/ops.py``.  Mamba-1's prefill scan is
+``SelectiveScan``: forward ``kernels.selective_scan.ops.selective_scan``,
+backward ``selective_scan_bwd``, each the CUDA kernel on a CUDA tensor
+and the plain version (the reference's step loop, its reverse
+recurrence) in torch ops on a CPU tensor.
 
 Rounding follows the reference: dt, A and the state are f32; the
 convolutions, gates and projections run in the parameter type; the
@@ -34,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..kernels.selective_scan.ops import selective_scan
+from ..kernels.selective_scan.ops import selective_scan, selective_scan_bwd
 from ..kernels.ssd.ops import ssd_scan
 from .common import InitCtx, rms_norm
 
@@ -96,9 +100,17 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     caller passes, is not ported).  x: (B, S, H, hd); dt: (B, S, H); A:
     (H,) negative; Bm/Cm: (B, S, N).  Returns (y: (B, S, H, hd),
     state_out: (B, H, N, hd) f32).  A CUDA tensor runs the kernel
-    (``ssd_scan``)."""
+    (``SSDScan``), a CPU tensor ``ssd_twin``."""
     if x.device.type == "cuda":
-        return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        return SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+    return ssd_twin(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def ssd_twin(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's XLA ``ssd_chunked`` in torch ops, on any device
+    and differentiable: ``ssd_chunked``'s arguments and results."""
     Bsz, S, H, hd = x.shape
     N = Bm.shape[-1]
     pad = (-S) % chunk
@@ -144,6 +156,38 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if pad:
         y = y[:, :S]
     return y.to(x.dtype), state
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan under autograd.  Forward: ``kernels.ssd.ops.ssd_scan``
+    (on a CUDA tensor the intra-chunk kernel, which launches or raises;
+    on a CPU one its plain version).  Backward: the gradient of
+    ``ssd_twin`` recomputed on the saved inputs — the path ``jax.grad``
+    takes through the reference's XLA ``ssd_chunked`` — with the final
+    state's cotangent where it has one.  The kernel's plain version
+    never runs in the backward.  Arguments: ``ssd_chunked``'s, then the
+    chunk; dx, ddt, dA, dB and dC come back in their inputs' types."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in inputs]
+            y, state = ssd_twin(*leaves, chunk=ctx.chunk)
+            outs = [(o, g) for o, g in ((y, gy), (state, gstate))
+                    if g is not None]
+            grads = torch.autograd.grad([o for o, _ in outs],
+                                        leaves, [g for _, g in outs],
+                                        allow_unused=True)
+        return (*(torch.zeros_like(t) if g is None else g
+                  for t, g in zip(inputs, grads)), None)
 
 
 def mamba2_forward(p: dict, cfg: ArchConfig, xin: torch.Tensor, *,
@@ -236,6 +280,31 @@ def init_mamba1(ctx: InitCtx, cfg: ArchConfig) -> dict:
     }
 
 
+class SelectiveScan(torch.autograd.Function):
+    """Mamba-1's selective scan under autograd.  Forward:
+    ``kernels.selective_scan.ops.selective_scan``; backward: its
+    ``selective_scan_bwd``, given y's cotangent and the final state's
+    where it has one.  Each is the CUDA kernel on a CUDA tensor (it
+    launches or raises) and the plain version on a CPU tensor.
+    Arguments and results: ``selective_scan``'s; dx, dB and dC come back
+    in their inputs' types, ddt and dA in f32."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return selective_scan(x, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, ddt, dA, dB, dC = selective_scan_bwd(
+            x, dt, A, Bm, Cm, gy.float(), None if gh is None else gh.float())
+        return dx.to(x.dtype), ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype)
+
+
 def mamba1_forward(p: dict, cfg: ArchConfig, xin: torch.Tensor, *,
                    cache: Optional[dict] = None
                    ) -> tuple[torch.Tensor, Optional[dict]]:
@@ -266,7 +335,7 @@ def mamba1_forward(p: dict, cfg: ArchConfig, xin: torch.Tensor, *,
     dt = F.softplus((dt_low @ p["dt_proj"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                                   # (d_inner, N)
     if cache is None:
-        y, _ = selective_scan(x, dt, A, Bm, Cm)                  # (B, S, d_inner)
+        y, _ = SelectiveScan.apply(x, dt, A, Bm, Cm)             # (B, S, d_inner)
     else:
         dt_t = dt[:, 0, :, None]                                 # (B, d_inner, 1)
         dA = torch.exp(dt_t * A)

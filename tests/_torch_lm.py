@@ -7,6 +7,7 @@ the activations up), and the q/k/v biases are drawn nonzero, where both
 packages' inits make them zero and would leave the bias path unchecked.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -17,7 +18,7 @@ import torch
 from repro.configs import ARCHS as J_ARCHS
 from repro.models import Model as JModel
 from repro_torch.configs import ARCHS
-from repro_torch.interop import lm_params_from_numpy
+from repro_torch.interop import F32_LEAVES, lm_params_from_numpy
 from repro_torch.models import Model
 
 #: relative to the reference's largest |value|: f32 sums in another
@@ -117,6 +118,40 @@ def numpy_params(cfg, seed=0) -> dict:
     return tree
 
 
+def mamba2_numpy_params(cfg, seed=0) -> dict:
+    """The JAX package's parameter pytree (layer leaves stacked on L),
+    drawn with numpy at each weight's own fan-in; the f32 constants as
+    Mamba-2 initialises them."""
+    rng = np.random.default_rng(seed)
+    L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab
+    s = cfg.ssm
+    di = s.expand * D
+    H, N, K = di // s.head_dim, s.d_state, s.d_conv
+
+    def n(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (L, H)))
+    return {
+        "embed": n((V, D), 0.02), "final_norm": n((D,), 1.0),
+        "lm_head": n((D, V), D ** -0.5),
+        "layers": {
+            "ln1": n((L, D), 1.0),
+            "mixer": {
+                "w_z": n((L, D, di), D ** -0.5), "w_x": n((L, D, di), D ** -0.5),
+                "w_B": n((L, D, N), D ** -0.5), "w_C": n((L, D, N), D ** -0.5),
+                "w_dt": n((L, D, H), D ** -0.5),
+                "conv_x_w": n((L, K, di), 0.3), "conv_x_b": n((L, di), 0.1),
+                "conv_B_w": n((L, K, N), 0.3), "conv_B_b": n((L, N), 0.1),
+                "conv_C_w": n((L, K, N), 0.3), "conv_C_b": n((L, N), 0.1),
+                "A_log": np.log(np.broadcast_to(np.linspace(1.0, 16.0, H),
+                                                (L, H))).astype(np.float32),
+                "D": 1.0 + n((L, H), 0.1),
+                "dt_bias": np.log(np.expm1(dt0)).astype(np.float32),
+                "norm": n((L, di), 1.0), "out_proj": n((L, di, D), di ** -0.5)}},
+    }
+
+
 def mamba1_mixer(cfg, rng, lead=()) -> dict:
     """A Mamba-1 mixer's leaves as the JAX package names them, drawn with
     numpy at each weight's fan-in, each with the leading axes ``lead``.
@@ -183,6 +218,21 @@ def hybrid_numpy_params(cfg, seed=0) -> dict:
     }
 
 
+@contextlib.contextmanager
+def one_thread():
+    """torch on one CPU thread inside the block, its thread count restored
+    after.  The scan families' CPU paths are step loops of thousands of
+    small ops; with the suite's workers sharing the cores, each op on a
+    pool of threads waits for threads that other workers hold, and a
+    test that takes seconds alone took minutes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def cfgs(name, dtype="float32", **kw):
     """(JAX config, port config): the reduced ``name`` in ``dtype``."""
     j = dataclasses.replace(J_ARCHS[name].reduced(), dtype=dtype, **kw)
@@ -190,12 +240,30 @@ def cfgs(name, dtype="float32", **kw):
     return j, t
 
 
+def model_tree(cfg, seed=0) -> dict:
+    """The numpy tree of ``cfg``'s family: Mamba-2's, the hybrid's or the
+    attention families'."""
+    if cfg.family == "ssm":
+        return mamba2_numpy_params(cfg, seed)
+    if cfg.family == "hybrid":
+        return hybrid_numpy_params(cfg, seed)
+    return numpy_params(cfg, seed)
+
+
+def jax_tree(tree, cfg):
+    """The numpy tree as the JAX package holds it: every leaf in the
+    parameter type but the f32 constants of ``F32_LEAVES``."""
+    def cast(path, a):
+        f32 = path[-1].key in F32_LEAVES
+        return jnp.asarray(a, jnp.float32 if f32 else cfg.param_dtype())
+    return jax.tree_util.tree_map_with_path(cast, tree)
+
+
 def both_models(name, dtype="float32", seed=0, **kw):
     """(JAX model, JAX params, port model, port params) on the same
     weights (rounded once to the working type, then carried across)."""
     jcfg, tcfg = cfgs(name, dtype, **kw)
-    jparams = jax.tree.map(lambda a: jnp.asarray(a, jcfg.param_dtype()),
-                           numpy_params(tcfg, seed))
+    jparams = jax_tree(model_tree(tcfg, seed), jcfg)
     tparams = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
                                    device="cpu")
     return JModel(jcfg), jparams, Model(tcfg, device="cpu"), tparams

@@ -1443,7 +1443,8 @@ def test_selective_scan_kernel_matches_plain_version(card, dtype, B, S, D):
     ss_ops.reset_launches()
     y, h = ss_ops.selective_scan(*args)
     torch.cuda.synchronize()
-    assert ss_ops.LAUNCHES == {"selective_scan": 1}
+    assert ss_ops.LAUNCHES == {"selective_scan": 1,
+                             "selective_scan_bwd": 0}
     y_p, h_p = ss_ref.selective_scan_ref(*args)
     assert float(ss_ref.row_errors(y, y_p).max()) <= ss_ref.ROW_RTOL
     assert float(ss_ref.row_errors(h, h_p).max()) <= ss_ref.ROW_RTOL
@@ -1470,7 +1471,8 @@ def test_selective_scan_unaligned_rows_match_plain_version(card, dtype,
     ss_ops.reset_launches()
     y, h = ss_ops.selective_scan(*args)
     torch.cuda.synchronize()
-    assert ss_ops.LAUNCHES == {"selective_scan": 1}
+    assert ss_ops.LAUNCHES == {"selective_scan": 1,
+                             "selective_scan_bwd": 0}
     y_p, h_p = ss_ref.selective_scan_ref(*args)
     assert float(ss_ref.row_errors(y, y_p).max()) <= ss_ref.ROW_RTOL
     assert torch.equal(h, h_p)
@@ -1522,7 +1524,8 @@ def test_selective_scan_wrapper_raises_instead_of_falling_back(card):
             1, 2), A, Bm, Cm)
     with pytest.raises(ValueError, match="one device"):
         ss_ops.selective_scan(x, dt, A.cpu(), Bm, Cm)
-    assert ss_ops.LAUNCHES == {"selective_scan": 0}
+    assert ss_ops.LAUNCHES == {"selective_scan": 0,
+                             "selective_scan_bwd": 0}
 
 
 def test_jamba_on_card_equals_cpu(card):
@@ -1553,10 +1556,267 @@ def test_jamba_on_card_equals_cpu(card):
     ss_ops.reset_launches()
     got = gpu.prefill(params_gpu, {"tokens": toks.to(card)})
     assert fa_ops.LAUNCHES == {"flash_attention": 2}
-    assert ss_ops.LAUNCHES == {"selective_scan": 14}
+    assert ss_ops.LAUNCHES == {"selective_scan": 14,
+                             "selective_scan_bwd": 0}
     err = float((got.cpu() - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max()), err
     prompt = toks[:, :5]
     want = ServeEngine(cpu, 2, 12).generate(params, prompt, steps=7)
     got = ServeEngine(gpu, 2, 12).generate(params_gpu, prompt, steps=7)
     assert torch.equal(got.cpu(), want)
+
+
+# -- the scans' backward (training the SSM and hybrid families) -------------
+
+
+def _bwd_errors(got, want) -> dict:
+    """Row errors of dx and ddt, and dA, dB, dC's largest |difference|
+    relative to their largest |value|."""
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    out = {k: float(ss_ref.row_errors(g, w).max())
+           for k, g, w in zip(("dx", "ddt"), got[:2], want[:2])}
+    out.update({k: float((g - w).abs().max() / w.abs().max())
+                for k, g, w in zip(("dA", "dB", "dC"), got[2:], want[2:])})
+    return out
+
+
+@pytest.mark.parametrize("with_gh", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D", [(2, 200, 256), (1, 64, 100), (3, 1, 64),
+                                   (2, 135, 320), (2, 77, 16384)])
+def test_selective_scan_bwd_kernel_matches_plain_version(card, dtype, B, S,
+                                                         D, with_gh):
+    """The backward kernel against ``selective_scan_bwd_ref`` within
+    ``ref.BWD_RTOL``: whole and ragged tiles and sub-tiles (S 135, 77),
+    one step, a block cut by D (D 100 in bf16: rows off 16 bytes, B and C
+    slices of a projection), jamba's full width, with and without the
+    final state's cotangent; one launch, and two runs equal bit for
+    bit."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    args = _scan_inputs(card, B, S, D, dtype, seed=S + D)
+    gen = torch.Generator(device=card).manual_seed(9)
+    gy = torch.randn((B, S, D), generator=gen, device=card)
+    gh = (torch.randn((B, D, 16), generator=gen, device=card)
+          if with_gh else None)
+    ss_ops.reset_launches()
+    got = ss_ops.selective_scan_bwd(*args, gy, gh)
+    torch.cuda.synchronize()
+    assert ss_ops.LAUNCHES == {"selective_scan": 0, "selective_scan_bwd": 1}
+    want = ss_ref.selective_scan_bwd_ref(*args, gy, gh)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+    errs = _bwd_errors(got, want)
+    assert max(errs.values()) <= ss_ref.BWD_RTOL, errs
+    again = ss_ops.selective_scan_bwd(*args, gy, gh)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_selective_scan_bwd_reads_strided_rows(card):
+    """x and dt as slices one channel into wider tensors and B, C as
+    slices of an odd-width projection: every row off 16 bytes."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    x, dt, A, Bm, Cm = _scan_inputs(card, 2, 75, 201, torch.bfloat16, seed=8,
+                                    R=5)
+    args = (x[..., 1:], dt[..., 1:], A[1:].contiguous(), Bm, Cm)
+    gy = torch.randn((2, 75, 200), device=card)
+    got = ss_ops.selective_scan_bwd(*args, gy)
+    errs = _bwd_errors(got, ss_ref.selective_scan_bwd_ref(*args, gy))
+    assert max(errs.values()) <= ss_ref.BWD_RTOL, errs
+
+
+def test_selective_scan_bwd_wrapper_raises_instead_of_falling_back(card):
+    """A state size the kernel was not built for, a strided channel axis
+    and a cotangent on another device raise on the card, with no launch
+    counted."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    x, dt, A, Bm, Cm = _scan_inputs(card, 1, 8, 64, torch.float32, 0)
+    gy = torch.zeros((1, 8, 64), device=card)
+    ss_ops.reset_launches()
+    with pytest.raises(ValueError, match="N in"):
+        ss_ops.selective_scan_bwd(x, dt, A[:, :8], Bm[..., :8], Cm[..., :8],
+                                  gy)
+    with pytest.raises(ValueError, match="unit stride"):
+        ss_ops.selective_scan_bwd(x.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), dt, A, Bm, Cm, gy)
+    with pytest.raises(ValueError, match="device"):
+        ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, gy.cpu())
+    assert ss_ops.LAUNCHES == {"selective_scan": 0, "selective_scan_bwd": 0}
+
+
+def _refuse_plain_scans(monkeypatch):
+    """Every plain version of the two scan kernels, under each name a
+    module of the port holds it by, made to raise."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+
+    def refuse(*args, **kw):
+        raise AssertionError("a scan's plain version ran on the card")
+
+    for mod in (ss_ops, ss_ref):
+        monkeypatch.setattr(mod, "selective_scan_ref", refuse)
+        monkeypatch.setattr(mod, "selective_scan_bwd_ref", refuse)
+    monkeypatch.setattr(ssd_ops, "ssd_intra_chunk_ref", refuse)
+    monkeypatch.setattr(ssd_ref, "ssd_intra_chunk_ref", refuse)
+
+
+def test_scan_functions_never_reach_the_plain_versions_on_card(
+        card, monkeypatch):
+    """On CUDA tensors ``SelectiveScan`` launches the forward and backward
+    kernels and ``SSDScan`` the intra-chunk kernel, its backward
+    recomputing ``ssd_twin``: no plain version of either kernel runs,
+    and every gradient is finite."""
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.models import ssm
+    _refuse_plain_scans(monkeypatch)
+    x, dt, A, Bm, Cm = (t.detach().requires_grad_(True) for t in
+                        _scan_inputs(card, 2, 100, 128, torch.bfloat16, 4))
+    ss_ops.reset_launches()
+    y, _ = ssm.SelectiveScan.apply(x, dt, A, Bm, Cm)
+    grads = torch.autograd.grad(y.square().sum(), (x, dt, A, Bm, Cm))
+    torch.cuda.synchronize()
+    assert ss_ops.LAUNCHES == {"selective_scan": 1, "selective_scan_bwd": 1}
+    assert [g.dtype for g in grads] == [torch.bfloat16, torch.float32,
+                                        torch.float32, torch.bfloat16,
+                                        torch.bfloat16]
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    sx, sdt, sA, sB, sC = (t.detach().requires_grad_(True) for t in
+                           _ssd_inputs(card, 2, 100, 4, 16, 16,
+                                       torch.bfloat16, 5))
+    ssd_ops.reset_launches()
+    y, _ = ssm.ssd_chunked(sx, sdt, sA, sB, sC, chunk=32)
+    grads = torch.autograd.grad(y.float().square().sum(),
+                                (sx, sdt, sA, sB, sC))
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == {"ssd_intra_chunk": 1}
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_gradients_on_card(card, dtype):
+    """``SSDScan`` at mamba2-1.3b's SSD shape cut to S 1,024 (B 2, H 64, N
+    128, hd 64, Q 256): its gradients against autograd through
+    ``ssd_twin`` on the card, within 1e-5 (f32) and 5e-2 (bf16, against
+    the twin in f32) of each one's largest |value|."""
+    from repro_torch.models import ssm
+    args = _ssd_inputs(card, 2, 1024, 64, 64, 128, dtype, 6)
+    w = torch.randn((2, 1024, 64, 64), device=card)
+
+    def grads(fn, xs):
+        leaves = [t.detach().requires_grad_(True) for t in xs]
+        y, _ = fn(*leaves)
+        return torch.autograd.grad((y.float() * w).sum(), leaves)
+
+    got = grads(lambda *a: ssm.SSDScan.apply(*a, 256), args)
+    want = grads(lambda *a: ssm.ssd_twin(*a, chunk=256),
+                 [t.float() for t in args])
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    for a, g, ww in zip(args, got, want):
+        assert g.dtype == a.dtype
+        err = float((g.float() - ww).abs().max() / ww.abs().max())
+        assert err <= tol, err
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_scan_family_train_step_on_card_equals_cpu(card, name):
+    """Reduced mamba2-1.3b and jamba (one period, Mamba's dt init) in f32
+    at 2,176 tokens (jamba's attention past ``LONG_SEQ``): the loss
+    within 1e-5 relative, each gradient leaf within 1e-4 and each weight
+    after one step within 1e-5 of its largest |value|, card against
+    CPU, through the scan kernels' forward and backward.  The conv
+    biases, which the init makes zero, are drawn: a leaf of zeros is
+    after one step the AdamW update alone, whose last bits follow the
+    division by each gradient's own size rather than the weights."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.train import TrainConfig, adamw_init, make_train_step
+    from repro_torch.train import step as step_mod
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(ARCHS[name].reduced(), dtype="float32")
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    params = cpu.init(0)
+    gen = torch.Generator().manual_seed(1)
+    mixers = (params["layers"] if cfg.family == "ssm" else
+              [m for per in params["periods"] for m in per["mamba"]])
+    for sub in mixers:
+        m = sub["mixer"]
+        u = torch.exp(torch.empty_like(m["dt_bias"]).uniform_(
+            np.log(1e-3), np.log(1e-1), generator=gen))
+        m["dt_bias"] = torch.log(torch.expm1(u))
+        for k in ("conv_b", "conv_x_b", "conv_B_b", "conv_C_b"):
+            if k in m:
+                m[k] = torch.randn(m[k].shape, generator=gen) * 0.5
+    params_gpu = _to(params, card)
+    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=LONG_SEQ_TRAIN,
+                             global_batch=2, seed=1).batch(0)
+    seen = []
+    real = step_mod.loss_and_grads
+
+    def recording(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    step_mod.loss_and_grads = recording
+    try:
+        tc = TrainConfig()
+        p_cpu, _, _ = make_train_step(cpu, tc)(
+            params, adamw_init(params, tc.optimizer), batch)
+        ss_ops.reset_launches()
+        ssd_ops.reset_launches()
+        p_gpu, _, _ = make_train_step(gpu, tc)(
+            params_gpu, adamw_init(params_gpu, tc.optimizer), batch)
+        torch.cuda.synchronize()
+    finally:
+        step_mod.loss_and_grads = real
+    if cfg.hybrid:
+        assert ss_ops.LAUNCHES["selective_scan_bwd"] == 7
+        assert ss_ops.LAUNCHES["selective_scan"] >= 14
+    else:
+        assert ssd_ops.LAUNCHES["ssd_intra_chunk"] > cfg.num_layers
+    want, got = seen
+    assert abs(got[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item())
+    for a, b in zip(leaves(got[2]), leaves(want[2])):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), err
+    for a, b in zip(leaves(p_gpu), leaves(p_cpu)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-5 * float(b.abs().max()), err
+
+
+def test_mamba2_restart_on_card_is_bit_for_bit(card):
+    """Reduced mamba2-1.3b in bf16 on the card: 2 steps, a checkpoint and
+    2 more equal a restore and the same 2 steps, bit for bit (no atomic
+    sum on the path)."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.train import (
+        AdamWConfig, TrainConfig, init_train_state, make_train_step,
+    )
+    from repro_torch.tree import leaves, rebuild
+    cfg = ARCHS["mamba2-1.3b"].reduced()
+    model = Model(cfg)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), grad_accum=2)
+    step = make_train_step(model, tc)
+    ds = SyntheticDataset(vocab=cfg.vocab, seq_len=512, global_batch=4,
+                          seed=2)
+
+    def run(params, opt, start, n):
+        for i in range(start, start + n):
+            params, opt, _ = step(params, opt, ds.batch(i))
+        return params, opt
+
+    params, opt = run(*init_train_state(model, tc, 0), 0, 2)
+    with tempfile.TemporaryDirectory() as d:
+        state = {"params": params, "opt": opt}
+        save(d, 2, state)
+        template = rebuild(state, [torch.zeros_like(t) for t in leaves(state)])
+        pa, oa = run(params, opt, 2, 2)
+        restored, _ = restore(d, template)
+        pb, ob = run(restored["params"], restored["opt"], 2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(leaves([pa, oa]),
+                                                 leaves([pb, ob])))

@@ -27,6 +27,8 @@ torch = pytest.importorskip("torch")
 from repro.configs import ARCHS as J_ARCHS  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro.models import ssm as JSsm  # noqa: E402
+from _torch_lm import mamba2_numpy_params as numpy_params  # noqa: E402
+
 from repro.serve import ServeEngine as JServe  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.interop import F32_LEAVES, lm_params_from_numpy  # noqa: E402
@@ -44,40 +46,6 @@ def _cfgs(dtype="float32", **kw):
     j = dataclasses.replace(J_ARCHS[ARCH].reduced(), dtype=dtype, **kw)
     t = dataclasses.replace(ARCHS[ARCH].reduced(), dtype=dtype, **kw)
     return j, t
-
-
-def numpy_params(cfg, seed=0) -> dict:
-    """The JAX package's parameter pytree (layer leaves stacked on L),
-    drawn with numpy at each weight's own fan-in; the f32 constants as
-    Mamba-2 initialises them."""
-    rng = np.random.default_rng(seed)
-    L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab
-    s = cfg.ssm
-    di = s.expand * D
-    H, N, K = di // s.head_dim, s.d_state, s.d_conv
-
-    def n(shape, std):
-        return (rng.standard_normal(shape) * std).astype(np.float32)
-
-    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (L, H)))
-    return {
-        "embed": n((V, D), 0.02), "final_norm": n((D,), 1.0),
-        "lm_head": n((D, V), D ** -0.5),
-        "layers": {
-            "ln1": n((L, D), 1.0),
-            "mixer": {
-                "w_z": n((L, D, di), D ** -0.5), "w_x": n((L, D, di), D ** -0.5),
-                "w_B": n((L, D, N), D ** -0.5), "w_C": n((L, D, N), D ** -0.5),
-                "w_dt": n((L, D, H), D ** -0.5),
-                "conv_x_w": n((L, K, di), 0.3), "conv_x_b": n((L, di), 0.1),
-                "conv_B_w": n((L, K, N), 0.3), "conv_B_b": n((L, N), 0.1),
-                "conv_C_w": n((L, K, N), 0.3), "conv_C_b": n((L, N), 0.1),
-                "A_log": np.log(np.broadcast_to(np.linspace(1.0, 16.0, H),
-                                                (L, H))).astype(np.float32),
-                "D": 1.0 + n((L, H), 0.1),
-                "dt_bias": np.log(np.expm1(dt0)).astype(np.float32),
-                "norm": n((L, di), 1.0), "out_proj": n((L, di, D), di ** -0.5)}},
-    }
 
 
 def _jax_tree(tree, cfg):

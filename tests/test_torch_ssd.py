@@ -249,3 +249,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         ops.ssd_intra_chunk(a, dt, Bm[..., :4, :], Cm, x)
     with pytest.raises(ValueError, match="one device"):
         ops.ssd_intra_chunk(a, dt, Bm, Cm, x.to("meta"))
+
+
+def test_scan_inputs_and_chunks_stand_alone():
+    """``ref.ssd_inputs`` and ``ref.ssd_chunks``, the inputs ``chip_smoke.py``
+    and ``compare.py`` check and time the kernel on (``compare.py`` takes
+    them from here, not from the script): one seed, one draw, Mamba-2's
+    dt, and chunks that are views in the kernel's contract, whose plain
+    intra-chunk output is the twin's y where the whole scan has one chunk."""
+    import inspect
+
+    from repro_torch.kernels.ssd import compare
+    assert "chip_smoke" not in inspect.getsource(compare)
+    B, S, H, hd, N, Q = 2, 32, 3, 16, 16, 32
+    x, dt, A, Bm, Cm = args = ref.ssd_inputs(B, S, torch.float32, 4, H, hd,
+                                             N, device="cpu")
+    again = ref.ssd_inputs(B, S, torch.float32, 4, H, hd, N, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(args, again))
+    assert x.shape == (B, S, H, hd) and dt.shape == (B, S, H)
+    assert Bm.shape == Cm.shape == (B, S, N) and A.shape == (H,)
+    assert float(dt.min()) > 0 and float(A.max()) < 0
+    a, d, b, c, xk = chunks = ref.ssd_chunks(*args, Q)
+    assert a.shape == d.shape == (B, H, 1, Q, 1)
+    assert xk.shape == (B, H, 1, Q, hd) and xk.data_ptr() == x.data_ptr()
+    y, _, _ = ref.ssd_intra_chunk_ref(*chunks)
+    want, _ = TSsm.ssd_twin(*args, chunk=Q)
+    torch.testing.assert_close(y.permute(0, 2, 3, 1, 4).reshape(want.shape),
+                               want, rtol=1e-5, atol=1e-5)

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 from _propcheck import given, settings, strategies as st  # noqa: E402
+from _torch_lm import one_thread  # noqa: E402
 
 from repro.data import ByteDataset as JByteDataset  # noqa: E402
 from repro.data import SyntheticDataset as JSynthetic  # noqa: E402
@@ -76,6 +77,33 @@ def test_checkpoint_resume_is_exact(small_model):
         assert rstep == 3
         assert not _shares_storage(restored, [pa, oa, template])
         pb, ob = run(restored["params"], restored["opt"], 3, 3)
+    assert _equal(pa, pb) and _equal(oa, ob)
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_scan_family_resume_is_exact(name):
+    """Reduced mamba2-1.3b and jamba in bf16, 2 microbatches a step: train
+    2 + save + train 2  ==  restore + train 2, bit for bit, both trees
+    (the SSM's layers, the hybrid's periods) through the checkpoint."""
+    cfg = ARCHS[name].reduced()
+    model = Model(cfg, device="cpu")
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3), grad_accum=2)
+    ds = SyntheticDataset(vocab=cfg.vocab, seq_len=24, global_batch=4, seed=3)
+    step = make_train_step(model, tc)
+
+    def run(params, opt, start, n):
+        for i in range(start, start + n):
+            params, opt, _ = step(params, opt, ds.batch(i))
+        return params, opt
+
+    with one_thread():
+        params, opt = run(*init_train_state(model, tc, 0), 0, 2)
+        with tempfile.TemporaryDirectory() as d:
+            save(d, 2, {"params": params, "opt": opt})
+            template = _blank({"params": params, "opt": opt})
+            pa, oa = run(params, opt, 2, 2)
+            restored, _ = restore(d, template, device="cpu")
+            pb, ob = run(restored["params"], restored["opt"], 2, 2)
     assert _equal(pa, pb) and _equal(oa, ob)
 
 

@@ -1,10 +1,10 @@
 """Training's pieces below the step, held against the JAX package on the
 CPU: the cross-entropy's value and gradient, the flash op's gradient
-past ``LONG_SEQ``, the refusal of the scan families, and the weight
-carriers both ways."""
+past ``LONG_SEQ``, the scan families' loss and gradients, and the weight
+carriers both ways (the SSM and hybrid trees too)."""
 
-import dataclasses
 import math
+import tempfile
 
 import pytest
 
@@ -13,12 +13,13 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from _torch_lm import cfgs, hybrid_numpy_params, numpy_params  # noqa: E402
+from _torch_lm import cfgs, model_tree, numpy_params, one_thread  # noqa: E402
 
 from repro.models.attention import chunked_attention as j_chunked  # noqa: E402
 from repro.models.model import cross_entropy as j_cross_entropy  # noqa: E402
 from repro.train import AdamWConfig as JAdamW  # noqa: E402
 from repro.train import adamw_init as j_adamw_init  # noqa: E402
+from repro_torch.checkpoint import restore, save  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.interop import (  # noqa: E402
     adamw_state_from_numpy, lm_params_from_numpy, lm_params_to_numpy,
@@ -29,6 +30,8 @@ from repro_torch.models.attention import (  # noqa: E402
 )
 from repro_torch.models.lm import RematPolicy  # noqa: E402
 from repro_torch.models.model import cross_entropy  # noqa: E402
+from repro_torch.train import loss_and_grads  # noqa: E402
+from repro_torch.tree import leaves, rebuild  # noqa: E402
 
 #: loss relative, gradient leaf relative to its largest |value|
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
@@ -125,12 +128,24 @@ def test_flash_function_takes_strided_views():
 
 @pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-1.5-large-398b"])
 def test_loss_refuses_the_scan_families(name):
-    cfg = dataclasses.replace(ARCHS[name].reduced(), dtype="float32")
+    """The scan families once refused ``Model.loss``; now each gives a
+    finite loss and a gradient on every leaf of its tree, through
+    ``SSDScan``'s and ``SelectiveScan``'s CPU paths, in its own
+    working type (bf16) and under the default remat."""
+    cfg = ARCHS[name].reduced()
     model = Model(cfg, device="cpu")
-    toks = torch.zeros((1, 9), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="backward"):
-        model.loss(model.init(0), {"tokens": toks[:, :-1],
-                                   "labels": toks[:, 1:]})
+    params = model.init(0)
+    toks = torch.from_numpy(np.arange(2 * 41).reshape(2, 41) * 7 % cfg.vocab)
+    with one_thread():
+        loss, metrics, grads = loss_and_grads(
+            model, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert set(metrics) == {"ce", "moe_aux"}
+    flat = leaves(grads)
+    assert len(flat) == len(leaves(params))
+    for p, g in zip(leaves(params), flat):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
 
 
 def test_remat_policy_names_what_it_takes():
@@ -140,11 +155,12 @@ def test_remat_policy_names_what_it_takes():
     assert RematPolicy(scan_group=3).group_for(40) == 1
     assert RematPolicy(enabled=False).group_for(40) == 1
     assert RematPolicy().group_for(36) == math.isqrt(36)
+    assert RematPolicy().group_for(48) == 6          # mamba2-1.3b's depth
 
 
 ROUND_TRIP = ["granite-3-2b", "glm4-9b", "codeqwen1.5-7b", "qwen2-72b",
               "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "qwen2-vl-72b",
-              "whisper-large-v3", "jamba-1.5-large-398b"]
+              "whisper-large-v3", "jamba-1.5-large-398b", "mamba2-1.3b"]
 
 
 def _equal_trees(a, b):
@@ -157,7 +173,7 @@ def _equal_trees(a, b):
 @pytest.mark.parametrize("name", ROUND_TRIP)
 def test_params_round_trip_through_the_port(name):
     _, cfg = cfgs(name)
-    tree = (hybrid_numpy_params(cfg) if cfg.hybrid else numpy_params(cfg))
+    tree = model_tree(cfg)
     back = lm_params_to_numpy(cfg, lm_params_from_numpy(cfg, tree,
                                                         device="cpu"))
     _equal_trees(back, tree)
@@ -185,3 +201,31 @@ def test_adamw_state_crosses_in_its_own_dtype(state_dtype):
     _equal_trees(back, jax.tree.map(
         lambda a: np.asarray(a.astype(jnp.float32)) if
         a.dtype == jnp.bfloat16 else np.asarray(a), state["m"]))
+
+
+@pytest.mark.parametrize("name", ROUND_TRIP)
+def test_adamw_state_round_trips_through_a_checkpoint(name):
+    """The reference's AdamW state of each tree (the SSM's ``layers`` of
+    mixers, the hybrid's ``periods`` with their sublayer lists) crosses
+    into the port, through a checkpoint written and restored into zeros,
+    and back to the reference's layout bit for bit; the f32 constants'
+    moments stay f32."""
+    _, cfg = cfgs(name, "bfloat16")
+    params = jax.tree.map(jnp.asarray, model_tree(cfg))
+    state = j_adamw_init(params, JAdamW())
+    rng = np.random.default_rng(2)
+    state["m"] = jax.tree.map(
+        lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype),
+        state["m"])
+    state["step"] = jnp.int32(5)
+    got = adamw_state_from_numpy(cfg, jax.tree.map(np.asarray, state),
+                                 device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        save(d, 5, got)
+        back, step = restore(d, rebuild(got, [torch.zeros_like(t)
+                                              for t in leaves(got)]),
+                             device="cpu")
+    assert step == 5 and int(back["step"]) == 5
+    assert all(t.dtype == torch.float32 for t in leaves(back["m"]))
+    _equal_trees(lm_params_to_numpy(cfg, back["m"]),
+                 jax.tree.map(np.asarray, state["m"]))

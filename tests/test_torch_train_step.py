@@ -1,7 +1,8 @@
 """The port's AdamW, LR schedule and train step against the JAX
 package's on the CPU: the update on identical gradients (f32 and bf16
 state, clipping active), the schedule step by step, gradient
-accumulation against the full batch, and three steps of each."""
+accumulation against the full batch (the scan families' too), and
+three steps of each."""
 
 import dataclasses
 
@@ -12,7 +13,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from _torch_lm import both_models, mrope_positions  # noqa: E402
+from _torch_lm import both_models, mrope_positions, one_thread  # noqa: E402
 
 from repro.data import SyntheticDataset as JSynthetic  # noqa: E402
 from repro.train import AdamWConfig as JAdamW  # noqa: E402
@@ -170,6 +171,27 @@ def test_grad_accum_splits_mrope_positions_on_their_batch_axis():
     (p1, m1), (p2, m2) = (
         _run_one_step(model, TrainConfig(optimizer=opt_cfg, grad_accum=a),
                       batch) for a in (1, 2))
+    assert abs(m1["loss"].item() - m2["loss"].item()) <= \
+        1e-5 * m1["loss"].item()
+    for a, b in zip(jax.tree.leaves(p1), jax.tree.leaves(p2)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_grad_accum_runs_the_scan_families(name):
+    """Reduced mamba2-1.3b and jamba in f32: 2 accumulated microbatches
+    give the full batch's loss and update, through SSD's and the
+    selective scan's CPU paths (the MoE's aux loss, which is per
+    microbatch, weighed out)."""
+    cfg = dataclasses.replace(ARCHS[name].reduced(), dtype="float32")
+    model = Model(cfg, device="cpu", moe_aux_weight=0.0)
+    opt_cfg = AdamWConfig(lr=1e-3, grad_clip=0.0, weight_decay=0.0)
+    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=24, global_batch=4,
+                             seed=5).batch(0)
+    with one_thread():
+        (p1, m1), (p2, m2) = [
+            _run_one_step(model, TrainConfig(optimizer=opt_cfg, grad_accum=a),
+                          batch) for a in (1, 2)]
     assert abs(m1["loss"].item() - m2["loss"].item()) <= \
         1e-5 * m1["loss"].item()
     for a, b in zip(jax.tree.leaves(p1), jax.tree.leaves(p2)):
