@@ -12,8 +12,9 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
 ``src/repro_torch/kernels/drain/csrc/drain.cu``,
 ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``,
 ``src/repro_torch/kernels/ssd/csrc/ssd.cu`` and
-``src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu``, seven
-``nvcc`` processes at once) and then:
+``src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu``, and
+the last again as the probe build that counts its backward's
+exponentials: eight ``nvcc`` processes at once) and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds every kernel wrapper against its plain PyTorch version on the
@@ -163,13 +164,14 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    ``Model.prefill`` with ``last_only`` (a flash launch at hd 128 a
    layer, 64 query heads over 8);
 12. drives deepseek-v2-lite-16b (MLA) the same way at full width and
-   depth (27 layers: a dense first layer, then 26 MoE layers of 64
-   experts, top 6, two shared): the 2 x 32,768-token prefill at the
+   ``DEEPSEEK_LAYERS`` (9) of its 27 layers, printed with ``reduced`` (a
+   dense first layer, then MoE layers of 64 experts, top 6, two
+   shared): the 2 x 32,768-token prefill at the
    capacity factor, its MLA attention (q/k of 192, v of 128) in
    ``chunked_attention`` with no flash launch, and that function's
    time in the profiled prefill; ``generate`` for 4 x 520-token prompts
    through the absorbed decode over the latent cache at
-   ``GEN_LAYERS_CUT`` (2) of the 27 layers (printed with ``reduced``),
+   ``GEN_LAYERS_CUT`` (2) layers (printed with ``reduced``),
    forced to the prefill's experts (1 routing a step); and the 2-layer
    f32 model
    (the dense layer and one MoE layer) at 2,304 tokens, card against
@@ -242,8 +244,9 @@ libraries from the checkout (``src/repro_torch/kernels/flowhash/csrc/flowhash.cu
    width (B 2, d_inner 16,384, N 16) over S 512, x, B and C in f32 and
    bf16, with a final-state cotangent: dx and ddt row by row, dA, dB and
    dC relative to their largest |value|, within ``ref.BWD_RTOL`` (1e-5),
-   and two runs equal bit for bit; then timed at S 4,096 (its row on the
-   ``kernels`` line); (b) ``SSDScan``'s gradients (the kernel forward,
+   and two runs equal bit for bit; then timed at S 4,096, with the bytes
+   a call holds beyond its outputs and the exponentials a state and step
+   that the probe build counts (its row on the ``kernels`` line); (b) ``SSDScan``'s gradients (the kernel forward,
    ``ssd_twin`` recomputed in the backward) against autograd through the
    twin at mamba2's training shape (B 2, S 4,096, 64 heads, N 128, hd
    64, Q 256), f32 within 1e-5, bf16 within 5e-2, and its backward
@@ -300,6 +303,7 @@ kernel.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import re
@@ -554,9 +558,14 @@ BIASES = ("bq", "bk", "bv", "b_in", "b_out", "ln1b", "ln2b", "lnxb",
 # another)
 GRANITE_LAYERS = 4
 MAMBA2_LAYERS = 12
+# deepseek-v2-lite-16b's 2 x 32,768-token prefill, cut from 27 layers: its
+# MLA attention runs chunked_attention, some 2 s a layer with the profiled
+# repeat, and at full depth the phase took 68-70 s; the script took 617.5 s
+# on a slower host with it
+DEEPSEEK_LAYERS = 9
 # glm4-9b's, qwen2-moe-a2.7b's and deepseek-v2-lite-16b's generate and
-# decode checks, cut from 40, 24 and 27 layers (their 2 x 32,768-token
-# prefills stay at full depth) so that the script keeps inside 600 s
+# decode checks, cut from 40, 24 and 27 layers (glm4's and the MoE's
+# 2 x 32,768-token prefills stay at full depth) so that the script keeps inside 600 s
 # beside qwen2-vl-72b, whisper-large-v3, jamba-1.5-large-398b and the
 # train phases (8 layers until granite's train phase came, 4 until the
 # scan families' came)
@@ -723,9 +732,13 @@ def phase_build():
     from repro_torch.kernels.ssd import build as ssd_build
     builds = (fh_build, pl_build, loads_build, drain_build, fa_build,
               ssd_build, ss_build)
+    # and the selective scan's probe build, which counts the backward's
+    # exponentials
+    jobs = [b.build for b in builds] + [
+        lambda: ss_build.build(ss_build.COUNT_EXP)]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as pool:
-        libs = list(pool.map(lambda b: b.build(), builds))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda job: job(), jobs))
     for b in builds:
         b.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -4413,7 +4426,10 @@ def scan_bwd_gate(torch) -> tuple[dict, dict]:
     dA, dB and dC relative to each one's largest |value|, all within
     ``ref.BWD_RTOL``, and two runs equal bit for bit; then the kernel
     timed alone at ``SCAN_BWD_TIMED_S`` steps (bf16) beside the forward
-    kernel.  Returns (the gate's record, the ``kernels`` row)."""
+    kernel, the bytes one call holds beyond its outputs (its scratch),
+    and its exponentials a state and step as the probe build
+    (``build.COUNT_EXP``) counts them.  Returns (the gate's record, the
+    ``kernels`` row)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.selective_scan import build, ops, ref
     from repro_torch.models.ssm import mamba1_dims
@@ -4425,8 +4441,10 @@ def scan_bwd_gate(torch) -> tuple[dict, dict]:
     report = {dt: ptxas_report(log, f"selective_scan_bwd_kernelI{mangled}")[0]
               for dt, mangled in (("bfloat16", "13__nv_bfloat16"),
                                   ("float32", "f"))}
-    check(all(set(r) == {str(N)} for r in report.values()),
-          f"selective_scan_bwd instances {report} are not N {N}")
+    # instances "N ALIGNED": rows on 16 bytes, and rows anywhere
+    check(all(set(r) == {f"{N} 1", f"{N} 0"} for r in report.values()),
+          f"selective_scan_bwd instances {report} are not N {N} aligned "
+          f"and not")
     for dt, insts in report.items():
         for inst, r in insts.items():
             check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
@@ -4472,13 +4490,30 @@ def scan_bwd_gate(torch) -> tuple[dict, dict]:
     gy = torch.randn((B, S, D), generator=gen, device="cuda")
     ms = cuda_ms(lambda: ops.selective_scan_bwd(*args, gy), 5)
     fwd_ms = cuda_ms(lambda: ops.selective_scan(*args), 5)
+    # the scratch: the bytes one call holds at its peak beyond its outputs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs = ops.selective_scan_bwd(*args, gy)
+    torch.cuda.synchronize()
+    scratch_bytes = (torch.cuda.max_memory_allocated()
+                     - torch.cuda.memory_allocated())
+    del outs
+    # the exponentials: the probe build counts each lane's in dA
+    probe = build.typed(ctypes.CDLL(str(build.build(build.COUNT_EXP))))
+    with patched(build, "load", lambda real: lambda: probe):
+        exps = float(ops.selective_scan_bwd(*args, gy)[2].double().sum())
+    check(exps > 0 and exps == int(exps),
+          f"selective_scan_bwd's probe counted {exps} exponentials")
     del args, gy
     # x (bf16), dt and gy read, dx and ddt written (f32); B and C read
     # (bf16), dB and dC written (f32); A read, dA written
     moved = B * S * D * (2 + 4 + 4 + 4 + 4) + 2 * B * S * N * (2 + 4) \
         + 2 * D * N * 4
     b_ms, b_by = bound(moved, B * S * D * N, EXP_PER_S)
-    inst = report["bfloat16"][str(N)]
+    inst = report["bfloat16"][f"{N} 1"]       # jamba's rows lie on 16 bytes
+    lib = build.load()
+    blocks = lib.selective_scan_bwd_blocks_per_sm(1, 1)
+    check(blocks > 0, f"selective_scan_bwd occupancy query failed: {blocks}")
     row = {"name": "selective_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/selective_scan/csrc/"
                      "selective_scan.cu",
@@ -4494,7 +4529,10 @@ def scan_bwd_gate(torch) -> tuple[dict, dict]:
            "bound_ms": b_ms, "bound_by": b_by, "exp_per_s": EXP_PER_S,
            "library_ms": None, "forward_ms": fwd_ms,
            "registers": inst["registers"],
-           "spill_bytes": inst["spill_stores"] + inst["spill_loads"]}
+           "spill_bytes": inst["spill_stores"] + inst["spill_loads"],
+           "warps_an_sm": blocks * lib.selective_scan_bwd_threads() // 32,
+           "scratch_bytes": scratch_bytes,
+           "exp_passes": exps / (B * S * D * N)}
     return {"checks": checks, "ptxas": report}, row
 
 
@@ -4796,7 +4834,8 @@ def main() -> int:
             ("serve qwen2-moe-a2.7b", phase_serve, ("qwen2-moe-a2.7b",), cut),
             ("serve qwen2-72b", phase_serve, ("qwen2-72b", FIT, True), {}),
             ("serve deepseek-v2-lite-16b", phase_serve,
-             ("deepseek-v2-lite-16b",), dict(cut, prompt_len=M2_GEN_PROMPT)),
+             ("deepseek-v2-lite-16b", DEEPSEEK_LAYERS),
+             dict(cut, prompt_len=M2_GEN_PROMPT)),
             ("serve qwen2-vl-72b", phase_serve_vlm, (), {}),
             ("serve whisper-large-v3", phase_serve_whisper, (), {})):
         for hd, n in timed_phase(name, fn, np, torch, *args, **kw).items():

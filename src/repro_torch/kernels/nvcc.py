@@ -5,8 +5,9 @@ The libraries have plain C interfaces (no PyTorch headers), so each
 builds in seconds.  A library is built at first use from the checkout's
 own source into ``_build/`` beside its family's package, under a name
 keyed by a hash of the source, the headers it includes with ``#include
-"..."`` (``kernels/csrc/hopper.cuh``) and the flags, so an edited source
-or header is never served a stale library.  The compiler's register and spill report
+"..."`` (``kernels/csrc/hopper.cuh``), the flags and any macros defined
+for a probe build, so an edited source or header is never served a stale
+library.  The compiler's register and spill report
 (``-Xptxas -v``) is kept beside the library as ``<name>.log``.
 """
 
@@ -54,27 +55,32 @@ def sources(source: Path) -> list[Path]:
     return seen
 
 
-def library_path(source: Path) -> Path:
+def library_path(source: Path, defines: tuple[str, ...] = ()) -> Path:
     """Where the library for ``source`` (``<family>/csrc/<name>.cu``), the
-    headers it includes and the current flags lives:
-    ``<family>/_build/<name>-<hash>.so``."""
+    headers it includes, the current flags and the macros ``defines``
+    lives: ``<family>/_build/<name>-<hash>.so``."""
     digest = hashlib.sha256()
     for path in sources(source):
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(defines)).encode())
     key = digest.hexdigest()[:16]
     return source.parent.parent / "_build" / f"{source.stem}-{key}.so"
 
 
-def build(source: Path) -> Path:
-    """Compile ``source`` unless its build already exists."""
-    out = library_path(source)
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{name}" for name in defines)
+
+
+def build(source: Path, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``source``, with the macros ``defines`` defined, unless
+    that build already exists."""
+    out = library_path(source, defines)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [nvcc(), *_flags(defines), "-o", str(tmp), str(source)],
         capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(

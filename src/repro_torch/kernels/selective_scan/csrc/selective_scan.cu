@@ -147,22 +147,23 @@ __device__ __forceinline__ int row_off(const char* row) {
   return ALIGNED ? 0 : int(reinterpret_cast<uintptr_t>(row) & 15);
 }
 
-// Thread ``tid``'s share of copying ``rows`` rows of ``nbytes`` bytes
-// (row r at src + r * stride) as the 16-byte chunks that hold them: row
-// r's chunks to dst + r * PITCH.  Items run row-major over (row, chunk
-// slot), THREADS apart, so a warp reads along a row; the slots a row has,
-// PITCH / 16, are a compile-time power of two in the aligned instance, so
-// the item's row and slot are a shift and a mask.
-template <int PITCH, int ALIGNED>
+// Thread ``tid``'s share of copying ``rows`` (at most ROWS) rows of
+// ``nbytes`` bytes (row r at src + r * stride) as the 16-byte chunks that
+// hold them: row r's chunks to dst + r * PITCH.  Items run row-major over
+// (row, chunk slot), NT (the block's threads) apart, so a warp reads along
+// a row; the slots a row has, PITCH / 16, are a compile-time power of two
+// in the aligned instance, so the item's row and slot are a shift and a
+// mask.
+template <int PITCH, int ALIGNED, int ROWS = TILE, int NT = THREADS>
 __device__ __forceinline__ void copy_rows(uint32_t dst, const char* src,
                                           long long stride, int rows,
                                           int nbytes, int tid) {
   constexpr int SLOTS = PITCH / 16;
 #pragma unroll
-  for (int i0 = 0; i0 < TILE * SLOTS; i0 += THREADS) {
+  for (int i0 = 0; i0 < ROWS * SLOTS; i0 += NT) {
     const int i = i0 + tid;
     const int r = i / SLOTS, q = i - r * SLOTS;
-    if ((TILE * SLOTS % THREADS == 0 || i < TILE * SLOTS) && r < rows) {
+    if ((ROWS * SLOTS % NT == 0 || i < ROWS * SLOTS) && r < rows) {
       const char* row = src + r * stride;
       const int off = row_off<ALIGNED>(row);
       if (16 * q < off + nbytes)
@@ -412,45 +413,85 @@ int occupancy() {
 //   dA[c, n] = sum_{b, t} g_t[n] dt_t[c] a_t[n] h_{t-1}[n]
 //   dB_t[n]  = sum_c g_t[n] dt_t[c] x_t[c]
 //   dC_t[n]  = sum_c gy_t[c] h_t[n]
-// The reverse walk needs h_{t-1} and h_t, last step first.  They are
+// The reverse walk needs h_{t-1}, h_t and a_t, last step first.  They are
 // recomputed, not saved by the forward: the forward kernel stays the
-// serving path's, bit for bit, and under remat it runs two or three
-// times a training step, so a saved state (268 MB a sublayer at jamba's
-// training shape, B 2, S 4,096, D 16,384) would be written that often
-// and live from the forward to the backward.  The recompute costs about
-// three forward scans of arithmetic and keeps nothing between the two.
-//   * Phase 1: one thread a (batch row, channel), as the forward, scans
-//     from h = 0 and writes the state before every BWD_TILE-step tile to
-//     a scratch (B, S / BWD_TILE, D, N) f32 (268 MB at that shape).
-//   * Phase 2 walks the tiles last first.  A tile's state is replayed
-//     once to keep the state before each of its SUB-step sub-tiles in
-//     shared memory; then, last sub-tile first, the sub-tile is replayed
-//     with each step's state kept in shared memory (SUB x N x CHANNELS
-//     f32, 32 KB: a thread reads only its own column, so no barrier
-//     guards it), and walked backwards: g carried in registers, dx, ddt
-//     written, dA accumulated in registers over the whole walk.
-//   * dB and dC sum over all D channels.  Each warp sums its 32 lanes'
-//     16 terms by a halving exchange of shuffles (16 a vector, lane l
-//     ends with state l / 2's sum), the block adds its two warps, and
-//     each block writes its (B, S, N) partial sums; a second kernel adds
-//     the D / CHANNELS partials in block order, and dA's B partials in
-//     batch order.  No atomics: two runs agree bit for bit.
-//   * x, dt, B and C are read through their batch and step strides, as
-//     in the forward (B and C staged a sub-tile at a time in shared
-//     memory, converted to f32); gy and the outputs are contiguous.  The
-//     state's replay rounds as the forward does, so h_t is the forward's.
-// Bound at (B 2, S 4,096, D 16,384, N 16): 2.1e9 exponentials a pass at
-// 4.18e12/s, 0.51 ms, and about 2.4 GB of x, dt, gy, dx and ddt at
-// 3.35 TB/s, 0.72 ms.  The kernel takes about four exponentials an
-// element (phase 1, the two replays and the walk), so it is a simple
-// kernel several times its bound; its time is in PERF.md.
+// serving path's, bit for bit, and under remat it runs two or three times
+// a training step, so a saved state would be written that often and live
+// from the forward to the backward.
+//
+// Bound at jamba's training shape (B 2, S 4,096, D 16,384, N 16): about
+// 2.4 GB of x, dt, gy, dx and ddt at 3.35 TB/s, 0.72 ms; one pass of
+// exponentials, 2.15e9 at 4.18e12/s, 0.51 ms.  Nearer is the issue rate:
+// an exponential pass is some 15 instructions an element (state and step)
+// and the walk some 25 more, so 2.5 passes, the walk and the tiles' work
+// are about 70, 4.5 ms at one warp instruction a clock on each of an SM's
+// four schedulers (compare.py --bwd --sass reads the built loops).
+//
+// Design (Hopper):
+//   * Two lanes a (batch row, channel), each holding HALF of its 16 states
+//     (its A, carry g and dA sum in registers), so a thread needs half the
+//     registers and twice the warps fill an SM; the two lanes' dx and ddt
+//     halves meet by one shuffle, the even lane stores dx, the odd ddt.
+//     A block walks BWD_CHANNELS channels of one batch row; at jamba's
+//     width the grid, 256 blocks of 8 warps, is resident at once (2 blocks
+//     and 16 warps an SM: 128 registers a thread, 101 KB of shared memory
+//     a block in bf16).  Blocks of 32 channels, 8 an SM, were measured
+//     slower (compare.py --bwd --variants).
+//   * Phase 1 scans forward from h = 0, as the forward kernel does, and
+//     saves the state before every BWD_TILE-step tile to a scratch (B,
+//     ceil(S / BWD_TILE), D, N) f32 (1.07 GB at that shape).  Phase 2 walks
+//     the tiles last first: from the saved state it replays the starts of
+//     the tile's SUB-step sub-tiles, then each sub-tile, last first,
+//     keeping h_t and a_t of its steps in shared memory (the last step's
+//     in registers), and walks it back with no exponential of its own:
+//     a_t h_{t-1} is the forward's rounded product again, and a_t carries
+//     g.  So an element takes one exponential in phase 1, one in its
+//     replay and (SUBS - 1) / SUBS in the replay of the starts, 2.5 in
+//     all (the first design took 3.75).  The replay rounds as the forward
+//     does from the forward's own saved state, so h_t is the forward's bit
+//     for bit.
+//   * Every step's operands come from shared memory: x, dt, gy, B and C of
+//     a tile are copied by cp.async in 16-byte chunks into a ring of two
+//     stages, the tile before this one (the walk runs last tile first)
+//     issued right after the barrier that opens this one, so its copies
+//     land while this tile is replayed and walked; a lane reads its HALF
+//     states of B and C from the copied rows (bf16 in one 16-byte read).
+//     A lane loads its own half of the next tile's saved state, which it
+//     wrote itself in phase 1, while this tile is walked.  Rows are read
+//     through their batch and step strides as the forward reads them (an
+//     ALIGNED instance, and one that reads each row's offset).
+//   * dB and dC sum over all D channels.  Each warp sums its 16 channels'
+//     terms by a halving exchange of shuffles (pair_sum8), and writes each
+//     step's 32 sums to shared memory; a cluster of BWD_CLUSTER blocks
+//     (adjacent channels of one batch row) adds them through distributed
+//     shared memory, each rank adding a slice of the tile's sums (a lane a
+//     block, that block's warps in order, then the blocks in rank order),
+//     and writes one partial a cluster (2 x 33.5 MB at that shape; the
+//     first design's 64-channel blocks wrote 2 x 134 MB).  The buffer of sums is double,
+//     so one cluster barrier a tile, split in two, serves: a block arrives
+//     when it has walked a tile and waits, after replaying the next one's
+//     sub-tile starts, until every block has walked it.  Larger clusters
+//     were measured slower.  A second kernel adds the clusters' partials
+//     in order, and dA's batch rows in order.  No atomics: two runs agree
+//     bit for bit.
+//   Shared memory a block (BWD_CHANNELS 128, BWD_TILE 8, SUB 4, bf16): the
+//   two stages 21 KB, h_t and a_t of a sub-tile's first three steps 48 KB,
+//   the sub-tile starts 16 KB, the sums 16 KB: 101 KB.
 
-constexpr int BWD_TILE = 32;   // steps between two saved states
-constexpr int SUB = 8;         // steps a sub-tile keeps in shared memory
+constexpr int BWD_CHANNELS = 128; // channels a block walks, two lanes each
+constexpr int HALF = 8;           // states a lane holds: N 16 over two lanes
+constexpr int BWD_TILE = 8;       // steps between two saved states: a stage
+constexpr int SUB = 4;            // steps whose h_t and a_t a block keeps
+constexpr int BWD_CLUSTER = 2;    // blocks that add their dB, dC on chip
+constexpr int BWD_MIN_BLOCKS = 2; // blocks an SM the launch bounds allow
+constexpr int BWD_THREADS = 2 * BWD_CHANNELS;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
 constexpr int SUBS = BWD_TILE / SUB;
-constexpr int BWD_MIN_BLOCKS = 4;
-constexpr int WARPS = THREADS / 32;
-static_assert(BWD_TILE % SUB == 0 && THREADS % 32 == 0, "tiling");
+static_assert(BWD_TILE % SUB == 0 && BWD_THREADS % 32 == 0, "tiling");
+static_assert(BWD_TILE * 2 * 2 * HALF % (4 * BWD_CLUSTER) == 0 &&
+                  32 % BWD_CLUSTER == 0,
+              "a tile's sums split evenly over the cluster's blocks, and a "
+              "group of a lane a block lies in one warp");
 
 struct BwdParams {
   const void* x;
@@ -463,224 +504,457 @@ struct BwdParams {
   float* ck;            // (B, ceil(S / BWD_TILE), D, N) scratch
   float* dx;            // (B, S, D)
   float* ddt;           // (B, S, D)
-  float* dB_part;       // (D / CHANNELS blocks, B, S, N)
-  float* dC_part;       // (D / CHANNELS blocks, B, S, N)
+  float* dB_part;       // (clusters a batch row, B, S, N)
+  float* dC_part;       // (clusters a batch row, B, S, N)
   float* dA_part;       // (B, D, N)
   int B, S, D;
   long long x_sb, x_ss, d_sb, d_ss, b_sb, b_ss, c_sb, c_ss;
 };
 
-// Shared memory of one backward block, in floats.
-template <int N>
+// Shared memory of one backward block, in bytes.  A row pitch is the row's
+// bytes, and one spare chunk where rows may start off 16 bytes.  A lane's
+// HALF states are two float4s, laid out [which float4][thread], so a
+// warp's 16-byte reads fall on consecutive addresses.
+template <typename T, int N, int ALIGNED>
 struct BwdLayout {
-  static constexpr int HS = 0;                          // [SUB][N][THREADS]
-  static constexpr int STARTS = HS + SUB * N * THREADS; // [SUBS][N][THREADS]
-  static constexpr int SB = STARTS + SUBS * N * THREADS;   // [SUB][N]
-  static constexpr int SC = SB + SUB * N;                   // [SUB][N]
-  static constexpr int RED = SC + SUB * N;     // [WARPS][SUB][2][N]
-  static constexpr int FLOATS = RED + WARPS * SUB * 2 * N;
-  static constexpr int BYTES = FLOATS * 4;
+  static constexpr int SPARE = ALIGNED ? 0 : 16;
+  static constexpr int XP = BWD_CHANNELS * int(sizeof(T)) + SPARE;
+  static constexpr int FP = BWD_CHANNELS * 4 + SPARE;   // dt and gy rows
+  static constexpr int BP = N * int(sizeof(T)) + SPARE;
+  static constexpr int LANES4 = 2 * BWD_THREADS * 16;   // HALF f32 a lane
+  // one stage: x, dt, gy, B and C rows as copied
+  static constexpr int X = 0;
+  static constexpr int DT = X + BWD_TILE * XP;
+  static constexpr int GY = DT + BWD_TILE * FP;
+  static constexpr int BR = GY + BWD_TILE * FP;
+  static constexpr int CR = BR + BWD_TILE * BP;
+  static constexpr int STAGE = CR + BWD_TILE * BP;
+  // h_t and a_t of a sub-tile's steps but its last (kept in registers)
+  static constexpr int HS = 2 * STAGE;
+  static constexpr int AS = HS + (SUB - 1) * LANES4;
+  static constexpr int STARTS = AS + (SUB - 1) * LANES4;   // sub-tiles'
+  static constexpr int RED = STARTS + SUBS * LANES4;
+  static constexpr int RED_BYTES = BWD_WARPS * BWD_TILE * 2 * N * 4;
+  static constexpr int BYTES = RED + 2 * RED_BYTES;   // the sums, 2 bufs
+  static_assert(XP % 16 == 0 && FP % 16 == 0 && BP % 16 == 0, "16 B rows");
 };
 
-// The sum over a warp's 32 lanes of v[n], n < 16: at each of four
-// exchanges a lane keeps half its sums and sends its partner the other
-// half, then pairs of lanes add; lane l returns the sum of v[l >> 1].
-__device__ __forceinline__ float warp_sum16(const float (&v)[16]) {
+// The sum over the 16 lanes of one parity of a warp of v[i], i < 8: at
+// each of three exchanges a lane keeps half its sums and sends its partner
+// the other half, then pairs add, and a last exchange adds pairs of lanes;
+// lane l returns the sum of v[((l >> 4) & 1) * 4 + ((l >> 3) & 1) * 2 +
+// ((l >> 2) & 1)] over the lanes of its parity (lanes l and l ^ 2 agree).
+__device__ __forceinline__ float pair_sum8(const float (&v)[8]) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  float w8[8], w4[4], w2[2];
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w8[i] = (b4 ? v[8 + i] : v[i]) +
-            __shfl_xor_sync(full, b4 ? v[i] : v[8 + i], 16);
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float w4[4], w2[2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    w4[i] = (b3 ? w8[4 + i] : w8[i]) +
-            __shfl_xor_sync(full, b3 ? w8[i] : w8[4 + i], 8);
+    w4[i] = (b4 ? v[4 + i] : v[i]) +
+            __shfl_xor_sync(full, b4 ? v[i] : v[4 + i], 16);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    w2[i] = (b2 ? w4[2 + i] : w4[i]) +
-            __shfl_xor_sync(full, b2 ? w4[i] : w4[2 + i], 4);
-  const float w1 = (b1 ? w2[1] : w2[0]) +
-                   __shfl_xor_sync(full, b1 ? w2[0] : w2[1], 2);
-  return w1 + __shfl_xor_sync(full, w1, 1);
+    w2[i] = (b3 ? w4[2 + i] : w4[i]) +
+            __shfl_xor_sync(full, b3 ? w4[i] : w4[2 + i], 8);
+  const float w1 = (b2 ? w2[1] : w2[0]) +
+                   __shfl_xor_sync(full, b2 ? w2[0] : w2[1], 4);
+  return w1 + __shfl_xor_sync(full, w1, 2);
 }
 
-// B and C of steps t0 .. t0 + steps - 1 to f32 in shared memory, zeros
-// past the last step; barriers on both sides, so that no thread still
-// reads the sub-tile before and every thread sees this one.
-template <typename T, int N>
-__device__ __forceinline__ void stage_bc(const BwdParams& p, long long b,
-                                         int t0, int steps, float* sB,
-                                         float* sC, int tid) {
-  __syncthreads();
-  const T* Bg = static_cast<const T*>(p.Bm) + b * p.b_sb;
-  const T* Cg = static_cast<const T*>(p.Cm) + b * p.c_sb;
-  for (int i = tid; i < SUB * N; i += THREADS) {
-    const int j = i / N, n = i - j * N;
-    const long long t = t0 + j;
-    sB[i] = j < steps ? to_f32(Bg[t * p.b_ss + n]) : 0.f;
-    sC[i] = j < steps ? to_f32(Cg[t * p.c_ss + n]) : 0.f;
-  }
-  __syncthreads();
+// ``local``'s address in the shared memory of the cluster's block ``rank``
+__device__ __forceinline__ uint32_t peer_addr(uint32_t local, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(local), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The cluster barrier in two halves: a thread's wait returns once every
+// thread of the cluster's blocks has arrived (as often as it has), and
+// what each wrote before arriving, to its shared or device memory, is seen
+// after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(THREADS, BWD_MIN_BLOCKS)
+__device__ __forceinline__ void ld4(float* v, const void* src) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void st4(void* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <typename T, int N, int ALIGNED>
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 selective_scan_bwd_kernel(BwdParams p) {
-  static_assert(N == 16, "warp_sum16 sums 16 states");
-  using Lay = BwdLayout<N>;
-  extern __shared__ __align__(16) float fsmem[];
-  float* hs = fsmem + Lay::HS;
-  float* starts = fsmem + Lay::STARTS;
-  float* sB = fsmem + Lay::SB;
-  float* sC = fsmem + Lay::SC;
-  float* red = fsmem + Lay::RED;
+  static_assert(N == 2 * HALF, "two lanes a channel, HALF states each");
+  using Lay = BwdLayout<T, N, ALIGNED>;
+  constexpr int ES = int(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ch = tid >> 1, half = tid & 1;
   const long long b = blockIdx.y;
-  const int c = blockIdx.x * CHANNELS + tid;
-  const bool live = c < p.D;
   const int S = p.S, D = p.D;
+  const int c0 = blockIdx.x * BWD_CHANNELS;
+  const int nch = max(0, min(BWD_CHANNELS, D - c0));
+  const int c = c0 + ch;
+  const bool live = ch < nch;
   const int tiles = (S + BWD_TILE - 1) / BWD_TILE;
-  // this thread's channel of x and dt (a dead channel reads channel 0 and
-  // takes zeros), and of gy, dx and ddt
-  const int cc = live ? c : 0;
-  const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + cc;
-  const float* dg = p.dt + b * p.d_sb + cc;
-  const long long row = b * S * D + cc;
+  // byte pointers to this block's part of each array's first row.  A
+  // block past D (the grid is whole clusters) points at the last channel:
+  // copy_rows takes the chunk that holds a row's first byte even when it
+  // copies none of the row, and past D that chunk would lie past the
+  // array's end.  The block reads no channel of what it copies.
+  const int cr = min(c0, D - 1);
+  const char* xg = static_cast<const char*>(p.x) + (b * p.x_sb + cr) * ES;
+  const char* dg = reinterpret_cast<const char*>(p.dt) +
+                   (b * p.d_sb + cr) * 4;
+  const char* gg = reinterpret_cast<const char*>(p.gy) +
+                   (b * S * D + cr) * 4;
+  const char* bg = static_cast<const char*>(p.Bm) + b * p.b_sb * ES;
+  const char* cg = static_cast<const char*>(p.Cm) + b * p.c_sb * ES;
+  const long long xs = p.x_ss * ES, ds = p.d_ss * 4,
+                  gs = static_cast<long long>(D) * 4, bs = p.b_ss * ES,
+                  cs = p.c_ss * ES;       // step strides in bytes
+  // this lane's HALF states of tile 0's saved state; tile k's are k * D * N
+  // floats on
+  float* ck = p.ck + (b * tiles * D + (live ? c : 0)) * N + half * HALF;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
-  float a[N], h[N];
+  // zero the ring, so that a channel past D reads zeros, not stale bits
+  for (int i = tid; i < Lay::BYTES / 16; i += BWD_THREADS)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  float a[HALF];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = live ? p.A[static_cast<long long>(c) * N + n] : 0.f;
-    h[n] = 0.f;
-  }
-  auto load_xd = [&](long long t, float& xv, float& dv) {
-    xv = live ? to_f32(xg[t * p.x_ss]) : 0.f;
-    dv = live ? dg[t * p.d_ss] : 0.f;
+  for (int n = 0; n < HALF; ++n)
+    a[n] = live ? p.A[static_cast<long long>(c) * N + half * HALF + n] : 0.f;
+
+  // the copies of tile k, one group: x, dt and B; in phase 2 also gy and
+  // C.  A thread waits for its own with cp_async_wait_all, and the barrier
+  // after it shows every thread's.
+  auto issue = [&](int k, bool walk) {
+    const long long t0 = static_cast<long long>(k) * BWD_TILE;
+    const int rows = min(BWD_TILE, S - k * BWD_TILE);
+    const uint32_t st = sbase + (k & 1) * Lay::STAGE;
+    copy_rows<Lay::XP, ALIGNED, BWD_TILE, BWD_THREADS>(
+        st + Lay::X, xg + t0 * xs, xs, rows, nch * ES, tid);
+    copy_rows<Lay::FP, ALIGNED, BWD_TILE, BWD_THREADS>(
+        st + Lay::DT, dg + t0 * ds, ds, rows, nch * 4, tid);
+    copy_rows<Lay::BP, ALIGNED, BWD_TILE, BWD_THREADS>(
+        st + Lay::BR, bg + t0 * bs, bs, rows, N * ES, tid);
+    if (walk) {
+      copy_rows<Lay::FP, ALIGNED, BWD_TILE, BWD_THREADS>(
+          st + Lay::GY, gg + t0 * gs, gs, rows, nch * 4, tid);
+      copy_rows<Lay::BP, ALIGNED, BWD_TILE, BWD_THREADS>(
+          st + Lay::CR, cg + t0 * cs, cs, rows, N * ES, tid);
+    }
+    cp_async_commit();
   };
-  // one step of the forward, rounded as selective_scan_kernel rounds it
-  auto advance = [&](int j, long long t) {
-    float xv, dv;
-    load_xd(t, xv, dv);
+
+  // tile k's staged rows: x_t, dt_t and gy_t of this lane's channel (zeros
+  // for a channel past D), B_t and C_t of its HALF states, and where rows
+  // may start off 16 bytes the offsets of the tile's first rows
+  struct Tile {
+    int x, d, g, b, c;                    // byte offsets in smem
+    uint32_t xo, dof, go, bo, co;
+  };
+  auto tile = [&](int k) {
+    const long long t0 = static_cast<long long>(k) * BWD_TILE;
+    const int st = (k & 1) * Lay::STAGE;
+    return Tile{st + Lay::X + ch * ES, st + Lay::DT + ch * 4,
+                st + Lay::GY + ch * 4, st + Lay::BR, st + Lay::CR,
+                static_cast<uint32_t>(row_off<ALIGNED>(xg + t0 * xs)),
+                static_cast<uint32_t>(row_off<ALIGNED>(dg + t0 * ds)),
+                static_cast<uint32_t>(row_off<ALIGNED>(gg + t0 * gs)),
+                static_cast<uint32_t>(row_off<ALIGNED>(bg + t0 * bs)),
+                static_cast<uint32_t>(row_off<ALIGNED>(cg + t0 * cs))};
+  };
+  const uint32_t xs32 = static_cast<uint32_t>(xs),
+                 ds32 = static_cast<uint32_t>(ds),
+                 gs32 = static_cast<uint32_t>(gs),
+                 bs32 = static_cast<uint32_t>(bs),
+                 cs32 = static_cast<uint32_t>(cs);
+  constexpr uint32_t OFF = ALIGNED ? 0 : 15;
+  auto xat = [&](const Tile& tl, int r) {
+    return live ? to_f32(*reinterpret_cast<const T*>(
+                      smem + tl.x + r * Lay::XP + ((tl.xo + r * xs32) & OFF)))
+                : 0.f;
+  };
+  auto dat = [&](const Tile& tl, int r) {
+    return live ? *reinterpret_cast<const float*>(
+                      smem + tl.d + r * Lay::FP + ((tl.dof + r * ds32) & OFF))
+                : 0.f;
+  };
+  auto gat = [&](const Tile& tl, int r) {
+    return live ? *reinterpret_cast<const float*>(
+                      smem + tl.g + r * Lay::FP + ((tl.go + r * gs32) & OFF))
+                : 0.f;
+  };
+  // this lane's HALF values of a staged B or C row (its first element at
+  // byte ``off`` of the row), in f32: in bf16 one 16-byte read
+  auto bc_at = [&](int row, uint32_t off, float* v) {
+    const unsigned char* at = smem + row + off + half * HALF * ES;
+    if constexpr (ALIGNED && ES == 2) {
+      const uint4 w = *reinterpret_cast<const uint4*>(at);
+      const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
+      for (int i = 0; i < 4; ++i) {           // bf16: the high 16 bits
+        v[2 * i] = __uint_as_float(u[i] << 16);
+        v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+      }
+    } else if constexpr (ALIGNED) {
+      ld4(v, at);
+      ld4(v + 4, at + 16);
+    } else {
+#pragma unroll
+      for (int n = 0; n < HALF; ++n)
+        v[n] = to_f32(*reinterpret_cast<const T*>(at + n * ES));
+    }
+  };
+  // one step of the forward at row r, rounded as selective_scan_kernel
+  // rounds it: h advanced, and each state's decay a_t in an
+#ifdef SCAN_BWD_COUNT_EXP
+  int exps = 0;       // the probe build's count of this lane's exponentials
+#endif
+  auto forward = [&](const Tile& tl, int r, float (&h)[HALF],
+                     float (&an)[HALF]) {
+    const float xv = xat(tl, r), dv = dat(tl, r);
+    float bv[HALF];
+    bc_at(tl.b + r * Lay::BP, (tl.bo + r * bs32) & OFF, bv);
+#pragma unroll
+    for (int n = 0; n < HALF; ++n) {
       const float dA = expf(__fmul_rn(dv, a[n]));
-      const float dBx = __fmul_rn(__fmul_rn(dv, sB[j * N + n]), xv);
+#ifdef SCAN_BWD_COUNT_EXP
+      ++exps;
+#endif
+      const float dBx = __fmul_rn(__fmul_rn(dv, bv[n]), xv);
       h[n] = __fadd_rn(__fmul_rn(dA, h[n]), dBx);
+      an[n] = dA;
     }
   };
-  float* ck = p.ck + (b * tiles * D + c) * N;     // tile 0's saved state
+  // a lane's HALF f32 in the [float4][thread] layout at byte ``at``
+  auto lane_ld = [&](float* v, int at) {
+    ld4(v, smem + at + tid * 16);
+    ld4(v + 4, smem + at + (BWD_THREADS + tid) * 16);
+  };
+  auto lane_st = [&](int at, const float* v) {
+    st4(smem + at + tid * 16, v);
+    st4(smem + at + (BWD_THREADS + tid) * 16, v + 4);
+  };
 
-  // phase 1: the state before each tile
-  for (int t0 = 0; t0 < S; t0 += SUB) {
-    const int steps = min(SUB, S - t0);
-    if (t0 % BWD_TILE == 0 && live) {
-      float4* dst = reinterpret_cast<float4*>(
-          ck + static_cast<long long>(t0 / BWD_TILE) * D * N);
+  // phase 1: the state before each tile; the last tile's own steps are
+  // replayed in phase 2
+  {
+    float h[HALF], an[HALF];
 #pragma unroll
-      for (int u = 0; u < N / 4; ++u)
-        dst[u] = make_float4(h[4 * u], h[4 * u + 1], h[4 * u + 2],
-                             h[4 * u + 3]);
+    for (int n = 0; n < HALF; ++n) h[n] = 0.f;
+    issue(0, false);
+    cp_async_wait_all();
+    for (int k = 0; k < tiles; ++k) {
+      __syncthreads();  // this tile staged, the one before it consumed
+      if (live) {
+        float* dst = ck + static_cast<long long>(k) * D * N;
+        st4(dst, h);
+        st4(dst + 4, h + 4);
+      }
+      if (k + 1 == tiles) break;
+      issue(k + 1, false);
+      const Tile tl = tile(k);
+#pragma unroll
+      for (int r = 0; r < BWD_TILE; ++r) forward(tl, r, h, an);
+      cp_async_wait_all();
     }
-    stage_bc<T, N>(p, b, t0, steps, sB, sC, tid);
-    for (int j = 0; j < steps; ++j) advance(j, t0 + j);
   }
+  __syncthreads();   // phase 1's stages consumed, its saved states written
 
   // phase 2: the tiles in reverse
-  float g[N], dA_acc[N];
+  const uint32_t rank = cluster_rank();
+  const long long cluster = blockIdx.x / BWD_CLUSTER;
+  float g[HALF], dA_acc[HALF], saved[HALF];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    g[n] = (live && p.gh) ? p.gh[(b * D + c) * N + n] : 0.f;
+  for (int n = 0; n < HALF; ++n) {
+    g[n] = (live && p.gh) ? p.gh[(b * D + c) * N + half * HALF + n] : 0.f;
     dA_acc[n] = 0.f;
+    saved[n] = 0.f;
   }
+  // the lane's half of tile k's saved state, which it wrote in phase 1
+  auto load_saved = [&](int k) {
+    if (live) {
+      const float* src = ck + static_cast<long long>(k) * D * N;
+      ld4(saved, src);
+      ld4(saved + 4, src + 4);
+    }
+  };
+  // tile kk's dB and dC: this block's slice of the tile's sums, four
+  // states a group of BWD_CLUSTER lanes.  Lane q of a group adds rank q's
+  // warps' terms in warp order, and the group's first lane adds the ranks'
+  // partials in rank order.
+  auto reduce = [&](int kk) {
+    constexpr int PER = BWD_TILE * 2 * N / 4 / BWD_CLUSTER;   // a rank's
+    const int steps = min(BWD_TILE, S - kk * BWD_TILE);
+    const uint32_t red = sbase + Lay::RED + (kk & 1) * Lay::RED_BYTES;
+#pragma unroll
+    for (int i0 = 0; i0 < PER * BWD_CLUSTER; i0 += BWD_THREADS) {
+      const int i = i0 + tid, q = i % BWD_CLUSTER;
+      const int slot = static_cast<int>(rank) * PER + i / BWD_CLUSTER;
+      const int r = slot / (N / 2), w = (slot / (N / 4)) & 1,
+                n = 4 * (slot % (N / 4));
+      const bool on = i < PER * BWD_CLUSTER && r < steps;
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (on) {
+#pragma unroll
+        for (int wp = 0; wp < BWD_WARPS; ++wp) {
+          const float4 u = ld_cluster4(
+              peer_addr(red, q) + (((wp * BWD_TILE + r) * 2 + w) * N + n) * 4);
+          t.x += u.x; t.y += u.y; t.z += u.z; t.w += u.w;
+        }
+      }
+      float4 v = t;
+#pragma unroll
+      for (int d = 1; d < BWD_CLUSTER; ++d) {
+        const unsigned full = 0xffffffffu;
+        v.x += __shfl_down_sync(full, t.x, d, BWD_CLUSTER);
+        v.y += __shfl_down_sync(full, t.y, d, BWD_CLUSTER);
+        v.z += __shfl_down_sync(full, t.z, d, BWD_CLUSTER);
+        v.w += __shfl_down_sync(full, t.w, d, BWD_CLUSTER);
+      }
+      if (on && q == 0) {
+        float* part = w ? p.dC_part : p.dB_part;
+        *reinterpret_cast<float4*>(
+            part + ((cluster * p.B + b) * S + kk * BWD_TILE + r) * N + n) = v;
+      }
+    }
+  };
+  const int nl = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
+                 ((lane >> 2) & 1);            // pair_sum8's state
+  float* out = (half ? p.ddt : p.dx) + b * S * D + c;   // dx, ddt at t = 0
+  issue(tiles - 1, true);
+  load_saved(tiles - 1);
+  cp_async_wait_all();
   for (int k = tiles - 1; k >= 0; --k) {
     const int T0 = k * BWD_TILE;
-    const int subs = (min(BWD_TILE, S - T0) + SUB - 1) / SUB;
-    if (live) {
-      const float4* src = reinterpret_cast<const float4*>(
-          ck + static_cast<long long>(k) * D * N);
+    const int steps = min(BWD_TILE, S - T0);
+    const int subs = (steps + SUB - 1) / SUB;
+    __syncthreads();  // tile k staged; tile k + 1 consumed
+    if (k > 0) issue(k - 1, true);
+    const Tile tl = tile(k);
+    float* red = reinterpret_cast<float*>(smem + Lay::RED +
+                                          (k & 1) * Lay::RED_BYTES) +
+                 warp * BWD_TILE * 2 * N + half * HALF + nl;
+    lane_st(Lay::STARTS, saved);        // sub-tile 0's start
+    if (subs > 1) {                     // the starts of sub-tiles 1 ..
+      float h[HALF], an[HALF];
 #pragma unroll
-      for (int u = 0; u < N / 4; ++u) {
-        const float4 v = src[u];
-        h[4 * u] = v.x; h[4 * u + 1] = v.y;
-        h[4 * u + 2] = v.z; h[4 * u + 3] = v.w;
+      for (int n = 0; n < HALF; ++n) h[n] = saved[n];
+      for (int s = 1; s < subs; ++s) {
+#pragma unroll
+        for (int j = 0; j < SUB; ++j) forward(tl, (s - 1) * SUB + j, h, an);
+        lane_st(Lay::STARTS + s * Lay::LANES4, h);
       }
     }
-    // the state before each sub-tile of the tile
-    for (int s = 0; s < subs; ++s) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) starts[(s * N + n) * THREADS + tid] = h[n];
-      if (s + 1 < subs) {
-        const int t0 = T0 + s * SUB;
-        stage_bc<T, N>(p, b, t0, SUB, sB, sC, tid);
-        for (int j = 0; j < SUB; ++j) advance(j, t0 + j);
-      }
+    if (k + 1 < tiles) {
+      // every block of the cluster has walked tile k + 1: its sums are
+      // written, and tile k + 2's read, so tile k's buffer is free
+      cluster_wait();
+      reduce(k + 1);
     }
     for (int s = subs - 1; s >= 0; --s) {
-      const int t0 = T0 + s * SUB, steps = min(SUB, S - t0);
-#pragma unroll
-      for (int n = 0; n < N; ++n) h[n] = starts[(s * N + n) * THREADS + tid];
-      stage_bc<T, N>(p, b, t0, steps, sB, sC, tid);
-      for (int j = 0; j < steps; ++j) {       // h_t of each step, kept
-        advance(j, t0 + j);
-#pragma unroll
-        for (int n = 0; n < N; ++n) hs[(j * N + n) * THREADS + tid] = h[n];
-      }
-      for (int j = steps - 1; j >= 0; --j) {  // the walk back
-        const long long t = t0 + j;
-        float xv, dv;
-        load_xd(t, xv, dv);
-        const float gv = live ? p.gy[row + t * D] : 0.f;
-        const float* prev = j ? hs + (j - 1) * N * THREADS
-                              : starts + s * N * THREADS;
-        float vB[N], vC[N], sdx = 0.f, sdt = 0.f;
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          const float bv = sB[j * N + n];
-          const float an = expf(__fmul_rn(dv, a[n]));
-          const float ah = an * prev[n * THREADS + tid];  // a_t h_{t-1}
-          g[n] = fmaf(gv, sC[j * N + n], g[n]);
-          vB[n] = g[n] * dv * xv;
-          vC[n] = gv * hs[(j * N + n) * THREADS + tid];
-          sdx = fmaf(g[n], bv, sdx);
-          sdt = fmaf(g[n], fmaf(a[n], ah, bv * xv), sdt);
-          dA_acc[n] = fmaf(g[n] * dv, ah, dA_acc[n]);
-          g[n] *= an;                          // carried to step t - 1
+      const int r0 = s * SUB, n_s = min(SUB, steps - r0);
+      const int start = Lay::STARTS + s * Lay::LANES4;
+      float h[HALF], an[HALF];
+      lane_ld(h, start);
+      if (s == 0 && k > 0) load_saved(k - 1);   // in flight while walked
+      auto keep = [&](int j) {          // h_t and a_t of step j, kept
+        forward(tl, r0 + j, h, an);
+        if (j < n_s - 1) {               // the last stay in registers
+          lane_st(Lay::HS + j * Lay::LANES4, h);
+          lane_st(Lay::AS + j * Lay::LANES4, an);
         }
-        if (live) {
-          p.dx[row + t * D] = dv * sdx;
-          p.ddt[row + t * D] = sdt;
-        }
-        const float sumB = warp_sum16(vB), sumC = warp_sum16(vC);
-        if ((lane & 1) == 0) {
-          red[((warp * SUB + j) * 2) * N + (lane >> 1)] = sumB;
-          red[((warp * SUB + j) * 2 + 1) * N + (lane >> 1)] = sumC;
-        }
-      }
-      __syncthreads();
-      // the block's partial sums of the sub-tile, its warps in order
-      for (int i = tid; i < steps * 2 * N; i += THREADS) {
-        const int j = i / (2 * N), w = (i / N) & 1, n = i % N;
-        float v = red[((0 * SUB + j) * 2 + w) * N + n];
+      };
+      if (n_s == SUB) {
 #pragma unroll
-        for (int q = 1; q < WARPS; ++q) v += red[((q * SUB + j) * 2 + w) * N + n];
-        float* part = w ? p.dC_part : p.dB_part;
-        part[((static_cast<long long>(blockIdx.x) * p.B + b) * S + t0 + j) *
-                 N + n] = v;
+        for (int j = 0; j < SUB; ++j) keep(j);
+      } else {
+        for (int j = 0; j < n_s; ++j) keep(j);
       }
-      // the next stage_bc's first barrier keeps red until these reads end
+      auto back = [&](int j) {           // the walk at step j; h is h_t
+        const int r = r0 + j;
+        const long long t = T0 + r;
+        const float xv = xat(tl, r), dv = dat(tl, r), gv = gat(tl, r);
+        float bv[HALF], cv[HALF], hp[HALF];
+        bc_at(tl.b + r * Lay::BP, (tl.bo + r * bs32) & OFF, bv);
+        bc_at(tl.c + r * Lay::BP, (tl.co + r * cs32) & OFF, cv);
+        lane_ld(hp, j ? Lay::HS + (j - 1) * Lay::LANES4 : start);
+        if (j < n_s - 1) lane_ld(an, Lay::AS + j * Lay::LANES4);
+        float vB[HALF], vC[HALF], sdx = 0.f, sdt = 0.f;
+#pragma unroll
+        for (int n = 0; n < HALF; ++n) {
+          const float ah = __fmul_rn(an[n], hp[n]);   // a_t h_{t-1}
+          g[n] = fmaf(gv, cv[n], g[n]);
+          const float gd = g[n] * dv;
+          vB[n] = gd * xv;
+          vC[n] = gv * h[n];
+          sdx = fmaf(g[n], bv[n], sdx);
+          sdt = fmaf(g[n], fmaf(a[n], ah, bv[n] * xv), sdt);
+          dA_acc[n] = fmaf(gd, ah, dA_acc[n]);
+          g[n] *= an[n];                    // carried to step t - 1
+          h[n] = hp[n];
+        }
+        // the channel's two halves; each lane sums them in its own order,
+        // and a + b = b + a
+        sdx += __shfl_xor_sync(0xffffffffu, sdx, 1);
+        sdt += __shfl_xor_sync(0xffffffffu, sdt, 1);
+        store_if(out + t * D, half ? sdt : dv * sdx, live);
+        const float sumB = pair_sum8(vB), sumC = pair_sum8(vC);
+        if ((lane & 2) == 0) {
+          red[r * 2 * N] = sumB;
+          red[(r * 2 + 1) * N] = sumC;
+        }
+      };
+      if (n_s == SUB && ALIGNED && ES == 2) {   // (unrolled, others spill)
+#pragma unroll
+        for (int j = SUB - 1; j >= 0; --j) back(j);
+      } else {
+        for (int j = n_s - 1; j >= 0; --j) back(j);
+      }
     }
+    cluster_arrive();                   // tile k walked
+    if (k > 0) cp_async_wait_all();     // tile k - 1's own copies
   }
-  if (live) {
-    float4* dst = reinterpret_cast<float4*>(p.dA_part + (b * D + c) * N);
+#ifdef SCAN_BWD_COUNT_EXP
+  // the probe build: dA's first state of each lane's half holds the
+  // exponentials the lane took, summed over batch rows as dA is
 #pragma unroll
-    for (int u = 0; u < N / 4; ++u)
-      dst[u] = make_float4(dA_acc[4 * u], dA_acc[4 * u + 1],
-                           dA_acc[4 * u + 2], dA_acc[4 * u + 3]);
+  for (int n = 0; n < HALF; ++n) dA_acc[n] = n == 0 ? float(exps) : 0.f;
+#endif
+  if (live) {
+    float* dst = p.dA_part + (b * D + c) * N + half * HALF;
+    st4(dst, dA_acc);
+    st4(dst + 4, dA_acc + 4);
   }
+  cluster_wait();
+  reduce(0);
+  cluster_arrive();   // no block leaves while a peer reads its sums
+  cluster_wait();
 }
 
 // out[i] = part[0][i] + part[1][i] + ... + part[parts - 1][i], in order
@@ -704,27 +978,73 @@ int sum_parts(const float* part, float* out, int parts, long long n,
   return cudaGetLastError();
 }
 
+// Blocks a batch row: the channels' blocks, rounded up to whole clusters.
+int bwd_blocks(int D) {
+  const int blocks = (D + BWD_CHANNELS - 1) / BWD_CHANNELS;
+  return (blocks + BWD_CLUSTER - 1) / BWD_CLUSTER * BWD_CLUSTER;
+}
+
+template <typename T, int ALIGNED>
+cudaError_t bwd_allow_shared() {
+  return cudaFuncSetAttribute(selective_scan_bwd_kernel<T, 16, ALIGNED>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              BwdLayout<T, 16, ALIGNED>::BYTES);
+}
+
+template <typename T, int ALIGNED>
+int launch_bwd_instance(const BwdParams& p, cudaStream_t stream) {
+  cudaError_t e = bwd_allow_shared<T, ALIGNED>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = BWD_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bwd_blocks(p.D), p.B);
+  cfg.blockDim = dim3(BWD_THREADS);
+  cfg.dynamicSmemBytes = BwdLayout<T, 16, ALIGNED>::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, selective_scan_bwd_kernel<T, 16, ALIGNED>, p);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const BwdParams& p, int N, float* dA, float* dB, float* dC,
                cudaStream_t stream) {
+  constexpr int ES = int(sizeof(T));
   if (N != 16) return cudaErrorInvalidValue;
-  constexpr int bytes = BwdLayout<16>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      selective_scan_bwd_kernel<T, 16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
-  const int nblk = (p.D + CHANNELS - 1) / CHANNELS;
-  selective_scan_bwd_kernel<T, 16>
-      <<<dim3(nblk, p.B), THREADS, bytes, stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  const bool aligned = rows_aligned(p.x, p.x_sb, p.x_ss, ES) &&
+                       rows_aligned(p.dt, p.d_sb, p.d_ss, 4) &&
+                       rows_aligned(p.gy, static_cast<long long>(p.S) * p.D,
+                                    p.D, 4) &&
+                       rows_aligned(p.Bm, p.b_sb, p.b_ss, ES) &&
+                       rows_aligned(p.Cm, p.c_sb, p.c_ss, ES);
+  int rc = aligned ? launch_bwd_instance<T, 1>(p, stream)
+                   : launch_bwd_instance<T, 0>(p, stream);
+  if (rc != 0) return rc;
   const long long bsn = static_cast<long long>(p.B) * p.S * N;
-  int rc = sum_parts(p.dB_part, dB, nblk, bsn, stream);
-  if (rc == 0) rc = sum_parts(p.dC_part, dC, nblk, bsn, stream);
+  const int parts = bwd_blocks(p.D) / BWD_CLUSTER;
+  rc = sum_parts(p.dB_part, dB, parts, bsn, stream);
+  if (rc == 0) rc = sum_parts(p.dC_part, dC, parts, bsn, stream);
   if (rc == 0)
     rc = sum_parts(p.dA_part, dA, p.B, static_cast<long long>(p.D) * N,
                    stream);
   return rc;
+}
+
+template <typename T, int ALIGNED>
+int bwd_occupancy() {
+  int blocks = 0;
+  cudaError_t e = bwd_allow_shared<T, ALIGNED>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, selective_scan_bwd_kernel<T, 16, ALIGNED>, BWD_THREADS,
+        BwdLayout<T, 16, ALIGNED>::BYTES);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 }  // namespace
@@ -765,9 +1085,9 @@ extern "C" int selective_scan_blocks_per_sm(int bf16, int aligned) {
 // The backward of selective_scan.  x, dt, A, Bm, Cm as there; gy (B, S,
 // D) f32 contiguous; gh (B, D, N) f32 contiguous or null (zero).  Writes
 // dx, ddt (B, S, D), dA (D, N), dB, dC (B, S, N), all f32 contiguous,
-// through the scratch ck (B, ceil(S / 32), D, N), dB_part and dC_part
-// (ceil(D / 64), B, S, N) and dA_part (B, D, N).  Launches on ``stream``
-// (the scan, then three ordered sums), allocates nothing, does not
+// through the f32 scratch ck, dB_part, dC_part and dA_part, each of the
+// floats selective_scan_bwd_scratch gives.  Launches on ``stream`` (the
+// scan, then three ordered sums), allocates nothing, does not
 // synchronise; returns the first launch error.
 extern "C" int selective_scan_bwd(
     const void* x, const void* dt, const void* A, const void* Bm,
@@ -791,3 +1111,28 @@ extern "C" int selective_scan_bwd(
   return bf16 ? launch_bwd<__nv_bfloat16>(p, N, f(dA), f(dB), f(dC), st)
               : launch_bwd<float>(p, N, f(dA), f(dB), f(dC), st);
 }
+
+// Backward blocks of BWD_THREADS that one SM holds at once for the N 16
+// instance of the given input type and row alignment, or minus a CUDA
+// error.
+extern "C" int selective_scan_bwd_blocks_per_sm(int bf16, int aligned) {
+  if (bf16)
+    return aligned ? bwd_occupancy<__nv_bfloat16, 1>()
+                   : bwd_occupancy<__nv_bfloat16, 0>();
+  return aligned ? bwd_occupancy<float, 1>() : bwd_occupancy<float, 0>();
+}
+
+// The floats of selective_scan_bwd's four scratch arrays at (B, S, D, N),
+// written to floats[0..3]: ck, the state before every BWD_TILE-step tile
+// (B, ceil(S / BWD_TILE), D, N); dB_part and dC_part, a partial a cluster
+// of each batch row (clusters, B, S, N); dA_part (B, D, N).
+extern "C" void selective_scan_bwd_scratch(int B, int S, int D, int N,
+                                           long long* floats) {
+  const long long b = B, n = N, clusters = bwd_blocks(D) / BWD_CLUSTER;
+  floats[0] = b * ((S + BWD_TILE - 1) / BWD_TILE) * D * n;
+  floats[1] = floats[2] = clusters * b * S * n;
+  floats[3] = b * D * n;
+}
+
+// Threads of a backward block.
+extern "C" int selective_scan_bwd_threads() { return BWD_THREADS; }

@@ -6,6 +6,8 @@ kernel."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import build
@@ -17,10 +19,14 @@ LAUNCHES = {"selective_scan": 0, "selective_scan_bwd": 0}
 #: two-stage ring holds: ``CHANNELS`` and ``TILE`` in the source (the
 #: tests check that the two agree)
 BLOCK_CHANNELS, TILE_STEPS = 64, 32
-#: the backward's steps between two saved states, and the steps of a
-#: sub-tile it keeps in shared memory: ``BWD_TILE`` and ``SUB`` in the
-#: source
-BWD_TILE_STEPS, BWD_SUB_STEPS = 32, 8
+#: the backward's steps between two saved states (a stage of its ring),
+#: the steps of a sub-tile whose states and decays it keeps in shared
+#: memory, the channels a block walks (two lanes each) and the blocks of a
+#: cluster that add their dB and dC sums on chip: ``BWD_TILE``, ``SUB``,
+#: ``BWD_CHANNELS`` and ``BWD_CLUSTER`` in the source, for the tests' CPU
+#: model of the algorithm (the wrapper asks the library for its scratch)
+BWD_TILE_STEPS, BWD_SUB_STEPS, BWD_BLOCK_CHANNELS, BWD_CLUSTER_BLOCKS = \
+    8, 4, 128, 2
 #: state sizes N the kernel is built for (Jamba's d_state, full and
 #: reduced)
 KERNEL_STATES = (16,)
@@ -142,18 +148,17 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dB, dC = empty(Bsz, S, N), empty(Bsz, S, N)
     if dx.numel() == 0:
         return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
-    blocks = -(-D // BLOCK_CHANNELS)
-    ck = empty(Bsz, -(-S // BWD_TILE_STEPS), D, N)
-    parts = (empty(blocks, Bsz, S, N), empty(blocks, Bsz, S, N),
-             empty(Bsz, D, N))
+    lib = build.load()
+    floats = (ctypes.c_longlong * 4)()
+    lib.selective_scan_bwd_scratch(Bsz, S, D, N, floats)
+    scratch = [empty(n) for n in floats]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = build.load().selective_scan_bwd(
+        rc = lib.selective_scan_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), gy.data_ptr(), None if gh is None else
             gh.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), ck.data_ptr(),
-            *(t.data_ptr() for t in parts),
+            dB.data_ptr(), dC.data_ptr(), *(t.data_ptr() for t in scratch),
             int(x.dtype == torch.bfloat16), Bsz, S, D, N,
             *_strides(x, dt, Bm, Cm), stream)
     if rc != 0:

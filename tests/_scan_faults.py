@@ -23,3 +23,40 @@ FAULTS = {
         "smem + (k & 1) * Lay::XD;",
         "smem + ((k + 1) & 1) * Lay::XD;"),
 }
+
+#: Planted faults of the backward kernel (``selective_scan_bwd`` in the same
+#: source), each (anchor, replacement, what it must do on the card): "limit"
+#: must break ``ref.BWD_RTOL`` against the plain version, "bits" must change
+#: the bits of the kernel's result (its sums in another order) and keep it
+#: within the limit.
+#:
+#: - ``state_carry_dropped``: phase 1 saves zeros, so each tile is replayed
+#:   from a zero state, not the state before it;
+#: - ``g_carry_dropped``: the carry g set to 0 as each tile's walk starts;
+#: - ``partials_order_swapped``: each block's warps' partial sums of dB and
+#:   dC added last warp first.
+BWD_FAULTS = {
+    "state_carry_dropped": (
+        "        st4(dst, h);\n        st4(dst + 4, h + 4);",
+        "        const float z[HALF] = {};\n"
+        "        st4(dst, z);\n        st4(dst + 4, z + 4);",
+        "limit"),
+    "g_carry_dropped": (
+        "    lane_st(Lay::STARTS, saved);        // sub-tile 0's start",
+        "    lane_st(Lay::STARTS, saved);\n"
+        "    for (int n = 0; n < HALF; ++n) g[n] = 0.f;",
+        "limit"),
+    "partials_order_swapped": (
+        "        for (int wp = 0; wp < BWD_WARPS; ++wp) {",
+        "        for (int wp = BWD_WARPS - 1; wp >= 0; --wp) {",
+        "bits"),
+}
+
+#: The backward's block past D (the grid rounds up to whole clusters)
+#: pointed at its own first channel, past D, instead of the last: it copies
+#: the chunk that holds each row's first byte, and in the last step of the
+#: last batch row that chunk lies past x's end.  On inputs that end where
+#: their mapped memory ends (``tests/_guarded_scan.py``) the launch must
+#: fault.
+BWD_READ_FAULT = ("  const int cr = min(c0, D - 1);",
+                  "  const int cr = c0;")

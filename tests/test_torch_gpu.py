@@ -43,6 +43,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _scan_faults import BWD_FAULTS as SCAN_BWD_FAULTS  # noqa: E402
+from _scan_faults import BWD_READ_FAULT  # noqa: E402
 from _scan_faults import FAULTS as SCAN_FAULTS  # noqa: E402
 import repro_torch.core as T  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
@@ -1583,15 +1585,18 @@ def _bwd_errors(got, want) -> dict:
 @pytest.mark.parametrize("with_gh", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,D", [(2, 200, 256), (1, 64, 100), (3, 1, 64),
-                                   (2, 135, 320), (2, 77, 16384)])
+                                   (2, 135, 320), (2, 77, 16384),
+                                   (2, 1, 40), (2, 7, 300), (2, 31, 40),
+                                   (2, 33, 300), (2, 75, 300)])
 def test_selective_scan_bwd_kernel_matches_plain_version(card, dtype, B, S,
                                                          D, with_gh):
     """The backward kernel against ``selective_scan_bwd_ref`` within
-    ``ref.BWD_RTOL``: whole and ragged tiles and sub-tiles (S 135, 77),
-    one step, a block cut by D (D 100 in bf16: rows off 16 bytes, B and C
-    slices of a projection), jamba's full width, with and without the
-    final state's cotangent; one launch, and two runs equal bit for
-    bit."""
+    ``ref.BWD_RTOL``: whole and ragged tiles and sub-tiles (S 135, 77, 7,
+    31, 33, 75: the CPU model's lengths), one step, a block cut by D (D
+    100 in bf16: rows off 16 bytes, B and C slices of a projection; D 40),
+    a cluster cut by D (D 300, 320), jamba's full width, with and
+    without the final state's cotangent; one launch, and two runs equal
+    bit for bit."""
     from repro_torch.kernels.selective_scan import ops as ss_ops
     from repro_torch.kernels.selective_scan import ref as ss_ref
     args = _scan_inputs(card, B, S, D, dtype, seed=S + D)
@@ -1624,6 +1629,92 @@ def test_selective_scan_bwd_reads_strided_rows(card):
     got = ss_ops.selective_scan_bwd(*args, gy)
     errs = _bwd_errors(got, ss_ref.selective_scan_bwd_ref(*args, gy))
     assert max(errs.values()) <= ss_ref.BWD_RTOL, errs
+    again = ss_ops.selective_scan_bwd(*args, gy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("fault", sorted(SCAN_BWD_FAULTS))
+def test_selective_scan_bwd_planted_faults(card, tmp_path, monkeypatch,
+                                           fault):
+    """The backward's source with a planted fault
+    (``tests/_scan_faults.py``'s ``BWD_FAULTS``), built and launched
+    through the wrapper at ragged tiles and two clusters (S 75, D 300,
+    bf16, with the final state's cotangent): a tile replayed from a zero
+    state, or the carry g dropped at each tile, must break
+    ``ref.BWD_RTOL``; a block's warps' partial sums added in another order
+    must change the result's bits and stay within it."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.selective_scan import build as ss_build
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    old, new, kind = SCAN_BWD_FAULTS[fault]
+    args = _scan_inputs(card, 2, 75, 300, torch.bfloat16, seed=12)
+    gen = torch.Generator(device=card).manual_seed(13)
+    gy = torch.randn((2, 75, 300), generator=gen, device=card)
+    gh = torch.randn((2, 300, 16), generator=gen, device=card)
+    right = ss_ops.selective_scan_bwd(*args, gy, gh)
+    text = ss_build.SOURCE.read_text()
+    assert text.count(old) == 1
+    src = tmp_path / f"selective_scan_{fault}.cu"
+    src.write_text(text.replace(old, new))
+    lib = src.with_suffix(".so")
+    subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    monkeypatch.setattr(ss_build, "load",
+                        lambda: ss_build.typed(ctypes.CDLL(str(lib))))
+    got = ss_ops.selective_scan_bwd(*args, gy, gh)
+    errs = _bwd_errors(got, ss_ref.selective_scan_bwd_ref(*args, gy, gh))
+    if kind == "limit":
+        assert max(errs.values()) > ss_ref.BWD_RTOL, errs
+    else:
+        assert max(errs.values()) <= ss_ref.BWD_RTOL, errs
+        assert not all(torch.equal(a, b) for a, b in zip(got, right))
+
+
+def test_selective_scan_bwd_reads_nothing_past_its_inputs(card, tmp_path):
+    """The backward on inputs that each end where their mapped device
+    memory ends (``tests/_guarded_scan.py``, a process of its own): at D
+    100 in bf16, rows off 16 bytes and a block past D, it reads no byte
+    past them and agrees with the plain version; the source whose block
+    past D points at its own first channel, past the arrays' ends
+    (``_scan_faults.BWD_READ_FAULT``), faults there, so the guard page
+    sees such a read."""
+    import json
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.selective_scan import build as ss_build
+    from repro_torch.kernels.selective_scan import ref as ss_ref
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), os.environ.get("PYTHONPATH", "")]))
+
+    def run(*lib):
+        return subprocess.run([sys.executable, str(here / "_guarded_scan.py"),
+                               *lib], capture_output=True, text=True,
+                              env=env, timeout=600)
+
+    ok = run()
+    assert ok.returncode == 0, ok.stderr[-2000:]
+    errs = json.loads(ok.stdout.splitlines()[-1])
+    assert max(errs.values()) <= ss_ref.BWD_RTOL, errs
+    old, new = BWD_READ_FAULT
+    text = ss_build.SOURCE.read_text()
+    assert text.count(old) == 1
+    src = tmp_path / "selective_scan_read_past.cu"
+    src.write_text(text.replace(old, new))
+    lib = src.with_suffix(".so")
+    subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    bad = run(str(lib))
+    assert bad.stdout.startswith("placed"), bad.stderr[-2000:]
+    assert bad.returncode != 0
+    assert "illegal memory access" in bad.stderr, bad.stderr[-2000:]
 
 
 def test_selective_scan_bwd_wrapper_raises_instead_of_falling_back(card):

@@ -42,6 +42,17 @@ def test_editing_any_included_file_changes_the_library(tmp_path, edited):
     assert nvcc.library_path(src) != before
 
 
+def test_a_probe_macro_builds_a_library_of_its_own(tmp_path):
+    """A build with a macro defined (a probe build) lies beside the plain
+    build under a name of its own, and each macro set has its own."""
+    src, _ = _family(tmp_path)
+    plain = nvcc.library_path(src)
+    probe = nvcc.library_path(src, ("COUNT",))
+    assert probe.parent == plain.parent and probe != plain
+    assert nvcc.library_path(src, ()) == plain
+    assert nvcc.library_path(src, ("OTHER",)) not in (plain, probe)
+
+
 def test_both_hopper_kernels_hash_the_shared_header():
     header = (fa_build.SOURCE.parent.parent.parent / "csrc"
               / "hopper.cuh").resolve()

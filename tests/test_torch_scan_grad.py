@@ -18,6 +18,7 @@ both sides compute in f32 in another order, 1e-4 against the JAX
 package (``_torch_train.GRAD_RTOL``).
 """
 
+import collections
 import re
 
 import jax
@@ -242,13 +243,145 @@ def test_ssd_function_gradients_are_the_twins(regime, dtype):
 
 
 def test_backward_constants_are_the_sources():
-    """``ops.BWD_TILE_STEPS`` and ``ops.BWD_SUB_STEPS`` are the source's
-    ``BWD_TILE`` and ``SUB``; the backward sums across threads with no
-    atomics (two runs agree bit for bit) and rounds the replayed update
-    as the forward does."""
+    """``ops.BWD_TILE_STEPS``, ``ops.BWD_SUB_STEPS``,
+    ``ops.BWD_BLOCK_CHANNELS`` and ``ops.BWD_CLUSTER_BLOCKS`` are the
+    source's ``BWD_TILE``, ``SUB``, ``BWD_CHANNELS`` and ``BWD_CLUSTER``
+    (the CPU model of the algorithm follows them); the backward sums across
+    threads and blocks with no atomics (two runs agree bit for bit),
+    rounds the replayed update as the forward does, takes the walk's
+    a_t h_{t-1} as that rounded product again, and calls ``expf`` in one
+    place besides the forward's (the replays'; the walk takes none)."""
     text = build.SOURCE.read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
-    assert (int(consts["BWD_TILE"]), int(consts["SUB"])) == \
-        (ops.BWD_TILE_STEPS, ops.BWD_SUB_STEPS)
-    assert "atomicAdd" not in text
+    assert (int(consts["BWD_TILE"]), int(consts["SUB"]),
+            int(consts["BWD_CHANNELS"]), int(consts["BWD_CLUSTER"])) == \
+        (ops.BWD_TILE_STEPS, ops.BWD_SUB_STEPS, ops.BWD_BLOCK_CHANNELS,
+         ops.BWD_CLUSTER_BLOCKS)
+    assert re.search(r"\batomic[A-Z]\w*\(|\batom\.|\bred\.global", text) is None
     assert text.count("h[n] = __fadd_rn(__fmul_rn(dA, h[n]), dBx);") == 2
+    assert text.count("expf(") == 2
+    assert "const float ah = __fmul_rn(an[n], hp[n]);" in text
+
+
+def _in_order(t: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis, first term to last."""
+    out = t[..., 0]
+    for i in range(1, t.shape[-1]):
+        out = out + t[..., i]
+    return out
+
+
+def _channel_sum(v: torch.Tensor) -> torch.Tensor:
+    """Σ over channels (the last axis) in the backward kernel's order: a
+    warp's 16 channels by ``pair_sum8``'s exchanges (channel i with i + 8,
+    then i + 4, i + 2, i + 1), a block's warps in order, a cluster's blocks
+    in rank order, then the clusters' partials in order; channels past D
+    add zeros."""
+    D = v.shape[-1]
+    warps = ops.BWD_BLOCK_CHANNELS // 16
+    per = ops.BWD_BLOCK_CHANNELS * ops.BWD_CLUSTER_BLOCKS
+    n = -(-D // per)
+    w = torch.nn.functional.pad(v, (0, n * per - D)).unflatten(
+        -1, (n, ops.BWD_CLUSTER_BLOCKS, warps, 16))
+    for half in (8, 4, 2, 1):
+        w = w[..., :half] + w[..., half:2 * half]
+    return _in_order(_in_order(_in_order(w[..., 0])))
+
+
+def _kernel_model(x, dt, A, Bm, Cm, gy, gh=None):
+    """``selective_scan.cu``'s backward algorithm in torch ops: phase 1
+    saves the state before every ``BWD_TILE_STEPS``-step tile, scanning
+    from 0 with the forward's rounding; phase 2 walks the tiles last
+    first, replays the starts of a tile's ``BWD_SUB_STEPS``-step
+    sub-tiles from its saved state, then each sub-tile (last first) with
+    every step's h_t and a_t kept, and walks it back with no exponential
+    of its own.  A channel's 16 states lie on two lanes of 8, so dx's
+    and ddt's sums over states add the two halves; dB and dC sum over
+    channels in ``_channel_sum``'s order, dA over batch rows in order."""
+    Bsz, S, D = x.shape
+    N = A.shape[1]
+    K, SUB, H = ops.BWD_TILE_STEPS, ops.BWD_SUB_STEPS, N // 2
+    xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+
+    def forward(h, t):
+        exps.append(t)
+        d = dt[:, t, :, None]
+        a = torch.exp(d * A)
+        return a * h + d * Bf[:, t, None, :] * xf[:, t, :, None], a
+
+    def halves(v):                          # a lane's 8 states, then the pair
+        return v[..., :H].sum(-1) + v[..., H:].sum(-1)
+
+    tiles = -(-S // K)
+    exps = []                               # steps a state's exp was taken
+    saved, h = [], torch.zeros(Bsz, D, N)
+    for k in range(tiles):
+        saved.append(h)
+        if k + 1 < tiles:
+            for t in range(k * K, (k + 1) * K):
+                h, _ = forward(h, t)
+    g = torch.zeros(Bsz, D, N) if gh is None else gh.clone()
+    dA = torch.zeros(Bsz, D, N)
+    dx, ddt = torch.empty(Bsz, S, D), torch.empty(Bsz, S, D)
+    vB, vC = torch.empty(Bsz, S, N, D), torch.empty(Bsz, S, N, D)
+    for k in reversed(range(tiles)):
+        T0, steps = k * K, min(K, S - k * K)
+        starts = [saved[k]]
+        for s in range(1, -(-steps // SUB)):
+            h = starts[-1]
+            for t in range(T0 + (s - 1) * SUB, T0 + s * SUB):
+                h, _ = forward(h, t)
+            starts.append(h)
+        for s in reversed(range(len(starts))):
+            r0 = T0 + s * SUB
+            kept, h = [], starts[s]
+            for t in range(r0, min(r0 + SUB, T0 + steps)):
+                h, a = forward(h, t)
+                kept.append((h, a))
+            for j in reversed(range(len(kept))):
+                t = r0 + j
+                h, a = kept[j]
+                ah = a * (kept[j - 1][0] if j else starts[s])
+                d, xv, gv = (v[:, t, :, None] for v in (dt, xf, gy))
+                g = g + gv * Cf[:, t, None, :]
+                gd = g * d
+                vB[:, t] = (gd * xv).transpose(1, 2)
+                vC[:, t] = (gv * h).transpose(1, 2)
+                dx[:, t] = dt[:, t] * halves(g * Bf[:, t, None, :])
+                ddt[:, t] = halves(g * (A * ah + Bf[:, t, None, :] * xv))
+                dA = dA + gd * ah
+                g = a * g
+    # a step's exponentials: phase 1's, the replay of its sub-tile's start
+    # and its own sub-tile's replay; the walk takes none
+    assert max(collections.Counter(exps).values()) <= 3
+    assert len(exps) <= (3 - SUB / K) * S
+    return (dx, ddt, _in_order(dA.movedim(0, -1)), _channel_sum(vB),
+            _channel_sum(vC))
+
+
+@pytest.mark.parametrize("with_gh", [False, True])
+@pytest.mark.parametrize("S,D,dtype", [(1, 40, "float32"),
+                                       (7, 300, "bfloat16"),
+                                       (31, 40, "bfloat16"),
+                                       (33, 300, "float32"),
+                                       (75, 300, "bfloat16")])
+def test_kernel_algorithm_matches_plain_backward(S, D, dtype, with_gh):
+    """``_kernel_model`` against ``selective_scan_bwd_ref`` within
+    ``ref.BWD_RTOL`` (dx and ddt row by row, dA, dB and dC relative to
+    their largest |value|, as the card's gate holds the kernel): one
+    step, a tile and a sub-tile cut short (S 7, 31), a last tile of one
+    step (S 33) and of a ragged sub-tile (S 75); D that cuts a block
+    (40) and a second cluster (300); with and without the final state's
+    cotangent."""
+    args, gy, gh = _scan_case("mamba", dtype, S=S, D=D, seed=S + D)
+    gh = gh if with_gh else None
+    got = _kernel_model(*args, gy, gh)
+    want = ref.selective_scan_bwd_ref(*args, gy, gh)
+    for name, g, w in zip(("dx", "ddt"), got, want):
+        assert float(ref.row_errors(g, w).max()) <= ref.BWD_RTOL, name
+    for name, g, w in zip(("dA", "dB", "dC"), got[2:], want[2:]):
+        assert g.shape == w.shape
+        if S == 1 and name == "dA":       # h_{-1} = 0: no term
+            assert not g.any() and not w.any()
+        else:
+            assert _rel(g, w) <= ref.BWD_RTOL, name
