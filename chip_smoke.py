@@ -160,11 +160,12 @@ exponentials: eight ``nvcc`` processes at once) and then:
    granite's is; one layer's MoE on the prefill's shape run twice with
    identical bits;
 11. drives qwen2-72b at full width and the most layers that fit beside
-   a 2 x 32,768-token prefill (printed, with ``reduced``):
+   a 2 x 32,768-token prefill, at most ``FIT_LAYERS_MAX`` (16; printed,
+   with ``reduced``):
    ``Model.prefill`` with ``last_only`` (a flash launch at hd 128 a
    layer, 64 query heads over 8);
 12. drives deepseek-v2-lite-16b (MLA) the same way at full width and
-   ``DEEPSEEK_LAYERS`` (9) of its 27 layers, printed with ``reduced`` (a
+   ``DEEPSEEK_LAYERS`` (4) of its 27 layers, printed with ``reduced`` (a
    dense first layer, then MoE layers of 64 experts, top 6, two
    shared): the 2 x 32,768-token prefill at the
    capacity factor, its MLA attention (q/k of 192, v of 128) in
@@ -178,7 +179,7 @@ exponentials: eight ``nvcc`` processes at once) and then:
    CPU, then its absorbed decode of the last token against its
    decompressed prefill;
 13. drives qwen2-vl-72b (M-RoPE) at full width and the most layers that
-   fit beside a 2 x 32,768-position prefill (printed, with
+   fit beside a 2 x 32,768-position prefill, at most 16 (printed, with
    ``reduced``): ``Model.prefill`` with ``last_only`` on patch and
    token embeddings drawn from the seed and three M-RoPE position
    streams of one 64 x 64 image between two runs of text (a flash
@@ -263,7 +264,26 @@ exponentials: eight ``nvcc`` processes at once) and then:
    backward, timed with CUDA events (jamba's period does not fit one card in
    training: printed with ``reduced``).  From (c) on no call with a CUDA
    tensor reaches the scans' plain versions;
-19. prints the ``kernels`` record, each phase's seconds and, last, the
+19. drives the launchers ("launch"): (a) ``python -m
+   repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k --mesh
+   both`` in a child process that sees no card (started after the builds,
+   it traces rank 0 of a fake process group of 256 and of 512 ranks on the
+   host while the card's phases run), its two records printed; (b) the
+   trace job (``launch/trace_training_job.py``) over the two-pod record:
+   its DCN flows, FIM under ECMP and under static routing; (d) the gate:
+   reduced granite in f32 on 2 x ``TRAIN_CHECK_S`` tokens (2 accumulated
+   microbatches), the sharded step on a one-rank NCCL mesh (DTensors, the
+   flash op through ``local_map``, ZeRO-2 accumulators) equal to the
+   unsharded ``make_train_step`` bit for bit in loss, grad norm and every
+   updated leaf, launching the flash kernel and reaching no plain
+   attention on the card; (c) ``repro_torch.launch.train`` for
+   granite-3-2b at full width and depth on 4,096 tokens, the global batch
+   4 as 2 x 2 accumulated (the train phase's cut), 2 steps with a
+   checkpoint after the first, a simulated host failure and the restart
+   from that checkpoint: step seconds, tokens/s and peak memory, its
+   first loss equal to the train phase's warm-up loss (same seed and
+   batch) and flash launches counted;
+20. prints the ``kernels`` record, each phase's seconds and, last, the
    one-line result.
 
 Each serving phase prints its seconds by step, and its decode rate
@@ -281,8 +301,8 @@ the ``kernels`` line's counts).  The flow hash's launches are counted
 by the width they hashed: the ``kernels`` line gives the 5-field
 launches on the murmur row and the 7-field ones under its ``f7``.  The
 flash kernel's are counted by the head dim of the config that launched
-them: the hd-64 row counts granite's prefills (whisper-large-v3, at hd
-64, launches none), the hd-128 row those of glm4-9b, qwen2-moe-a2.7b,
+them: the hd-64 row counts granite's prefills, its training steps and the
+launch phase's (whisper-large-v3, at hd 64, launches none), the hd-128 row those of glm4-9b, qwen2-moe-a2.7b,
 qwen2-72b, qwen2-vl-72b and jamba-1.5-large-398b (deepseek-v2-lite-16b,
 at hd 128, launches none: its prefill takes ``chunked_attention``).  The
 selective scan's launches are jamba's prefill's and the scan training
@@ -561,8 +581,9 @@ MAMBA2_LAYERS = 12
 # deepseek-v2-lite-16b's 2 x 32,768-token prefill, cut from 27 layers: its
 # MLA attention runs chunked_attention, some 2 s a layer with the profiled
 # repeat, and at full depth the phase took 68-70 s; the script took 617.5 s
-# on a slower host with it
-DEEPSEEK_LAYERS = 9
+# on a slower host with it, and 634.9 s at 9 layers once the launch phase
+# came
+DEEPSEEK_LAYERS = 4
 # glm4-9b's, qwen2-moe-a2.7b's and deepseek-v2-lite-16b's generate and
 # decode checks, cut from 40, 24 and 27 layers (glm4's and the MoE's
 # 2 x 32,768-token prefills stay at full depth) so that the script keeps inside 600 s
@@ -582,8 +603,11 @@ VLM_FRAGMENTATION_BYTES = 8 << 30
 ENC_BATCH = 32
 WHISPER_PROMPT = 64
 # phase_serve's depth for a config whose full depth exceeds the card's
-# memory: the most layers that fit
+# memory: the most layers that fit, at most FIT_LAYERS_MAX (qwen2-72b took
+# 32 and qwen2-vl-72b 27 until the launch phase came: the script took
+# 634.9 s on a slower host with them)
 FIT = "fit"
+FIT_LAYERS_MAX = 16
 # jamba-1.5-large-398b: one period (8 of its 72 sublayers) at full width,
 # its four MoE sublayers sharing one stack of 16 experts (19.3 GB in
 # bf16), so that the period's 32.5 GB of weights fit beside the prefill;
@@ -643,6 +667,13 @@ SCAN_BIASES = ("conv_b", "conv_x_b", "conv_B_b", "conv_C_b")
 # training outside gates (a) and (b)
 SCAN_PLAIN = ("selective_scan_ref", "selective_scan_bwd_ref")
 SSD_PLAIN = ("ssd_intra_chunk_ref",)
+
+
+LAUNCH_ARCH = TRAIN_ARCH        # the launch phase's arch and shape
+LAUNCH_SHAPE = "train_4k"
+LAUNCH_STEPS = 2                # full width: 2 steps, a restart after 1
+LAUNCH_OUT = ROOT / "results" / "dryrun_torch" / "launch"
+LAUNCH_GATE_S = TRAIN_CHECK_S   # the one-rank gate: past LONG_SEQ (flash)
 
 
 class CheckFailed(RuntimeError):
@@ -2500,8 +2531,8 @@ def patched(module, name, make):
 def layers_that_fit(torch, cfg, extra_bytes: int = 0) -> tuple[int, dict]:
     """The most of ``cfg``'s layers whose bf16 weights fit in the card's
     free memory beside the embedding, the head, a 2 x 32,768-token
-    prefill and ``extra_bytes`` of inputs, and the sizes that decided
-    it."""
+    prefill and ``extra_bytes`` of inputs, at most ``FIT_LAYERS_MAX``,
+    and the sizes that decided it."""
     D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab
     qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.hd
     layer_bytes = 2 * (D * qkv + cfg.num_heads * cfg.hd * D + 3 * D * F_
@@ -2512,11 +2543,12 @@ def layers_that_fit(torch, cfg, extra_bytes: int = 0) -> tuple[int, dict]:
     reserve = 4 * PREFILL_BATCH * PREFILL_LEN * F_ * 2 + (6 << 30)
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
-    layers = min(cfg.num_layers, int((free - head_bytes - reserve
-                                      - extra_bytes) // layer_bytes))
-    check(layers > 0, f"{cfg.name}: no layer fits in {free} free bytes")
-    return layers, {"layer_bytes": layer_bytes, "free_bytes_before": free,
-                    "total_bytes": total, "input_bytes": extra_bytes}
+    fit = int((free - head_bytes - reserve - extra_bytes) // layer_bytes)
+    check(fit > 0, f"{cfg.name}: no layer fits in {free} free bytes")
+    return min(cfg.num_layers, fit, FIT_LAYERS_MAX), {
+        "layer_bytes": layer_bytes, "free_bytes_before": free,
+        "total_bytes": total, "input_bytes": extra_bytes,
+        "layers_that_fit": fit, "layers_max": FIT_LAYERS_MAX}
 
 
 def flash_expected(cfg, seq: int, layers: int) -> int:
@@ -3738,6 +3770,9 @@ def phase_serve_jamba(np, torch):
     from repro_torch.serve import ServeEngine
 
     laps = Laps()
+    # the earlier phases' cached blocks go back first: the period's prefill
+    # peaks at 61 GB, and a fragmented cache ran it out of memory
+    torch.cuda.empty_cache()
     full_cfg = get_arch(JAMBA)
     per = full_cfg.hybrid.period
     cfg = dataclasses.replace(full_cfg, num_layers=per * JAMBA_PERIODS)
@@ -4260,7 +4295,8 @@ def train_full_width(np, torch, arch: str, marks: dict, named: dict,
         remat={"policy": model.remat.policy,
                "group": model.remat.group_for(full.num_layers)},
         params=sum(t.numel() for t in leaves(params)), init_s=init_s)
-    _, warm_s, _ = timed(lambda: step(params, opt, ds.batch(0)))
+    (_, _, warm), warm_s, _ = timed(lambda: step(params, opt, ds.batch(0)))
+    record["warmup_loss"] = float(warm["loss"])
     laps.lap(f"{arch} warmup")
     for ops in kernel_ops:
         ops.reset_launches()
@@ -4385,7 +4421,7 @@ def phase_train(np, torch):
     emit(record)
     check(flash > 0, "the full-width training steps launched no flash "
                      "kernel")
-    return flash, backward
+    return flash, backward, steps["warmup_loss"]
 
 
 @contextlib.contextmanager
@@ -4758,6 +4794,191 @@ def phase_train_scan(np, torch):
     return launches, bwd_row, ssd_backward
 
 
+def start_dryrun():
+    """The dry run of ``LAUNCH_ARCH`` x ``LAUNCH_SHAPE`` on both production
+    meshes, started as a child process that sees no card (it traces a fake
+    process group of 256 and of 512 ranks on the host), its records going
+    to ``LAUNCH_OUT``.  Runs beside the card's phases; ``phase_launch``
+    waits for it."""
+    import os
+    out = LAUNCH_OUT / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    # one thread at the lowest priority: the card's phases' host work
+    # comes first
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    log = open(LAUNCH_OUT / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--arch", LAUNCH_ARCH, "--shape", LAUNCH_SHAPE, "--mesh", "both", "--out",
+         str(out), "--force"], env=env, cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT)
+    return proc, log, out
+
+
+def one_rank_gate(torch) -> dict:
+    """Reduced granite in f32 on the card, 2 sequences of
+    ``LAUNCH_GATE_S`` tokens accumulated as 2 microbatches: the sharded
+    step on the one-rank ('data', 'model') mesh (DTensors, the flash op
+    through ``local_map``, ZeRO-2 accumulators) against the unsharded
+    ``make_train_step`` on a copy of the same weights: loss, grad norm and
+    every updated leaf bit for bit.  The sharded step must launch the
+    flash kernel and never reach a plain attention on a CUDA tensor."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import Model, attention
+    from repro_torch.parallel.sharding import param_specs, shard_tree
+    from repro_torch.train import TrainConfig, adamw_init, make_train_step
+    from repro_torch.tree import leaves, rebuild
+
+    cfg = dataclasses.replace(get_arch(LAUNCH_ARCH).reduced(), dtype="float32")
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    plain = Model(cfg)
+    sharded = dataclasses.replace(plain, act_spec=("data", None, None))
+    params = plain.init(SERVE_SEED)
+    twin = [t.clone() for t in leaves(params)]
+    specs = param_specs(params, model_size=1)
+    tc = TrainConfig(grad_accum=2, batch_axes=("data",), accum_specs=param_specs(
+        params, model_size=1, fsdp_axis="data", fsdp_size=1, fsdp_min_size=1))
+    batch = SyntheticDataset(vocab=cfg.vocab, seq_len=LAUNCH_GATE_S,
+                             global_batch=2, seed=1).batch(0)
+    p_plain, _, m_plain = make_train_step(plain, TrainConfig(grad_accum=2))(
+        params, adamw_init(params, tc.optimizer), batch)
+    p_mesh = shard_tree(rebuild(params, twin), mesh, specs)
+    plain_calls = []
+
+    def spying(real):
+        def fn(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_calls.append(real.__name__)
+            return real(*args, **kw)
+        fn.__name__ = real.__name__
+        return fn
+
+    ops.reset_launches()
+    with patched(attention, "plain_attention", spying), \
+            patched(ops, "flash_attention_ref", spying):
+        p_mesh, _, m_mesh = make_train_step(sharded, tc)(
+            p_mesh, adamw_init(p_mesh, tc.optimizer), batch)
+        torch.cuda.synchronize()
+    flash = ops.LAUNCHES["flash_attention"]
+    unequal = sum(int((a.to_local() != b).sum())
+                  for a, b in zip(leaves(p_mesh), leaves(p_plain)))
+    record = {"config": f"{LAUNCH_ARCH} reduced, f32", "seq": LAUNCH_GATE_S,
+              "batch": 2, "grad_accum": 2, "mesh": [1, 1],
+              "loss": [float(m_mesh["loss"]), float(m_plain["loss"])],
+              "grad_norm": [float(m_mesh["grad_norm"]),
+                            float(m_plain["grad_norm"])],
+              "unequal_elements": unequal, "flash_launches": flash,
+              "plain_attention_calls_on_card": len(plain_calls)}
+    check(unequal == 0 and bool(m_mesh["loss"] == m_plain["loss"])
+          and bool(m_mesh["grad_norm"] == m_plain["grad_norm"]),
+          f"the one-rank sharded step differs from the unsharded one: "
+          f"{record}")
+    check(flash > 0, "the sharded step launched no flash kernel")
+    check(not plain_calls, f"plain attention on the card: {plain_calls}")
+    return record, flash
+
+
+def phase_launch(np, torch, dryrun, warmup_loss: float):
+    """The launchers: (a) the dry run's records (started by
+    ``start_dryrun``), (b) the trace job over its two-pod record, (d) the
+    one-rank gate, (c) ``repro_torch.launch.train`` at full width and
+    depth, 2 steps with a checkpoint after the first, a simulated host
+    failure and the restart from it.  Returns the flash launches of (c)
+    and (d)."""
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.trace_training_job import trace_job
+
+    laps = Laps()
+    record = {"phase": "launch"}
+    proc, log, out = dryrun
+    rc = proc.wait(timeout=600)
+    log.close()
+    laps.lap("dryrun_wait")
+    check(rc == 0, f"the dry run exited {rc}; see {log.name}")
+    records = {}
+    for tag in ("single", "multi"):
+        with open(out / tag / f"{LAUNCH_ARCH}__{LAUNCH_SHAPE}.json") as f:
+            records[tag] = json.load(f)
+        rec = {k: v for k, v in records[tag].items() if k != "ops"}
+        emit({"phase": "launch dryrun", **rec})
+        check(rec["memory"]["fits"] and rec["collectives"]["dcn_bytes"] >= 0,
+              f"dry run {tag}: {rec['memory']}")
+    check(records["multi"]["collectives"]["dcn_flows"] > 0,
+          "the two-pod cell has no DCN flow")
+    record["dryrun_trace_s"] = {t: r["trace"]["trace_s"]
+                                for t, r in records.items()}
+
+    # (b) the trace job over the two-pod record
+    t = time.perf_counter()
+    job = trace_job(records["multi"])
+    job["seconds"] = time.perf_counter() - t
+    record["trace_job"] = {k: v for k, v in job.items()
+                           if k not in ("ecmp_report", "static_report")}
+    print(job["ecmp_report"], flush=True)
+    print(job["static_report"], flush=True)
+    check(job["fim_static"] <= job["fim_ecmp"],
+          f"static routing FIM {job['fim_static']} above ECMP's "
+          f"{job['fim_ecmp']}")
+    laps.lap("trace_job")
+
+    # (d) the one-rank gate: a process group of one, the mesh over it
+    import torch.distributed as dist
+    started = launcher.start_group(torch.device("cuda"))
+    try:
+        record["one_rank_gate"], gate_flash = one_rank_gate(torch)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    laps.lap("one_rank_gate")
+
+    # (c) the launcher at full width and depth; AdamW's moments in bf16 so
+    # that its two checkpoints (after step 1, and the last) write 2 x 15
+    # GB, not 2 x 25: the card's machine allows 45 GiB of disk writes a
+    # run, deleted files counted
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory() as ckpt:
+        run = launcher.main([
+            "--arch", LAUNCH_ARCH, "--steps", str(LAUNCH_STEPS),
+            "--global-batch", str(TRAIN_MICRO * TRAIN_ACCUM),
+            "--grad-accum", str(TRAIN_ACCUM), "--seq", "4096",
+            "--state-dtype", "bfloat16", "--ckpt-dir", ckpt,
+            "--ckpt-every", "1", "--fail-at-step", "1", "--log-every", "1"])
+        torch.cuda.synchronize()
+    flash = ops.LAUNCHES["flash_attention"]
+    laps.lap("launcher")
+    first = run["steps"][0]
+    steady = run["steps"][-1]
+    record["launcher"] = {
+        **{k: v for k, v in run.items() if k != "steps"}, "steps": run["steps"],
+        "peak_gb": run["peak_bytes"] / 1e9,
+        "step_s_after_restart": steady["s"],
+        "tokens_per_s_after_restart": run["global_batch"] * run["seq"]
+        / steady["s"],
+        "first_loss": first["loss"], "phase_train_warmup_loss": warmup_loss,
+        "flash_launches": flash}
+    losses = [s["loss"] for s in run["steps"]]
+    check(all(np.isfinite(losses)), f"launcher losses {losses}")
+    check(run["restarts"] == 1 and run["restored_from"] == [1],
+          f"the launcher restarted {run['restarts']} times from "
+          f"{run['restored_from']}")
+    check(first["loss"] == warmup_loss,
+          f"the launcher's first loss {first['loss']} is not phase_train's "
+          f"warm-up loss {warmup_loss}")
+    check(flash > 0, "the launcher's steps launched no flash kernel")
+    record["seconds"] = laps.seconds
+    emit(record)
+    return flash + gate_flash
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4801,6 +5022,7 @@ def main() -> int:
         return out
 
     card = timed_phase("build", phase_build)
+    dryrun = start_dryrun()
     records = (timed_phase("kernels", phase_kernels, np, torch)
                + timed_phase("flash", phase_flash, np, torch)
                + [timed_phase("ssd", phase_ssd, np, torch),
@@ -4849,8 +5071,8 @@ def main() -> int:
     launches["flash_attention_hd128"] = flash[128]
     launches.update(timed_phase("serve mamba2-1.3b", phase_serve_mamba2, np,
                                 torch, MAMBA2_LAYERS))
-    train_flash, flash_backward = timed_phase(f"train {TRAIN_ARCH}",
-                                              phase_train, np, torch)
+    train_flash, flash_backward, warmup_loss = timed_phase(
+        f"train {TRAIN_ARCH}", phase_train, np, torch)
     launches["flash_attention"] += train_flash
     row = {r["name"]: r for r in records}
     row["flash_attention"]["train_launches"] = train_flash
@@ -4864,6 +5086,10 @@ def main() -> int:
         if name in row:
             row[name]["train_launches"] = count
     row["ssd_intra_chunk"]["backward"] = ssd_backward
+    launch_flash = timed_phase("launch", phase_launch, np, torch, dryrun,
+                               warmup_loss)
+    launches["flash_attention"] += launch_flash
+    row["flash_attention"]["launch_launches"] = launch_flash
     for r in records:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"its path never launched {r['name']}")

@@ -34,6 +34,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention.ops import flash_attention
+from ..parallel.sharding import is_dtensor
 from .common import InitCtx, apply_rope, mrope_tables, rms_norm, rope_tables
 
 NEG_INF = -1e30
@@ -148,10 +149,68 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _whole_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """A DTensor of packed heads (B, S, heads * hd) replicated over each
+    mesh dim that shards the packed dim where ``heads`` does not divide
+    (granite's 8 kv heads over 16: the packed dim divides, its heads do
+    not), so that no head spans two shards.  Explicit, where DTensor's
+    reshape would gather it quietly."""
+    from torch.distributed.tensor import Replicate
+
+    pl = list(t.placements)
+    for i, p in enumerate(pl):
+        if p.is_shard(2) and heads % t.device_mesh.size(i):
+            pl[i] = Replicate()
+    return t if tuple(pl) == t.placements else \
+        t.redistribute(t.device_mesh, pl)
+
+
+def _sharded_attention(q, k, v, *, causal, window):
+    """``attention_any`` on DTensors (B, S, heads, hd): each rank attends
+    with its own batch rows and query heads, through
+    ``torch.distributed.tensor.experimental.local_map`` (the flash op
+    writes through raw pointers, so it takes the local shards, never the
+    wrapper).  Where the kv heads are whole on a rank whose query heads
+    are a shard, the rank reads the kv heads of its query heads' groups."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    G = H // Hkv
+    qp, kp = q.placements, k.placements
+    for p in qp + kp:
+        if p.is_partial() or (p.is_shard() and p.dim not in (0, 2)):
+            raise ValueError(f"sharded attention takes q, k, v sharded on "
+                             f"batch and heads, not {qp}, {kp}")
+    # the first query head of this rank, over the mesh dims that shard heads
+    h0, span = 0, H
+    for i, p in enumerate(qp):
+        if p.is_shard(2):
+            span //= mesh.size(i)
+            h0 += mesh.get_local_rank(i) * span
+    kv_split = any(p.is_shard(2) for p in kp)
+    if not kv_split and span < H and span % G and G % span:
+        raise ValueError(f"{span} query heads a rank split kv groups of {G}")
+
+    def local(ql, kl, vl):
+        if not kv_split and span < H:
+            g0, g1 = h0 // G, (h0 + span - 1) // G + 1
+            kl, vl = kl[:, :, g0:g1], vl[:, :, g0:g1]
+        return attention_any(ql, kl, vl, causal=causal, window=window)
+
+    return local_map(local, out_placements=(qp,),
+                     in_placements=(qp, kp, kp),
+                     device_mesh=mesh)(q, k, v)
+
+
 def attention_any(q, k, v, *, causal, q_offset=0, window=0):
     """Long self-attention to the flash op (or, windowed or with v's head
     dim apart from q's, to ``chunked_attention``); everything else to
-    ``plain_attention``."""
+    ``plain_attention``.  DTensors go through ``_sharded_attention``."""
+    if is_dtensor(q):
+        if q_offset:
+            raise ValueError("sharded attention runs without a cache")
+        return _sharded_attention(q, k, v, causal=causal, window=window)
     if q.shape[1] > 1 and k.shape[1] > LONG_SEQ and q.shape[1] == k.shape[1]:
         if window > 0 or v.shape[-1] != q.shape[-1]:
             return chunked_attention(q, k, v, causal=causal, window=window)
@@ -227,6 +286,8 @@ def gqa_forward(
         # the product rounds to x's type before the bias is added, as in
         # the reference (a fused bias epilogue would add it in f32 first)
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if is_dtensor(k):
+        k, v = _whole_heads(k, Hkv), _whole_heads(v, Hkv)
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, Hkv, hd)
     v = v.reshape(B, S, Hkv, hd)

@@ -40,11 +40,13 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import is_dtensor, to_placements
 from .attention import (
     cache_mask, cross_forward, gqa_forward, init_cross, init_gqa, init_mla,
     mla_forward, rotary_tables,
@@ -158,13 +160,47 @@ def _swiglu_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
             "w_down": ctx.make((F, D))}
 
 
+class _ReplicatedGrad(torch.autograd.Function):
+    """Megatron's "f": the identity, whose gradient (a partial sum over
+    the model axis, after a column-parallel product) is all-reduced to
+    the input's placements."""
+
+    @staticmethod
+    def forward(ctx, h):
+        ctx.mesh, ctx.placements = h.device_mesh, h.placements
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.placements != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def tp_in(h: torch.Tensor) -> torch.Tensor:
+    """The input of column-parallel products: on a DTensor, Megatron's "f"
+    (``_ReplicatedGrad``); a plain tensor as it is."""
+    return _ReplicatedGrad.apply(h) if is_dtensor(h) else h
+
+
+def tp_out(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The output of a row-parallel product, a partial sum over the model
+    axis, all-reduced to the residual stream's placements (Megatron's
+    "g"; its gradient comes back replicated, with no collective).  Left
+    to itself DTensor reduce-scatters it over the batch and then gathers
+    the next layer's weights."""
+    if is_dtensor(y) and y.placements != like.placements:
+        return y.redistribute(like.device_mesh, like.placements)
+    return y
+
+
 def _dense_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *, positions,
                  rope, mrope_positions=None, mask=None, cache=None,
                  cache_index=None, window=0, with_aux=False
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x', the MoE's aux loss where ``with_aux`` and the layer has a
     MoE, else None)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = tp_in(rms_norm(x, p["ln1"], cfg.norm_eps))
     if cfg.mla:
         attn_out, _ = mla_forward(p["attn"], cfg, h, positions=positions,
                                   cache=cache, cache_index=cache_index,
@@ -175,13 +211,13 @@ def _dense_layer(p: dict, cfg: ArchConfig, x: torch.Tensor, *, positions,
                                   mrope_positions=mrope_positions,
                                   cache=cache, cache_index=cache_index,
                                   rope=rope, mask=mask)
-    x = x + attn_out
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + tp_out(attn_out, x)
+    h = tp_in(rms_norm(x, p["ln2"], cfg.norm_eps))
     m = p["mlp"]
     if cfg.moe:                 # the aux loss feeds only training's loss
         y, aux = moe_forward(m, cfg, h, with_aux=with_aux)
         return x + y, aux
-    return x + swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
+    return x + tp_out(swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), x), None
 
 
 def _ssm_layer_params(ctx: InitCtx, cfg: ArchConfig) -> dict:
@@ -364,29 +400,84 @@ def run_layers_remat(block: Callable, x: torch.Tensor, layers: list,
                      remat: RematPolicy
                      ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """The reference's ``scan_layers_remat`` over the port's list of
-    layers: ``block(x, layer) -> (x, aux | None)`` run in order, each
-    call checkpointed by ``remat``, and with ``remat.group_for(L)`` G > 1
-    each run of G layers checkpointed as one block too.  Returns (x, the
-    blocks' aux losses that are not None, in layer order)."""
+    layers: ``block(x, layer, i) -> (x, aux | None)`` run in order (``i``
+    the layer's index), each call checkpointed by ``remat``, and with
+    ``remat.group_for(L)`` G > 1 each run of G layers checkpointed as one
+    block too.  Returns (x, the blocks' aux losses that are not None, in
+    layer order)."""
     one = remat.wrap(block)
 
-    def run(x, group):
+    def run(x, i0, group):
         auxs = []
-        for lp in group:
-            x, aux = one(x, lp)
+        for i, lp in enumerate(group, i0):
+            x, aux = one(x, lp, i)
             if aux is not None:
                 auxs.append(aux)
         return x, auxs
 
     G = remat.group_for(len(layers))
     if G <= 1:
-        return run(x, layers)
+        return run(x, 0, layers)
     grouped = remat.wrap(run)
     auxs = []
     for g0 in range(0, len(layers), G):
-        x, a = grouped(x, layers[g0:g0 + G])
+        x, a = grouped(x, g0, layers[g0:g0 + G])
         auxs += a
     return x, auxs
+
+
+def _pin(x: torch.Tensor, spec) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint``: a DTensor ``x``
+    redistributed to ``spec`` (its gradient comes back to x's own
+    placements); a plain tensor as it is."""
+    if spec is None or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, to_placements(x.device_mesh, spec))
+
+
+def _pin_tree(tree, specs):
+    """FSDP's per-layer unshard: each DTensor leaf of one layer
+    redistributed to its TP-only spec (``specs``: one layer's tree of
+    specs), which gathers it over the batch axis at its use."""
+    if specs is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _pin_tree(v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pin_tree(v, s) for v, s in zip(tree, specs)]
+    return _pin(tree, specs)
+
+
+def _tp_only(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor leaf replicated over every mesh dim but 'model' (FSDP's
+    gather of a leaf outside the layers); a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(p if name == "model" else Replicate()
+               for name, p in zip(t.device_mesh.mesh_dim_names, t.placements))
+    return t if pl == t.placements else t.redistribute(t.device_mesh, pl)
+
+
+def layer_hooks(block: Callable, *, act_spec=None, layer_specs=None,
+                layer_mark: Optional[Callable] = None) -> Callable:
+    """``block(x, layer, i)`` with the sharding hooks of the reference's
+    ``scan_layers_remat`` run at its start, inside its checkpoint: the
+    residual stream pinned to ``act_spec`` and the layer's leaves to
+    ``layer_specs``.  ``layer_mark(x, i, where)`` (the collective trace's
+    layer boundaries) wraps it on "enter" and "exit"."""
+    if act_spec is None and layer_specs is None and layer_mark is None:
+        return block
+
+    def hooked(x, lp, i):
+        if layer_mark is not None:
+            x = layer_mark(x, i, "enter")
+        x, aux = block(_pin(x, act_spec), _pin_tree(lp, layer_specs), i)
+        if layer_mark is not None:
+            x = layer_mark(x, i, "exit")
+        return x, aux
+    return hooked
 
 
 def init_lm(cfg: ArchConfig, generator: torch.Generator) -> dict:
@@ -424,9 +515,26 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator) -> dict:
 
 
 def _embed(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The rows of ``embed`` the tokens pick (``F.embedding``: on a
+    vocab-sharded DTensor table each rank gathers its own rows and the
+    rest come in by one all-reduce, never a gather of the table)."""
     if "embeds" in batch:
         return batch["embeds"].to(cfg.param_dtype())
-    return params["embed"][batch["tokens"]]
+    return F.embedding(batch["tokens"], params["embed"])
+
+
+def _residual(x: torch.Tensor, batch: dict, act_spec) -> torch.Tensor:
+    """The residual stream after the embedding: pinned to ``act_spec``
+    where given; a DTensor otherwise laid out as the batch is (split over
+    the mesh dims that split the batch, whole over the model axis: a
+    vocab-sharded table's partial rows all-reduced)."""
+    if not is_dtensor(x) or act_spec is not None:
+        return _pin(x, act_spec)
+    from torch.distributed.tensor import Replicate, Shard
+
+    src = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    pl = [Shard(0) if p.is_shard(0) else Replicate() for p in src.placements]
+    return x.redistribute(x.device_mesh, pl)
 
 
 def _unembed(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -445,7 +553,7 @@ def run_encoder(params: dict, cfg: ArchConfig, enc_embeds: torch.Tensor,
     positions = torch.arange(x.shape[1], device=x.device)
     rope = rotary_tables(cfg, positions, None, cfg.hd)
 
-    def block(x, lp):
+    def block(x, lp, i):
         h = layer_norm(x, lp["ln1"], lp["ln1b"], cfg.norm_eps)
         out, _ = gqa_forward(lp["attn"], cfg, h, positions=positions,
                              causal=False, rope=rope)
@@ -488,13 +596,25 @@ def lm_forward(
     window_override: Optional[int] = None,
     last_only: bool = False,
     with_aux: bool = False,
+    layer_specs=None,
+    act_spec=None,
+    layer_mark: Optional[Callable] = None,
 ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Returns (logits (B, S, V), caches | None, the MoE aux loss summed
     over the layers: an f32 scalar, 0 without a MoE or ``with_aux``); the
     caches are updated in place.  last_only: unembed only the final
     position.  ``remat`` checkpoints the layers of a forward without
-    caches (training's; serving passes none)."""
-    x = _embed(params, cfg, batch)
+    caches (training's; serving passes none).  On DTensor parameters:
+    ``act_spec`` pins the residual stream after the embedding, at every
+    layer's entry and before the final norm; ``layer_specs`` (one
+    layer's tree of specs) is FSDP's per-layer unshard; ``layer_mark``
+    see ``layer_hooks``."""
+    if layer_specs is not None:
+        # FSDP: the leaves outside the layers (embedding, final norm, head)
+        # are gathered to their TP-only placements at use too
+        params = {k: _tp_only(v) if isinstance(v, torch.Tensor) else v
+                  for k, v in params.items()}
+    x = _residual(_embed(params, cfg, batch), batch, act_spec)
     S = x.shape[1]
     start = 0 if cache_index is None else cache_index
     positions = start + torch.arange(S, device=x.device)
@@ -511,7 +631,7 @@ def lm_forward(
     kw = dict(positions=positions, rope=rope, mask=mask,
               cache_index=cache_index)
     # block(x, layer, i) -> (x, aux | None); i picks the layer's slice of
-    # the caches (None without caches)
+    # the caches (read only with caches)
     if cfg.family == "ssm":                      # cache_index plays no part
         layers = params["layers"]
 
@@ -546,15 +666,17 @@ def lm_forward(
         def block(x, lp, i):
             return _dense_layer(lp, cfg, x, cache=_cache_of(stack, i),
                                 with_aux=with_aux, **kw)
+    block = layer_hooks(block, act_spec=act_spec, layer_specs=layer_specs,
+                        layer_mark=layer_mark)
     auxs: list[torch.Tensor] = []
     if remat.enabled and caches is None:
-        x, auxs = run_layers_remat(lambda x, lp: block(x, lp, None), x,
-                                   layers, remat)
+        x, auxs = run_layers_remat(block, x, layers, remat)
     else:       # in this frame, so that no layer's input outlives it
         for i, lp in enumerate(layers):
             x, aux = block(x, lp, i)
             if aux is not None:
                 auxs.append(aux)
+    x = _pin(x, act_spec)
     if last_only:
         x = x[:, -1:, :]
     if cfg.family == "encdec":
@@ -564,7 +686,7 @@ def lm_forward(
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     aux = (torch.stack(auxs).sum() if auxs else
            torch.zeros((), dtype=torch.float32, device=x.device))
-    return _unembed(params, cfg, x), caches, aux
+    return _unembed(params, cfg, tp_in(x)), caches, aux
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> dict:

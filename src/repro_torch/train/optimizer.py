@@ -6,7 +6,9 @@ in f32 on the parameters' device (no value goes to the host), the first
 and second moments stored in ``state_dtype`` (``"bfloat16"`` halves the
 optimizer's memory), global-norm clipping, decoupled weight decay on
 matrices only (leaves of two or more dimensions), and each new parameter
-cast back to its own type.  ``torch.optim.AdamW`` decays every leaf and
+cast back to its own type.  On DTensor leaves each rank updates its own
+shards, placed as the parameter is; the global norm takes one
+all-reduce.  ``torch.optim.AdamW`` decays every leaf and
 rounds at other points, so it is not used.
 """
 
@@ -17,6 +19,7 @@ import math
 
 import torch
 
+from ..parallel.sharding import is_dtensor
 from ..tree import leaves, rebuild
 
 
@@ -51,24 +54,55 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
-    """{"m", "v": zeros of each parameter's shape in ``state_dtype``,
-    "step": int32 0}, on the parameters' device."""
+    """{"m", "v": zeros of each parameter's shape in ``state_dtype`` (a
+    DTensor parameter's placed as it is), "step": int32 0}, on the
+    parameters' device."""
     flat = leaves(params)
 
     def zeros():
-        return rebuild(params, [torch.zeros(p.shape, dtype=_state_dtype(cfg),
-                                            device=p.device) for p in flat])
+        return rebuild(params, [torch.zeros_like(p, dtype=_state_dtype(cfg))
+                                for p in flat])
 
     return {"m": zeros(), "v": zeros(),
             "step": torch.zeros((), dtype=torch.int32, device=flat[0].device)}
 
 
+def _owns(x) -> bool:
+    """Whether this rank's shard of DTensor ``x`` counts in a sum over
+    all ranks: a copy held by every rank of a mesh dim counts on that
+    dim's first rank only."""
+    mesh = x.device_mesh
+    return all(mesh.get_local_rank(i) == 0
+               for i, p in enumerate(x.placements) if p.is_replicate())
+
+
 def global_norm(tree) -> torch.Tensor:
-    """√(Σ x²) over every leaf, in f32, summed leaf by leaf."""
+    """√(Σ x²) over every leaf, in f32, summed leaf by leaf.  Over
+    DTensor leaves (sharded or replicated, never partial): each rank sums
+    the shards it owns (``_owns``) and one scalar all-reduce over the
+    whole process group adds the ranks' sums; the result is a plain
+    tensor."""
     total = None
+    sharded = False
     for x in leaves(tree):
+        if is_dtensor(x):
+            if any(p.is_partial() for p in x.placements):
+                raise ValueError(f"a partial leaf {x.placements} has no norm "
+                                 f"until it is reduced")
+            sharded = True
+            if not _owns(x):
+                continue
+            x = x.to_local()
         s = x.float().square().sum()
         total = s if total is None else total + s
+    if sharded:
+        from torch.distributed import _functional_collectives as funcol
+        import torch.distributed as dist
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32,
+                                device=leaves(tree)[0].device)
+        total = funcol.wait_tensor(
+            funcol.all_reduce(total, "sum", dist.group.WORLD))
     return torch.sqrt(total)
 
 
@@ -96,6 +130,12 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig
     flat = zip(leaves(params), leaves(grads), leaves(state["m"]),
                leaves(state["v"]))
     for p, g, m, v in flat:
+        if is_dtensor(p):       # elementwise: on this rank's shards
+            if not (g.placements == m.placements == v.placements
+                    == p.placements):
+                raise ValueError(f"a gradient placed {g.placements} for a "
+                                 f"parameter placed {p.placements}")
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         g = g.float() * clip
         m32 = m.float() * cfg.b1 + g * (1 - cfg.b1)
         v32 = v.float() * cfg.b2 + g.square_() * (1 - cfg.b2)

@@ -3,20 +3,34 @@ global-norm clipping and AdamW.  The port of ``repro/train/step.py``.
 
 The step runs where the parameters are (the card unless the model was
 made with ``device="cpu"``) and reads nothing back to the host: its
-metrics are device scalars.  The reference's ``batch_axes`` and
-``accum_specs`` pin shardings; the port has one device and takes
-neither.
+metrics are device scalars.
+
+On DTensor parameters (``launch.specs.build_cell``, ``launch.train``) it
+is the sharded step: every rank holds the whole global batch (drawn from
+one seed), cuts each microbatch's rows out of it and keeps its own part
+of them (``batch_axes``: the mesh axes carrying the batch), so that no
+collective moves the input.  A microbatch's gradients come out of
+DTensor's autograd partial over the batch axes; with ``accum_specs`` (the
+reference's ZeRO-2) each is reduce-scattered into an f32 accumulator
+sharded over 'data', and one gather at the update brings the sum to the
+parameters' placements; without, the sum is kept in the parameters'
+placements (one all-reduce a leaf and microbatch, or FSDP's
+reduce-scatter).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..models.model import Model
+from ..parallel.sharding import (
+    batch_specs, is_dtensor, local_part, mesh_axes, plain_as_replicated,
+    to_placements,
+)
 from ..tree import leaves, rebuild
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -25,6 +39,15 @@ from .optimizer import AdamWConfig, adamw_init, adamw_update
 class TrainConfig:
     optimizer: AdamWConfig = AdamWConfig()
     grad_accum: int = 1               # microbatches per step
+    # mesh axes carrying the batch dim, read on DTensor parameters (None:
+    # every axis of the mesh but 'model')
+    batch_axes: Optional[tuple[str, ...]] = None
+    # ZeRO-2: a spec tree (matching params) for the f32 gradient
+    # accumulator, read on DTensor parameters with grad_accum > 1.
+    # Sharding the accumulator over 'data' turns each microbatch's
+    # gradient all-reduce into a reduce-scatter and defers the gather to
+    # the (single) optimizer update.
+    accum_specs: object = None
 
 
 def _on(x, device: torch.device) -> torch.Tensor:
@@ -54,12 +77,114 @@ def loss_and_grads(model: Model, params, batch: dict):
     live = rebuild(params, [p.detach().requires_grad_(True)
                             for p in leaves(params)])
     flat = leaves(live)
-    loss, metrics = model.loss(live, batch)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    with plain_as_replicated(params):     # the recomputes run in grad
+        loss, metrics = model.loss(live, batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+    return (_whole(loss.detach()),
+            {k: _whole(v.detach()) for k, v in metrics.items()},
             rebuild(params, grads))
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A replicated DTensor metric as the plain tensor every rank holds."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def shard_batch(batch: dict, mesh, batch_axes=None) -> dict:
+    """Each whole batch leaf as a DTensor on ``mesh``, this rank keeping
+    its part of the batch axis (``batch_specs``), cut without a
+    collective: every rank holds the whole batch."""
+    from torch.distributed.tensor import DTensor
+
+    if batch_axes is None:
+        batch_axes = tuple(a for c in mesh_axes(mesh) for a in c
+                           if a != "model")
+    specs = batch_specs(batch_axes)
+    out = {}
+    for k, x in batch.items():
+        pl = to_placements(mesh, specs[k])
+        out[k] = DTensor.from_local(local_part(x, mesh, pl), mesh, pl,
+                                    run_check=False, shape=x.shape,
+                                    stride=x.stride())
+    return out
+
+
+def grad_accumulator(params, tc: TrainConfig) -> list[torch.Tensor]:
+    """Zeros in f32 for each parameter's gradient sum: a DTensor
+    parameter's placed by ``tc.accum_specs`` (ZeRO-2) where given, else
+    as the parameter."""
+    flat = leaves(params)
+    if not is_dtensor(flat[0]):
+        return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in flat]
+    from torch.distributed import tensor as dt
+
+    specs = (leaves(tc.accum_specs) if tc.accum_specs is not None
+             else [None] * len(flat))
+    return [dt.zeros(p.shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                     placements=(p.placements if s is None else
+                                 to_placements(p.device_mesh, s)))
+            for p, s in zip(flat, specs)]
+
+
+def accumulate(acc: list[torch.Tensor], grads) -> None:
+    """Adds one microbatch's gradients (in f32) into ``acc``, each brought
+    to its accumulator's placements first (a reduce-scatter or an
+    all-reduce of a partial DTensor gradient)."""
+    for a, g in zip(acc, leaves(grads)):
+        g = g.float()
+        if is_dtensor(g) and g.placements != a.placements:
+            g = g.redistribute(a.device_mesh, a.placements)
+        a.add_(g)
+
+
+def placed_like(params, grads):
+    """The gradient tree with each DTensor leaf brought to its parameter's
+    placements (the update's one gather, or a partial sum's all-reduce)."""
+    out = []
+    for p, g in zip(leaves(params), leaves(grads)):
+        if is_dtensor(g) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        out.append(g)
+    return rebuild(params, out)
+
+
+def microbatch_step(model: Model, tc: TrainConfig, params, batch: dict,
+                    i: int, acc=None):
+    """Microbatch ``i`` of ``tc.grad_accum`` cut from the whole batch
+    (sharded where the parameters are DTensors): (its loss, its metrics,
+    and its gradients, or with ``acc`` (``grad_accumulator``) ``acc``
+    with them added)."""
+    A = tc.grad_accum
+    B = batch["labels"].shape[0]
+    if B % A:
+        raise ValueError(f"global batch {B} does not split into {A} "
+                         f"microbatches")
+    mb = batch if A == 1 else {k: _micro(v, B, A, i)
+                               for k, v in batch.items()}
+    first = leaves(params)[0]
+    if is_dtensor(first):
+        mb = shard_batch(mb, first.device_mesh, tc.batch_axes)
+    loss, metrics, grads = loss_and_grads(model, params, mb)
+    if acc is None:
+        return loss, metrics, grads
+    accumulate(acc, grads)
+    return loss, metrics, acc
+
+
+def update_step(tc: TrainConfig, params, opt_state, grads):
+    """The update after the microbatches: the accumulated sum (a list
+    from ``grad_accumulator``) divided by ``grad_accum``, the gradients
+    brought to the parameters' placements, AdamW.  Returns (params,
+    opt_state, {"grad_norm", "lr"})."""
+    if isinstance(grads, list):
+        for acc in grads:
+            acc.div_(tc.grad_accum)
+        grads = rebuild(params, grads)
+    return adamw_update(placed_like(params, grads), opt_state, params,
+                        tc.optimizer)
 
 
 def make_train_step(model: Model, tc: TrainConfig) -> Callable:
@@ -68,7 +193,8 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     M-RoPE positions with their stream axis first); with ``grad_accum``
     A > 1 the batch splits into A microbatches of consecutive rows,
     whose gradients sum in f32 and whose mean loss is the step's.
-    ``params`` and ``opt_state`` are updated in place and returned."""
+    ``params`` and ``opt_state`` are updated in place and returned.  On
+    DTensor parameters the step is sharded (see the module's doc)."""
     A = tc.grad_accum
     if A < 1:
         raise ValueError(f"grad_accum must be at least 1, got {A}")
@@ -77,27 +203,18 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
         device = leaves(params)[0].device
         batch = {k: _on(v, device) for k, v in batch.items()}
         if A == 1:
-            loss, metrics, grads = loss_and_grads(model, params, batch)
+            loss, metrics, grads = microbatch_step(model, tc, params, batch,
+                                                   0)
         else:
-            B = batch["labels"].shape[0]
-            if B % A:
-                raise ValueError(f"global batch {B} does not split into "
-                                 f"{A} microbatches")
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=device)
-                     for p in leaves(params)]
+            grads = grad_accumulator(params, tc)
             loss = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(A):
-                mb = {k: _micro(v, B, A, i) for k, v in batch.items()}
-                mloss, _, mgrads = loss_and_grads(model, params, mb)
-                for acc, g in zip(grads, leaves(mgrads)):
-                    acc.add_(g.float())
-                del mgrads
+                mloss, _, grads = microbatch_step(model, tc, params, batch,
+                                                  i, grads)
                 loss = loss + mloss
-            for acc in grads:
-                acc.div_(A)
-            loss, metrics, grads = loss / A, {}, rebuild(params, grads)
-        params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, tc.optimizer)
+            loss, metrics = loss / A, {}
+        params, opt_state, opt_metrics = update_step(tc, params, opt_state,
+                                                     grads)
         return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
