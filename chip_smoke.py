@@ -4816,6 +4816,15 @@ def start_dryrun():
     return proc, log, out
 
 
+def stop_dryrun(dryrun) -> None:
+    """Kill the dry run's child if it is still running, and close its log."""
+    proc, log, _ = dryrun
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    log.close()
+
+
 def one_rank_gate(torch) -> dict:
     """Reduced granite in f32 on the card, 2 sequences of
     ``LAUNCH_GATE_S`` tokens accumulated as 2 microbatches: the sharded
@@ -5023,83 +5032,87 @@ def main() -> int:
 
     card = timed_phase("build", phase_build)
     dryrun = start_dryrun()
-    records = (timed_phase("kernels", phase_kernels, np, torch)
-               + timed_phase("flash", phase_flash, np, torch)
-               + [timed_phase("ssd", phase_ssd, np, torch),
-                  timed_phase("selective_scan", phase_selective_scan, np,
-                              torch)])
-    timed_phase("anchor", phase_anchor, np)
-    launches = timed_phase("full_scale", phase_full_scale, np, torch)
-    launches["murmur_hash_grid"] += timed_phase(
-        "fig3", phase_fig3, np, torch)["murmur_hash_grid"]
-    strat_records, strat = timed_phase("strategies", phase_strategies, np,
-                                       torch)
-    records[2:2] = strat_records
-    records[0]["f7"]["launches"] = strat.pop("murmur_hash_grid_f7")
-    check(records[0]["f7"]["launches"] > 0, "no sprayed walk at 7 fields")
-    launches["murmur_hash_grid"] += strat.pop("murmur_hash_grid")
-    launches.update(strat)
-    drain_record, timeline = timed_phase("timeline", phase_timeline, np,
-                                         torch)
-    records[4:4] = [drain_record]
-    records[0]["f7"]["launches"] += timeline.pop("murmur_hash_grid_f7")
-    launches["departure_drain"] = timeline.pop("departure_drain")
-    for name, count in timeline.items():
-        launches[name] += count
-    # the served paths' flash launches, by head dim
-    flash = {}
-    cut = dict(gen_layers=GEN_LAYERS_CUT)
-    for name, fn, args, kw in (
-            ("serve granite-3-2b", phase_serve, ("granite-3-2b",
-                                                 GRANITE_LAYERS), {}),
-            ("serve glm4-9b", phase_serve, ("glm4-9b",), cut),
-            ("serve qwen2-moe-a2.7b", phase_serve, ("qwen2-moe-a2.7b",), cut),
-            ("serve qwen2-72b", phase_serve, ("qwen2-72b", FIT, True), {}),
-            ("serve deepseek-v2-lite-16b", phase_serve,
-             ("deepseek-v2-lite-16b", DEEPSEEK_LAYERS),
-             dict(cut, prompt_len=M2_GEN_PROMPT)),
-            ("serve qwen2-vl-72b", phase_serve_vlm, (), {}),
-            ("serve whisper-large-v3", phase_serve_whisper, (), {})):
-        for hd, n in timed_phase(name, fn, np, torch, *args, **kw).items():
+    try:
+        records = (timed_phase("kernels", phase_kernels, np, torch)
+                   + timed_phase("flash", phase_flash, np, torch)
+                   + [timed_phase("ssd", phase_ssd, np, torch),
+                      timed_phase("selective_scan", phase_selective_scan, np,
+                                  torch)])
+        timed_phase("anchor", phase_anchor, np)
+        launches = timed_phase("full_scale", phase_full_scale, np, torch)
+        launches["murmur_hash_grid"] += timed_phase(
+            "fig3", phase_fig3, np, torch)["murmur_hash_grid"]
+        strat_records, strat = timed_phase("strategies", phase_strategies, np,
+                                           torch)
+        records[2:2] = strat_records
+        records[0]["f7"]["launches"] = strat.pop("murmur_hash_grid_f7")
+        check(records[0]["f7"]["launches"] > 0, "no sprayed walk at 7 fields")
+        launches["murmur_hash_grid"] += strat.pop("murmur_hash_grid")
+        launches.update(strat)
+        drain_record, timeline = timed_phase("timeline", phase_timeline, np,
+                                             torch)
+        records[4:4] = [drain_record]
+        records[0]["f7"]["launches"] += timeline.pop("murmur_hash_grid_f7")
+        launches["departure_drain"] = timeline.pop("departure_drain")
+        for name, count in timeline.items():
+            launches[name] += count
+        # the served paths' flash launches, by head dim
+        flash = {}
+        cut = dict(gen_layers=GEN_LAYERS_CUT)
+        for name, fn, args, kw in (
+                ("serve granite-3-2b", phase_serve, ("granite-3-2b",
+                                                     GRANITE_LAYERS), {}),
+                ("serve glm4-9b", phase_serve, ("glm4-9b",), cut),
+                ("serve qwen2-moe-a2.7b", phase_serve, ("qwen2-moe-a2.7b",), cut),
+                ("serve qwen2-72b", phase_serve, ("qwen2-72b", FIT, True), {}),
+                ("serve deepseek-v2-lite-16b", phase_serve,
+                 ("deepseek-v2-lite-16b", DEEPSEEK_LAYERS),
+                 dict(cut, prompt_len=M2_GEN_PROMPT)),
+                ("serve qwen2-vl-72b", phase_serve_vlm, (), {}),
+                ("serve whisper-large-v3", phase_serve_whisper, (), {})):
+            for hd, n in timed_phase(name, fn, np, torch, *args, **kw).items():
+                flash[hd] = flash.get(hd, 0) + n
+        jamba_flash, launches["selective_scan"] = timed_phase(
+            f"serve {JAMBA}", phase_serve_jamba, np, torch)
+        for hd, n in jamba_flash.items():
             flash[hd] = flash.get(hd, 0) + n
-    jamba_flash, launches["selective_scan"] = timed_phase(
-        f"serve {JAMBA}", phase_serve_jamba, np, torch)
-    for hd, n in jamba_flash.items():
-        flash[hd] = flash.get(hd, 0) + n
-    check(set(flash) == {64, 128}, f"flash launches by head dim {flash}")
-    launches["flash_attention"] = flash[64]
-    launches["flash_attention_hd128"] = flash[128]
-    launches.update(timed_phase("serve mamba2-1.3b", phase_serve_mamba2, np,
-                                torch, MAMBA2_LAYERS))
-    train_flash, flash_backward, warmup_loss = timed_phase(
-        f"train {TRAIN_ARCH}", phase_train, np, torch)
-    launches["flash_attention"] += train_flash
-    row = {r["name"]: r for r in records}
-    row["flash_attention"]["train_launches"] = train_flash
-    row["flash_attention"]["backward"] = flash_backward
-    scan_train, bwd_row, ssd_backward = timed_phase(
-        f"train {TRAIN_SCAN_ARCH}", phase_train_scan, np, torch)
-    records.insert(records.index(row["selective_scan"]) + 1, bwd_row)
-    launches["selective_scan_bwd"] = 0
-    for name, count in scan_train.items():
-        launches[name] += count
-        if name in row:
-            row[name]["train_launches"] = count
-    row["ssd_intra_chunk"]["backward"] = ssd_backward
-    launch_flash = timed_phase("launch", phase_launch, np, torch, dryrun,
-                               warmup_loss)
-    launches["flash_attention"] += launch_flash
-    row["flash_attention"]["launch_launches"] = launch_flash
-    for r in records:
-        r["launches"] = launches[r["name"]]
-        check(r["launches"] > 0, f"its path never launched {r['name']}")
-    emit({"kernels": records})
-    emit({"phase": "done", "card": card, "phase_seconds": seconds,
-          "seconds": time.perf_counter() - t0})
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+        check(set(flash) == {64, 128}, f"flash launches by head dim {flash}")
+        launches["flash_attention"] = flash[64]
+        launches["flash_attention_hd128"] = flash[128]
+        launches.update(timed_phase("serve mamba2-1.3b", phase_serve_mamba2, np,
+                                    torch, MAMBA2_LAYERS))
+        train_flash, flash_backward, warmup_loss = timed_phase(
+            f"train {TRAIN_ARCH}", phase_train, np, torch)
+        launches["flash_attention"] += train_flash
+        row = {r["name"]: r for r in records}
+        row["flash_attention"]["train_launches"] = train_flash
+        row["flash_attention"]["backward"] = flash_backward
+        scan_train, bwd_row, ssd_backward = timed_phase(
+            f"train {TRAIN_SCAN_ARCH}", phase_train_scan, np, torch)
+        records.insert(records.index(row["selective_scan"]) + 1, bwd_row)
+        launches["selective_scan_bwd"] = 0
+        for name, count in scan_train.items():
+            launches[name] += count
+            if name in row:
+                row[name]["train_launches"] = count
+        row["ssd_intra_chunk"]["backward"] = ssd_backward
+        launch_flash = timed_phase("launch", phase_launch, np, torch, dryrun,
+                                   warmup_loss)
+        launches["flash_attention"] += launch_flash
+        row["flash_attention"]["launch_launches"] = launch_flash
+        for r in records:
+            r["launches"] = launches[r["name"]]
+            check(r["launches"] > 0, f"its path never launched {r['name']}")
+        emit({"kernels": records})
+        emit({"phase": "done", "card": card, "phase_seconds": seconds,
+              "seconds": time.perf_counter() - t0})
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    finally:
+        # a phase that failed before ``phase_launch`` leaves no dry run behind
+        stop_dryrun(dryrun)
 
 
 if __name__ == "__main__":

@@ -82,7 +82,7 @@ def roofline(arch, shape, meta: dict, *, n_chips: int, model_shards: int,
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool, out_dir: str,
              *, force: bool = False, verbose: bool = True,
-             reduced: bool = False, **build_kw) -> dict:
+             reduced: bool = False) -> dict:
     """One cell on its production mesh (the fake process group of its
     world size must be started), its record written to ``out_dir``;
     ``reduced``: the config's smoke-scale variant."""
@@ -104,7 +104,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, out_dir: str,
     model_shards = mesh_shape(mesh)["model"]
 
     t0 = time.perf_counter()
-    cell = build_cell(arch, shape, mesh, **build_kw)
+    cell = build_cell(arch, shape, mesh)
     t_build = time.perf_counter() - t0
     ops, trace_info = cell_collectives(cell)
     summ = summarize(ops)

@@ -113,21 +113,12 @@ def _batch(cfg: ArchConfig, shape: ShapeConfig, *, with_labels: bool) -> dict:
     return batch
 
 
-def build_cell(
-    arch: ArchConfig, shape: ShapeConfig, mesh, *,
-    fsdp_threshold_params: int = 10_000_000_000,
-    remat_policy: str = "nothing_saveable",
-    opt_state_dtype: str | None = None,
-    grad_accum_override: int | None = None,
-    pin_activations: bool | None = None,
-) -> CellBuild:
+def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh) -> CellBuild:
     """The cell on ``mesh`` (a production mesh, ``launch.mesh``), with the
     reference's family defaults: dense archs pin the residual stream
     batch-sharded in training; FSDP at >= 10e9 params in training; AdamW
     state in bf16 above 100e9 params; ZeRO-2 accumulators without FSDP."""
     check_cell(arch, shape)
-    if pin_activations is None:
-        pin_activations = arch.moe is None
     shape_of = mesh_shape(mesh)
     model_size = shape_of["model"]
     data_shards = math.prod(n for a, n in shape_of.items()
@@ -140,11 +131,11 @@ def build_cell(
 
     model = Model(arch, device="cpu",
                   remat=RematPolicy(enabled=shape.kind == "train",
-                                    policy=remat_policy))
+                                    policy="nothing_saveable"))
     p_fake, mode = fake_params(model)
     n_params = count_params_tree(p_fake)
     n_active = active_params(arch, n_params)
-    use_fsdp = n_params >= fsdp_threshold_params and shape.kind == "train"
+    use_fsdp = n_params >= 10_000_000_000 and shape.kind == "train"
     attn_ok = arch.num_heads % model_size == 0
     pspec = param_specs(
         p_fake, model_size=model_size,
@@ -158,7 +149,7 @@ def build_cell(
         hooks["layer_specs"] = map_specs(lambda _, s: strip_axis(s, "data"),
                                          pspec["layers"][0],
                                          pspec["layers"][0])
-    if shape.kind == "train" and pin_activations:
+    if shape.kind == "train" and arch.moe is None:
         hooks["act_spec"] = (b, None, None)
     model = dataclasses.replace(model, **hooks)
 
@@ -175,9 +166,8 @@ def build_cell(
         p_local = map_specs(place, p_fake, pspec)
 
     if shape.kind == "train":
-        if opt_state_dtype is None:
-            opt_state_dtype = "bfloat16" if n_params > 100_000_000_000 else "float32"
-        accum = grad_accum_override or pick_grad_accum(arch, shape, data_shards)
+        opt_state_dtype = "bfloat16" if n_params > 100_000_000_000 else "float32"
+        accum = pick_grad_accum(arch, shape, data_shards)
         meta["grad_accum"] = accum
         meta["opt_state_dtype"] = opt_state_dtype
         accum_specs = None
