@@ -265,18 +265,21 @@ exponentials: eight ``nvcc`` processes at once) and then:
    training: printed with ``reduced``).  From (c) on no call with a CUDA
    tensor reaches the scans' plain versions;
 19. drives the launchers ("launch"): (a) ``python -m
-   repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k --mesh
-   both`` in a child process that sees no card (started after the builds,
-   it traces rank 0 of a fake process group of 256 and of 512 ranks on the
-   host while the card's phases run), its two records printed; (b) the
-   trace job (``launch/trace_training_job.py``) over the two-pod record:
-   its DCN flows, FIM under ECMP and under static routing; (d) the gate:
-   reduced granite in f32 on 2 x ``TRAIN_CHECK_S`` tokens (2 accumulated
-   microbatches), the sharded step on a one-rank NCCL mesh (DTensors, the
-   flash op through ``local_map``, ZeRO-2 accumulators) equal to the
-   unsharded ``make_train_step`` bit for bit in loss, grad norm and every
-   updated leaf, launching the flash kernel and reaching no plain
-   attention on the card; (c) ``repro_torch.launch.train`` for
+   repro_torch.launch.dryrun --arch <arch> --shape train_4k --mesh both``
+   for granite-3-2b and for qwen2-moe-a2.7b (expert parallel, FSDP within
+   a pod), each in a child process that sees no card (started after the
+   builds, it traces rank 0 of a fake process group of 256 and of 512
+   ranks on the host while the card's phases run), their four records
+   printed and each child's wait timed; (b) the trace job
+   (``launch/trace_training_job.py``) over each two-pod record: its DCN
+   flows, FIM under ECMP and under static routing; (d) the gates:
+   reduced granite and reduced qwen2-moe in f32 on 2 x ``TRAIN_CHECK_S``
+   tokens (2 accumulated microbatches), the sharded step on a one-rank
+   NCCL mesh (DTensors, the flash op through ``local_map``, ZeRO-2
+   accumulators; the MoE's experts through its expert-parallel layer)
+   equal to the unsharded ``make_train_step`` bit for bit in loss, grad
+   norm and every updated leaf, launching the flash kernel and reaching
+   no plain attention on the card; (c) ``repro_torch.launch.train`` for
    granite-3-2b at full width and depth on 4,096 tokens, the global batch
    4 as 2 x 2 accumulated (the train phase's cut), 2 steps with a
    checkpoint after the first, a simulated host failure and the restart
@@ -670,6 +673,7 @@ SSD_PLAIN = ("ssd_intra_chunk_ref",)
 
 
 LAUNCH_ARCH = TRAIN_ARCH        # the launch phase's arch and shape
+LAUNCH_MOE_ARCH = "qwen2-moe-a2.7b"   # dry-run and gated expert parallel
 LAUNCH_SHAPE = "train_4k"
 LAUNCH_STEPS = 2                # full width: 2 steps, a restart after 1
 LAUNCH_OUT = ROOT / "results" / "dryrun_torch" / "launch"
@@ -4795,63 +4799,77 @@ def phase_train_scan(np, torch):
 
 
 def start_dryrun():
-    """The dry run of ``LAUNCH_ARCH`` x ``LAUNCH_SHAPE`` on both production
-    meshes, started as a child process that sees no card (it traces a fake
-    process group of 256 and of 512 ranks on the host), its records going
-    to ``LAUNCH_OUT``.  Runs beside the card's phases; ``phase_launch``
-    waits for it."""
+    """The dry runs of ``LAUNCH_ARCH`` and ``LAUNCH_MOE_ARCH`` x
+    ``LAUNCH_SHAPE`` on both production meshes, started as child
+    processes (one an arch) that see no card (each traces a fake process
+    group of 256 and of 512 ranks on the host), their records going to
+    ``LAUNCH_OUT``.  They run beside the card's phases; ``phase_launch``
+    waits for them.  Returns {arch: (process, log, records' directory)}."""
     import os
     out = LAUNCH_OUT / "dryrun"
     out.mkdir(parents=True, exist_ok=True)
-    # one thread at the lowest priority: the card's phases' host work
+    # one thread each at the lowest priority: the card's phases' host work
     # comes first
     env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "",
            "OMP_NUM_THREADS": "1"}
-    log = open(LAUNCH_OUT / "dryrun.log", "w")
-    proc = subprocess.Popen(
-        ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.dryrun",
-         "--arch", LAUNCH_ARCH, "--shape", LAUNCH_SHAPE, "--mesh", "both", "--out",
-         str(out), "--force"], env=env, cwd=ROOT, stdout=log,
-        stderr=subprocess.STDOUT)
-    return proc, log, out
+    children = {}
+    for arch in (LAUNCH_ARCH, LAUNCH_MOE_ARCH):
+        log = open(LAUNCH_OUT / f"dryrun_{arch}.log", "w")
+        proc = subprocess.Popen(
+            ["nice", "-n", "19", sys.executable, "-m",
+             "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             LAUNCH_SHAPE, "--mesh", "both", "--out", str(out), "--force"],
+            env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        children[arch] = proc, log, out
+    return children
 
 
 def stop_dryrun(dryrun) -> None:
-    """Kill the dry run's child if it is still running, and close its log."""
-    proc, log, _ = dryrun
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
-    log.close()
+    """Kill the dry runs' children still running, and close their logs."""
+    for proc, log, _ in dryrun.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
 
 
-def one_rank_gate(torch) -> dict:
-    """Reduced granite in f32 on the card, 2 sequences of
+def one_rank_gate(torch, arch: str = LAUNCH_ARCH) -> dict:
+    """Reduced ``arch`` in f32 on the card, 2 sequences of
     ``LAUNCH_GATE_S`` tokens accumulated as 2 microbatches: the sharded
     step on the one-rank ('data', 'model') mesh (DTensors, the flash op
-    through ``local_map``, ZeRO-2 accumulators) against the unsharded
-    ``make_train_step`` on a copy of the same weights: loss, grad norm and
-    every updated leaf bit for bit.  The sharded step must launch the
-    flash kernel and never reach a plain attention on a CUDA tensor."""
+    through ``local_map``, ZeRO-2 accumulators; a MoE expert parallel,
+    its activations unpinned, as ``build_cell`` has it) against the
+    unsharded ``make_train_step`` on a copy of the same weights: loss,
+    grad norm and every updated leaf bit for bit.  The sharded step must
+    launch the flash kernel (and a MoE's sharded layer) and never reach a
+    plain attention on a CUDA tensor."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticDataset
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.models import Model, attention
+    from repro_torch.models import Model, attention, moe
     from repro_torch.parallel.sharding import param_specs, shard_tree
     from repro_torch.train import TrainConfig, adamw_init, make_train_step
     from repro_torch.tree import leaves, rebuild
 
-    cfg = dataclasses.replace(get_arch(LAUNCH_ARCH).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               impl="ep"))
     mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
     plain = Model(cfg)
-    sharded = dataclasses.replace(plain, act_spec=("data", None, None))
+    sharded = plain if cfg.moe else \
+        dataclasses.replace(plain, act_spec=("data", None, None))
     params = plain.init(SERVE_SEED)
     twin = [t.clone() for t in leaves(params)]
     specs = param_specs(params, model_size=1)
+    # every leaf's accumulator sharded (on this mesh, over one rank); the
+    # MoE's q/k/v biases excepted, whose shard the reference puts on the
+    # stacked layer axis
     tc = TrainConfig(grad_accum=2, batch_axes=("data",), accum_specs=param_specs(
-        params, model_size=1, fsdp_axis="data", fsdp_size=1, fsdp_min_size=1))
+        params, model_size=1, fsdp_axis="data", fsdp_size=1,
+        fsdp_min_size=1 << 13 if cfg.moe else 1))
     batch = SyntheticDataset(vocab=cfg.vocab, seq_len=LAUNCH_GATE_S,
                              global_batch=2, seed=1).batch(0)
     p_plain, _, m_plain = make_train_step(plain, TrainConfig(grad_accum=2))(
@@ -4867,35 +4885,48 @@ def one_rank_gate(torch) -> dict:
         fn.__name__ = real.__name__
         return fn
 
+    sharded_moe = []
+
+    def counting(real):
+        def fn(*args, **kw):
+            sharded_moe.append(1)
+            return real(*args, **kw)
+        return fn
+
     ops.reset_launches()
     with patched(attention, "plain_attention", spying), \
-            patched(ops, "flash_attention_ref", spying):
+            patched(ops, "flash_attention_ref", spying), \
+            patched(moe, "_sharded_moe", counting):
         p_mesh, _, m_mesh = make_train_step(sharded, tc)(
             p_mesh, adamw_init(p_mesh, tc.optimizer), batch)
         torch.cuda.synchronize()
     flash = ops.LAUNCHES["flash_attention"]
     unequal = sum(int((a.to_local() != b).sum())
                   for a, b in zip(leaves(p_mesh), leaves(p_plain)))
-    record = {"config": f"{LAUNCH_ARCH} reduced, f32", "seq": LAUNCH_GATE_S,
+    record = {"config": f"{arch} reduced, f32", "seq": LAUNCH_GATE_S,
               "batch": 2, "grad_accum": 2, "mesh": [1, 1],
               "loss": [float(m_mesh["loss"]), float(m_plain["loss"])],
               "grad_norm": [float(m_mesh["grad_norm"]),
                             float(m_plain["grad_norm"])],
               "unequal_elements": unequal, "flash_launches": flash,
+              "sharded_moe_layers": len(sharded_moe),
               "plain_attention_calls_on_card": len(plain_calls)}
     check(unequal == 0 and bool(m_mesh["loss"] == m_plain["loss"])
           and bool(m_mesh["grad_norm"] == m_plain["grad_norm"]),
           f"the one-rank sharded step differs from the unsharded one: "
           f"{record}")
     check(flash > 0, "the sharded step launched no flash kernel")
+    check(bool(sharded_moe) == bool(cfg.moe),
+          f"{len(sharded_moe)} expert-parallel layers ran in {arch}'s step")
     check(not plain_calls, f"plain attention on the card: {plain_calls}")
     return record, flash
 
 
 def phase_launch(np, torch, dryrun, warmup_loss: float):
-    """The launchers: (a) the dry run's records (started by
-    ``start_dryrun``), (b) the trace job over its two-pod record, (d) the
-    one-rank gate, (c) ``repro_torch.launch.train`` at full width and
+    """The launchers: (a) the dry runs' records (started by
+    ``start_dryrun``: granite's and the MoE's), (b) the trace job over
+    each two-pod record, (d) the one-rank gates, granite's and the MoE's
+    expert parallel, (c) ``repro_torch.launch.train`` at full width and
     depth, 2 steps with a checkpoint after the first, a simulated host
     failure and the restart from it.  Returns the flash launches of (c)
     and (d)."""
@@ -4906,47 +4937,56 @@ def phase_launch(np, torch, dryrun, warmup_loss: float):
     from repro_torch.launch.trace_training_job import trace_job
 
     laps = Laps()
-    record = {"phase": "launch"}
-    proc, log, out = dryrun
-    rc = proc.wait(timeout=600)
-    log.close()
-    laps.lap("dryrun_wait")
-    check(rc == 0, f"the dry run exited {rc}; see {log.name}")
+    record = {"phase": "launch", "dryrun_trace_s": {}, "trace_job": {}}
     records = {}
-    for tag in ("single", "multi"):
-        with open(out / tag / f"{LAUNCH_ARCH}__{LAUNCH_SHAPE}.json") as f:
-            records[tag] = json.load(f)
-        rec = {k: v for k, v in records[tag].items() if k != "ops"}
-        emit({"phase": "launch dryrun", **rec})
-        check(rec["memory"]["fits"] and rec["collectives"]["dcn_bytes"] >= 0,
-              f"dry run {tag}: {rec['memory']}")
-    check(records["multi"]["collectives"]["dcn_flows"] > 0,
-          "the two-pod cell has no DCN flow")
-    record["dryrun_trace_s"] = {t: r["trace"]["trace_s"]
-                                for t, r in records.items()}
+    for arch, (proc, log, out) in dryrun.items():
+        rc = proc.wait(timeout=600)
+        log.close()
+        laps.lap(f"dryrun_wait {arch}")
+        check(rc == 0, f"the dry run of {arch} exited {rc}; see {log.name}")
+        for tag in ("single", "multi"):
+            with open(out / tag / f"{arch}__{LAUNCH_SHAPE}.json") as f:
+                records[arch, tag] = json.load(f)
+            rec = {k: v for k, v in records[arch, tag].items() if k != "ops"}
+            emit({"phase": "launch dryrun", **rec})
+            check(rec["memory"]["fits"]
+                  and rec["collectives"]["dcn_bytes"] >= 0,
+                  f"dry run {arch} {tag}: {rec['memory']}")
+            record["dryrun_trace_s"][f"{arch} {tag}"] = rec["trace"]["trace_s"]
+        check(records[arch, "multi"]["collectives"]["dcn_flows"] > 0,
+              f"{arch}'s two-pod cell has no DCN flow")
+    moe_a2a = records[LAUNCH_MOE_ARCH, "multi"]["collectives"][
+        "count_by_kind"].get("all-to-all", 0)
+    check(moe_a2a > 0, f"{LAUNCH_MOE_ARCH}'s cell traced no all-to-all")
 
-    # (b) the trace job over the two-pod record
-    t = time.perf_counter()
-    job = trace_job(records["multi"])
-    job["seconds"] = time.perf_counter() - t
-    record["trace_job"] = {k: v for k, v in job.items()
-                           if k not in ("ecmp_report", "static_report")}
-    print(job["ecmp_report"], flush=True)
-    print(job["static_report"], flush=True)
-    check(job["fim_static"] <= job["fim_ecmp"],
-          f"static routing FIM {job['fim_static']} above ECMP's "
-          f"{job['fim_ecmp']}")
-    laps.lap("trace_job")
+    # (b) the trace job over each two-pod record
+    for arch in dryrun:
+        t = time.perf_counter()
+        job = trace_job(records[arch, "multi"])
+        job["seconds"] = time.perf_counter() - t
+        record["trace_job"][arch] = {
+            k: v for k, v in job.items()
+            if k not in ("ecmp_report", "static_report")}
+        print(job["ecmp_report"], flush=True)
+        print(job["static_report"], flush=True)
+        check(job["fim_static"] <= job["fim_ecmp"],
+              f"{arch}: static routing FIM {job['fim_static']} above ECMP's "
+              f"{job['fim_ecmp']}")
+        laps.lap(f"trace_job {arch}")
 
-    # (d) the one-rank gate: a process group of one, the mesh over it
+    # (d) the one-rank gates: a process group of one, the mesh over it
     import torch.distributed as dist
     started = launcher.start_group(torch.device("cuda"))
     try:
         record["one_rank_gate"], gate_flash = one_rank_gate(torch)
+        laps.lap("one_rank_gate")
+        record["moe_one_rank_gate"], moe_flash = one_rank_gate(
+            torch, LAUNCH_MOE_ARCH)
+        gate_flash += moe_flash
+        laps.lap("moe_one_rank_gate")
     finally:
         if started:
             dist.destroy_process_group()
-    laps.lap("one_rank_gate")
 
     # (c) the launcher at full width and depth; AdamW's moments in bf16 so
     # that its two checkpoints (after step 1, and the last) write 2 x 15

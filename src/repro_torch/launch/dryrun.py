@@ -4,7 +4,7 @@ its roofline terms and collective traffic for FlowTracer.  The port of
 ``repro/launch/dryrun.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all      # 8 cells x 2 meshes
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all      # 10 cells x 2 meshes
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single
 
 It runs in a process of its own: ``main`` starts a fake process group of
@@ -15,9 +15,9 @@ or touches a card.  Per cell it writes
 fields.  The port has no compiled program, so XLA's ``memory_analysis``
 and ``cost_analysis`` fields are null (``null_fields`` says so); the
 memory verdict is the analytic residency against the card's 80 GB.
-Cells outside the dense family's ``train`` and ``prefill`` raise,
-naming their family or shape (``specs.check_cell``); ``--all`` lists
-them as refused.
+Cells outside the ``train`` and ``prefill`` cells of the dense family and
+of the MoE without MLA raise, naming their family or shape
+(``specs.check_cell``); ``--all`` lists them as refused.
 """
 
 from __future__ import annotations

@@ -15,7 +15,11 @@ The step runs on ``step_mesh``: the batch axes flattened into one mesh
 dim, so that a gradient reduction over ('pod', 'data') is one collective
 over the rank group XLA's replica groups name (ranks 0, 2, 4, 6 on
 (2, 2, 2)), not a pod stage and a data stage, which would put other ring
-edges on the DCN.
+edges on the DCN.  The leaves FSDP and ZeRO-2 shard over 'data' live on
+the production mesh itself, replicated over 'pod', as the reference
+shards them (``parallel.sharding.place``): their gathers and
+reduce-scatters run within a pod, over 'data', and their gradients add
+across the pods by an all-reduce over 'pod'.
 """
 
 from __future__ import annotations
@@ -81,8 +85,11 @@ def batch_axes(mesh) -> tuple[str, ...]:
 def step_mesh(mesh):
     """The 2-D ('data' or 'pod_data', 'model') mesh the step's DTensors
     live on: the batch axes flattened C-order into one dim (the name
-    ``DeviceMesh._flatten`` gives), over the same ranks as ``mesh``."""
+    ``DeviceMesh._flatten`` gives), over the same ranks as ``mesh``, which
+    is registered as its pod mesh (``parallel.sharding.place``)."""
     from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel.sharding import register_pod_mesh
 
     if mesh.ndim == 2:
         return mesh
@@ -92,4 +99,6 @@ def step_mesh(mesh):
     flat = "_".join(names[:-1])
     ranks = mesh.mesh.reshape(math.prod(mesh.mesh.shape[:-1]),
                               mesh.mesh.shape[-1])
-    return DeviceMesh(mesh.device_type, ranks, mesh_dim_names=(flat, "model"))
+    out = DeviceMesh(mesh.device_type, ranks, mesh_dim_names=(flat, "model"))
+    register_pod_mesh(out, mesh)
+    return out

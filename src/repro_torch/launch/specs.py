@@ -10,12 +10,14 @@ microbatch's loss and gradient into the accumulator, then the update;
 ``prefill``: the last position's logits), returning local tensors, so
 that ``make_fx`` traces the ranks' own program with its collectives.
 
-The port builds the dense family's ``train`` and ``prefill`` cells.  Every
-other cell raises, naming its family or shape: ``decode`` and
-``long_500k`` need context-parallel caches (the attention cache's
-sequence sharded over 'model', with the softmax partials reduced), and
-the MoE, MLA, SSM, hybrid, VLM and encoder-decoder families have
-sharded forwards the port does not have yet.
+The port builds the ``train`` and ``prefill`` cells of the dense family
+and of the MoE family without MLA (expert parallel, ``impl="ep"``, as
+the reference's cells default to).  Every other cell raises, naming its
+family or shape: ``decode`` and ``long_500k`` need context-parallel
+caches (the attention cache's sequence sharded over 'model', with the
+softmax partials reduced), and MLA and the SSM, hybrid, VLM and
+encoder-decoder families have sharded forwards the port does not have
+yet.
 """
 
 from __future__ import annotations
@@ -30,15 +32,18 @@ from ..configs.base import ArchConfig, ShapeConfig
 from ..models.lm import RematPolicy
 from ..models.model import Model
 from ..parallel.sharding import (
-    local_part, map_specs, param_specs, strip_axis, to_placements,
+    local_part, map_specs, param_specs, place, strip_axis,
 )
 from ..train.optimizer import AdamWConfig
 from ..train.step import TrainConfig
 from .mesh import batch_axes, mesh_shape, step_mesh
 
 #: the families and shape kinds the port shards
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "moe")
 SHARDED_KINDS = ("train", "prefill")
+#: training shards the parameters by FSDP from this many on (the
+#: reference's ``fsdp_threshold_params`` default)
+FSDP_MIN_PARAMS = 10_000_000_000
 
 
 @dataclasses.dataclass
@@ -88,11 +93,15 @@ def check_cell(arch: ArchConfig, shape: ShapeConfig) -> None:
         raise NotImplementedError(
             f"{arch.name} x {shape.name}: the port shards {SHARDED_KINDS} "
             f"cells; {shape.kind} cells need context-parallel caches")
-    if arch.family not in SHARDED_FAMILIES or arch.moe or arch.mla:
+    if arch.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
             f"{arch.name} x {shape.name}: the port shards the "
-            f"{SHARDED_FAMILIES} family; family {arch.family!r} has no "
+            f"{SHARDED_FAMILIES} families; family {arch.family!r} has no "
             f"sharded forward yet")
+    if arch.mla:
+        raise NotImplementedError(
+            f"{arch.name} x {shape.name}: family {arch.family!r} with MLA "
+            f"attention has no sharded forward yet")
 
 
 def fake_params(model: Model):
@@ -116,9 +125,14 @@ def _batch(cfg: ArchConfig, shape: ShapeConfig, *, with_labels: bool) -> dict:
 def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh) -> CellBuild:
     """The cell on ``mesh`` (a production mesh, ``launch.mesh``), with the
     reference's family defaults: dense archs pin the residual stream
-    batch-sharded in training; FSDP at >= 10e9 params in training; AdamW
-    state in bf16 above 100e9 params; ZeRO-2 accumulators without FSDP."""
+    batch-sharded in training; MoE archs run expert parallel; FSDP at
+    >= ``FSDP_MIN_PARAMS`` params in training; AdamW state in bf16 above
+    100e9 params; ZeRO-2 accumulators without FSDP.  FSDP and ZeRO-2
+    shard over 'data' within a pod (``parallel.sharding.place``)."""
     check_cell(arch, shape)
+    if arch.moe:
+        arch = dataclasses.replace(arch, moe=dataclasses.replace(
+            arch.moe, impl="ep"))
     shape_of = mesh_shape(mesh)
     model_size = shape_of["model"]
     data_shards = math.prod(n for a, n in shape_of.items()
@@ -126,8 +140,8 @@ def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh) -> CellBuild:
     baxes = batch_axes(mesh)
     b = baxes if len(baxes) > 1 else baxes[0]
     smesh = step_mesh(mesh)
-    # the mesh dim 'data' maps to (the flattened batch dim on two pods)
-    batch_dim_size = smesh.mesh.shape[0]
+    # FSDP and ZeRO-2 shard within a pod, as the reference's do
+    fsdp_size = shape_of["data"]
 
     model = Model(arch, device="cpu",
                   remat=RematPolicy(enabled=shape.kind == "train",
@@ -135,12 +149,12 @@ def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh) -> CellBuild:
     p_fake, mode = fake_params(model)
     n_params = count_params_tree(p_fake)
     n_active = active_params(arch, n_params)
-    use_fsdp = n_params >= 10_000_000_000 and shape.kind == "train"
+    use_fsdp = n_params >= FSDP_MIN_PARAMS and shape.kind == "train"
     attn_ok = arch.num_heads % model_size == 0
     pspec = param_specs(
         p_fake, model_size=model_size,
         fsdp_axis="data" if use_fsdp else None,
-        fsdp_size=batch_dim_size, attention_shardable=attn_ok)
+        fsdp_size=fsdp_size, attention_shardable=attn_ok)
 
     hooks = {}
     if use_fsdp:
@@ -159,11 +173,9 @@ def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh) -> CellBuild:
         "mesh": shape_of, "attention_tp": attn_ok,
     }
 
-    def place(t, spec):
-        return local_part(t, smesh, to_placements(smesh, spec))
-
     with mode:
-        p_local = map_specs(place, p_fake, pspec)
+        p_local = map_specs(lambda t, s: local_part(t, *place(smesh, s)),
+                            p_fake, pspec)
 
     if shape.kind == "train":
         opt_state_dtype = "bfloat16" if n_params > 100_000_000_000 else "float32"
@@ -174,7 +186,7 @@ def build_cell(arch: ArchConfig, shape: ShapeConfig, mesh) -> CellBuild:
         if not use_fsdp:
             accum_specs = param_specs(
                 p_fake, model_size=model_size, fsdp_axis="data",
-                fsdp_size=batch_dim_size, fsdp_min_size=1 << 20,
+                fsdp_size=fsdp_size, fsdp_min_size=1 << 20,
                 attention_shardable=attn_ok)
         tc = TrainConfig(optimizer=AdamWConfig(state_dtype=opt_state_dtype),
                          grad_accum=accum, batch_axes=baxes,

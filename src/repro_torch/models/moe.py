@@ -22,8 +22,16 @@ Three places where the port pins the reference's order:
   products are batched matrix products over E with no copy; the
   reference's (B, E, C, D) einsums compute the same sums.
 
-``impl="ep"`` only constrains the reference's sharding and is a no-op on
-one device; the port takes no mesh and runs it as ``"tp"``.
+On plain tensors ``impl="ep"`` runs as ``"tp"``: it only constrains the
+reference's sharding.  On DTensors (the sharded step, ``launch/specs.py``)
+the layer runs expert parallel over 'model' (``_sharded_moe``), as the
+reference's ``impl="ep"`` cells compile: the dispatch is batch-local on
+each rank's rows, every expert weight goes from its width over 'model'
+to its experts over 'model' by one all-to-all, each rank runs its own
+experts at full width, and the partial combines add over 'model'.  Its
+combine order across ranks differs from the unsharded sum's: each rank
+adds its own experts' outputs in ascending id, and the all-reduce adds
+the ranks' sums.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import is_dtensor
 from .common import InitCtx, swiglu
 
 
@@ -98,19 +107,23 @@ def _dispatch(x: torch.Tensor, idx: torch.Tensor, C: int, E: int):
 
 
 def _combine(out: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-             rank: torch.Tensor, C: int) -> torch.Tensor:
+             rank: torch.Tensor, C: int, first: int = 0) -> torch.Tensor:
     """The reference's ``_combine_one_row`` over every row at once.
 
-    out: (E, B·C, D) expert outputs; w, idx, rank: (B, T, k).  Each
-    token's k weighted outputs (a dropped slot weighs 0) are summed in
+    out: (E', B·C, D) the outputs of experts ``first`` to ``first + E'``;
+    w, idx, rank: (B, T, k).  Each token's k weighted outputs (a dropped
+    slot, or one of an expert not in ``out``, weighs 0) are summed in
     ascending expert id, one rounding to out's type a step."""
     B, T, k = idx.shape
     E = out.shape[0]
     eid, perm = torch.sort(idx, dim=-1)                   # distinct ids
     rank = torch.gather(rank, 2, perm)
-    keep = rank < C
+    eid = eid - first
+    inside = (eid >= 0) & (eid < E)
+    keep = (rank < C) & inside
     w = (torch.gather(w, 2, perm) * keep).to(out.dtype)
-    rows = ((eid * B + torch.arange(B, device=out.device)[:, None, None]) * C
+    rows = ((torch.where(inside, eid, 0) * B
+             + torch.arange(B, device=out.device)[:, None, None]) * C
             + torch.where(keep, rank, 0))
     vals = out.view(E * B * C, -1)[rows.reshape(-1)].view(B, T, k, -1)
     contrib = vals * w[..., None]
@@ -120,12 +133,146 @@ def _combine(out: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     return y
 
 
+def expert_split(E: int, m: int) -> list[int]:
+    """Experts a rank holds when E experts shard over m ranks as DTensor's
+    ``Shard`` splits a dim (``torch.chunk``'s pieces, empty at the end:
+    60 over 16 is fifteen 4s and a 0)."""
+    size = -(-E // m)
+    return [max(0, min(size, E - i * size)) for i in range(m)]
+
+
+def _all_to_all(x: torch.Tensor, out_splits: list[int],
+                in_splits: list[int], group) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        x.contiguous(), out_splits, in_splits, group))
+
+
+class _ToExperts(torch.autograd.Function):
+    """An expert weight from its width over 'model' to its experts over
+    'model', by one all-to-all: this rank's (E, ..., F/m, ...) slice (the
+    width at dim ``fdim``) in, its ``counts[r]`` experts at full width
+    (n, ..., F, ...) out.  The backward is the transposed all-to-all."""
+
+    @staticmethod
+    def forward(ctx, w, fdim: int, counts: list[int], r: int, group):
+        ctx.args = fdim, counts, r, group
+        m, n = len(counts), counts[r]
+        got = _all_to_all(w, [n] * m, counts, group)     # (m·n, ..., F/m)
+        got = got.view(m, n, *w.shape[1:]).movedim(0, fdim)
+        return got.flatten(fdim, fdim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        fdim, counts, r, group = ctx.args
+        m, n = len(counts), counts[r]
+        g = g.unflatten(fdim, (m, -1)).movedim(fdim, 0).flatten(0, 1)
+        return _all_to_all(g, counts, [n] * m, group), None, None, None, None
+
+
+def _sharded_moe(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                 with_aux: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``moe_forward`` on DTensors: x (B, S, D) sharded on batch and
+    replicated over 'model', the router replicated, the expert weights'
+    width F over 'model' (``param_specs``).  Through ``local_map``, each
+    rank routes and dispatches its own rows to every expert, takes the
+    buffers of its experts (``expert_split``), brings their weights to
+    full width (``_ToExperts``), runs them and combines their outputs;
+    the partial sums, with the shared expert's, are all-reduced over
+    'model' to x's placements.  Gradients come back partial where the
+    forward's sums were: x's and the router's over 'model', the experts'
+    over the batch dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    e = cfg.moe
+    if e.impl != "ep":
+        raise NotImplementedError(f"the sharded MoE runs impl='ep', not "
+                                  f"{e.impl!r}")
+    mesh = x.device_mesh
+    md = mesh.mesh_dim_names.index("model")
+    E, C, k = e.num_experts, capacity(cfg, x.shape[1]), e.top_k
+    xp = x.placements
+    fdims = {"w_gate": 2, "w_up": 2, "w_down": 1}
+    for name, fd in fdims.items():
+        pl = p[name].placements
+        if pl[md] != Shard(fd) or any(not q.is_replicate()
+                                      for i, q in enumerate(pl) if i != md):
+            raise ValueError(f"expert weight {name} placed {pl}: the sharded "
+                             f"MoE takes its width F over 'model' alone")
+    if xp[md] != Replicate() or any(q.is_partial() or
+                                    (q.is_shard() and q.dim != 0)
+                                    for q in xp):
+        raise ValueError(f"the sharded MoE takes x sharded on batch and "
+                         f"replicated over 'model', not {xp}")
+    counts = expert_split(E, mesh.size(md))
+    r = mesh.get_local_rank(md)
+    first, group = sum(counts[:r]), mesh.get_group(md)
+
+    logits = (x @ p["router"]).float()                    # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    # laid out as x (a batch of one row may come out of the product
+    # replicated over a mesh dim of one rank)
+    rows = probs if probs.placements == xp else probs.redistribute(mesh, xp)
+
+    def local(xl, pl_, wg, wu, wd):
+        w, idx = _route(pl_, k)
+        buf, rank = _dispatch(xl, idx, C, E)
+        buf = buf[first:first + counts[r]]
+        g = torch.bmm(buf, _ToExperts.apply(wg, 2, counts, r, group))
+        u = torch.bmm(buf, _ToExperts.apply(wu, 2, counts, r, group))
+        del buf
+        h = F.silu(g).mul_(u)
+        del g, u
+        out = torch.bmm(h, _ToExperts.apply(wd, 1, counts, r, group))
+        return _combine(out, w, idx, rank, C, first)
+
+    partial = tuple(Partial() if i == md else q for i, q in enumerate(xp))
+    by_batch = tuple(Partial() if q.is_shard() else Replicate() for q in xp)
+    wpl = [p[n].placements for n in fdims]
+    wgrad = [tuple(q if i == md else by_batch[i] for i, q in enumerate(pl))
+             for pl in wpl]
+    y = local_map(local, out_placements=(partial,),
+                  in_placements=(xp, xp, *wpl),
+                  in_grad_placements=(partial, partial, *wgrad),
+                  device_mesh=mesh)(x, rows, p["w_gate"], p["w_up"],
+                                    p["w_down"])
+    aux = _aux_loss(logits, probs, E) if with_aux else None
+    if "shared" in p:           # partial over 'model' too: one all-reduce
+        sp = p["shared"]
+        y = y + swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return y.redistribute(mesh, xp).to(x.dtype), aux
+
+
+def _aux_loss(logits: torch.Tensor, probs: torch.Tensor,
+              E: int) -> torch.Tensor:
+    """The Switch-style load-balance loss E * sum_e f_e * p_e over the
+    whole batch: f_e the share of tokens whose top expert is e, p_e the
+    mean probability of e.  On DTensors sharded on batch the two sums
+    come together by one all-reduce."""
+    n = logits.shape[0] * logits.shape[1]
+    top1 = logits.argmax(dim=-1)[..., None]
+    sums = torch.stack([
+        (top1 == torch.arange(E, device=logits.device)).float().sum(
+            dim=(0, 1)),
+        probs.sum(dim=(0, 1))])
+    if is_dtensor(sums):
+        from torch.distributed.tensor import Replicate
+        sums = sums.redistribute(sums.device_mesh,
+                                 [Replicate()] * sums.device_mesh.ndim)
+    f, pbar = sums / n
+    return E * torch.sum(f * pbar)
+
+
 def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
                 with_aux: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """x: (B, S, D) -> (y (B, S, D) in x's type, the Switch-style
     load-balance aux loss, an f32 scalar, or None without ``with_aux``:
-    serving has no use for it)."""
+    serving has no use for it).  DTensors go through ``_sharded_moe``."""
+    if is_dtensor(x):
+        return _sharded_moe(p, cfg, x, with_aux=with_aux)
     e = cfg.moe
     B, S, _ = x.shape
     E, C = e.num_experts, capacity(cfg, S)
@@ -140,13 +287,7 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     h = F.silu(g).mul_(u)
     del g, u
     y = _combine(torch.bmm(h, p["w_down"]), w, idx, rank, C)
-
-    aux = None
-    if with_aux:
-        # E * sum_e f_e * p_e: f_e the share of tokens whose top expert is e
-        top1 = logits.argmax(dim=-1)[..., None]
-        f = (top1 == torch.arange(E, device=x.device)).float().mean(dim=(0, 1))
-        aux = E * torch.sum(f * probs.mean(dim=(0, 1)))
+    aux = _aux_loss(logits, probs, E) if with_aux else None
 
     if "shared" in p:
         sp = p["shared"]

@@ -13,7 +13,16 @@ Baseline layout (as the reference's "what a production mesh does"):
     the FFN hidden, the MoE expert FFN width, the SSM d_inner/heads and
     the vocab, each only where it divides;
   * optional FSDP: large leaves also sharded over 'data' on a non-model
-    dim.
+    dim, within a pod: replicated over 'pod'.
+
+A step's DTensors live on two meshes over the same ranks
+(``launch.mesh.step_mesh``): the batch and the leaves that no spec
+shards over 'data' alone on the flattened ('pod_data', 'model') mesh, so
+that a reduction over the batch axes is one collective; the leaves that
+FSDP or ZeRO-2 shards over 'data' on the ('pod', 'data', 'model') mesh,
+replicated over 'pod' (``place``).  ``unshard`` gathers such a leaf and
+moves it to the step mesh; ``on_mesh`` moves a gradient between the two
+without a collective.
 
 The trees differ.  The reference stacks layers on a leading L axis; the
 port keeps a list of per-layer dicts (and the hybrid a list of periods,
@@ -268,12 +277,42 @@ def mesh_axes(mesh) -> list[tuple[str, ...]]:
     return [tuple(n.split("_")) for n in mesh.mesh_dim_names]
 
 
+#: a mesh with flattened dims -> the mesh over the same ranks with each
+#: axis a dim of its own, and back (``launch.mesh.step_mesh`` registers
+#: the pair).  Keyed by mesh equality, not held on the mesh object:
+#: DTensor's sharding cache may hand an op's output an equal mesh, not
+#: the one registered
+_POD_MESH: dict = {}
+_FLAT_MESH: dict = {}
+
+
+def register_pod_mesh(flat, root) -> None:
+    """Records ``root`` as the mesh whose axes ``flat`` flattens."""
+    _POD_MESH[flat] = root
+    _FLAT_MESH[root] = flat
+
+
+def pod_mesh(mesh):
+    """The pod mesh registered for the step mesh ``mesh``, else ``mesh``."""
+    return _POD_MESH.get(mesh, mesh)
+
+
+def flat_mesh(mesh):
+    """The step mesh registered for the pod mesh ``mesh``, else ``mesh``."""
+    return _FLAT_MESH.get(mesh, mesh)
+
+
+def _entry_names(entry) -> tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
 def to_placements(mesh, spec: Spec) -> tuple:
     """DTensor placements on ``mesh`` for ``spec``: ``Shard(d)`` on the
     mesh dim whose axes tensor dim ``d`` names, ``Replicate`` on the rest.
-    An entry naming a flattened dim's axes, or any one of them, shards
-    over that dim: on the two-pod mesh ('pod_data', 'model') the batch's
-    ("pod", "data") and FSDP's "data" both take 'pod_data'."""
+    An entry names every axis of one dim: on the two-pod step mesh
+    ('pod_data', 'model') the batch's ("pod", "data") shards over
+    'pod_data', and FSDP's "data" alone has no dim there (``place``
+    puts such a leaf on the pod mesh)."""
     from torch.distributed.tensor import Replicate, Shard
 
     covers = mesh_axes(mesh)
@@ -281,9 +320,9 @@ def to_placements(mesh, spec: Spec) -> tuple:
     for d, entry in enumerate(spec):
         if entry is None:
             continue
-        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        names = _entry_names(entry)
         dims = {i for i, c in enumerate(covers) for n in names if n in c}
-        if len(dims) != 1:
+        if len(dims) != 1 or set(covers[min(dims)]) != set(names):
             raise ValueError(f"spec entry {entry!r} maps to mesh dims "
                              f"{sorted(dims)} of {mesh.mesh_dim_names}; it "
                              f"must name the axes of exactly one")
@@ -293,6 +332,98 @@ def to_placements(mesh, spec: Spec) -> tuple:
                              f"dim {mesh.mesh_dim_names[i]!r}")
         out[i] = Shard(d)
     return tuple(out)
+
+
+def place(mesh, spec: Spec) -> tuple:
+    """(the mesh, its placements) for a leaf of ``spec`` on the step mesh
+    ``mesh``: ``mesh`` itself, unless an entry names some but not all of
+    a flattened dim's axes (FSDP's and ZeRO-2's "data" on ('pod_data',
+    'model')): then the pod mesh registered for it, on which the leaf is
+    replicated over 'pod', as the reference shards it."""
+    covers = mesh_axes(mesh)
+    part = any(set(_entry_names(e)) & set(c) and
+               not set(c) <= set(_entry_names(e))
+               for e in spec if e is not None for c in covers)
+    if part:
+        if pod_mesh(mesh) is mesh:
+            raise ValueError(f"spec {spec} shards over part of a dim of "
+                             f"{mesh.mesh_dim_names}, and no pod mesh is "
+                             f"registered for it (launch.mesh.step_mesh)")
+        mesh = pod_mesh(mesh)
+    return mesh, to_placements(mesh, spec)
+
+
+def placements_on(src, placements, dst) -> tuple:
+    """``placements`` on mesh ``src`` as placements on ``dst``, a mesh
+    over the same ranks whose dims flatten or split ``src``'s: each dim
+    of ``dst`` takes the placement of the ``src`` dims that share its
+    axes, which must agree ('pod' and 'data' both ``Replicate``, both
+    ``Partial`` or both ``Shard(d)`` for 'pod_data'; a ``Shard(d)`` on
+    'pod_data' splits evenly as 'pod' then 'data')."""
+    src_c, dst_c = mesh_axes(src), mesh_axes(dst)
+    out = []
+    for c in dst_c:
+        got = [placements[i] for i, s in enumerate(src_c) if set(s) & set(c)]
+        if not got or any(g != got[0] for g in got):
+            raise ValueError(f"placements {placements} on "
+                             f"{src.mesh_dim_names} have no counterpart on "
+                             f"{dst.mesh_dim_names}")
+        out.append(got[0])
+    return tuple(out)
+
+
+def _moved(t: torch.Tensor, mesh) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    pl = placements_on(t.device_mesh, t.placements, mesh)
+    return DTensor.from_local(t.to_local(), mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def on_mesh(t: torch.Tensor, mesh) -> torch.Tensor:
+    """DTensor ``t`` on ``mesh`` (``placements_on``), with no collective
+    and no gradient: a gradient partial over 'pod_data' moves to the pod
+    mesh as partial over 'pod' and 'data', an accumulator gathered over
+    'data' to the step mesh."""
+    return t if t.device_mesh == mesh else _moved(t, mesh)
+
+
+def reduce_to(t: torch.Tensor, placements) -> torch.Tensor:
+    """DTensor ``t`` redistributed to ``placements`` in two steps: first
+    every mesh dim that ends as a shard (a reduce-scatter of a partial
+    sum, or a slice), then the rest, so that an all-reduce (over 'pod',
+    of a gradient sharded over 'data') moves only this rank's shard, as
+    XLA orders them.  DTensor's own order may all-reduce the whole
+    tensor first."""
+    mid = tuple(q if q.is_shard() else p
+                for p, q in zip(t.placements, placements))
+    if mid != t.placements:
+        t = t.redistribute(t.device_mesh, mid)
+    return t if t.placements == tuple(placements) else \
+        t.redistribute(t.device_mesh, placements)
+
+
+class _Unshard(torch.autograd.Function):
+    """FSDP's gather: a pod mesh leaf redistributed to ``placements`` and
+    moved to the step mesh; its gradient moves back and is reduced to
+    the leaf's placements by ``reduce_to``."""
+
+    @staticmethod
+    def forward(ctx, t, placements, mesh):
+        ctx.mesh, ctx.placements = t.device_mesh, t.placements
+        return _moved(t.redistribute(t.device_mesh, placements), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_to(_moved(g, ctx.mesh), ctx.placements), None, None
+
+
+def unshard(t: torch.Tensor, placements, mesh) -> torch.Tensor:
+    """DTensor leaf ``t`` gathered to ``placements`` on its own mesh and
+    moved to the step mesh ``mesh`` (``_Unshard``)."""
+    if tuple(placements) == t.placements and t.device_mesh == mesh:
+        return t
+    return _Unshard.apply(t, tuple(placements), mesh)
 
 
 def map_specs(fn, tree: Any, specs: Any) -> Any:
@@ -318,16 +449,17 @@ def local_part(t: torch.Tensor, mesh, placements) -> torch.Tensor:
 
 def shard_tree(tree: Any, mesh, specs: Any) -> Any:
     """Every whole tensor of ``tree`` (the same on every rank, as drawn
-    from one seed) as a DTensor on ``mesh`` placed by its spec."""
+    from one seed) as a DTensor on the step mesh ``mesh`` (or its pod
+    mesh, ``place``) placed by its spec."""
     from torch.distributed.tensor import DTensor
 
-    def place(t, spec):
-        pl = to_placements(mesh, spec)
-        return DTensor.from_local(local_part(t, mesh, pl), mesh, pl,
+    def one(t, spec):
+        m, pl = place(mesh, spec)
+        return DTensor.from_local(local_part(t, m, pl), m, pl,
                                   run_check=False, shape=t.shape,
                                   stride=t.stride())
 
-    return map_specs(place, tree, specs)
+    return map_specs(one, tree, specs)
 
 
 def strip_axis(spec: Spec, axis: str) -> Spec:

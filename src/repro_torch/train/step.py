@@ -11,11 +11,12 @@ one seed), cuts each microbatch's rows out of it and keeps its own part
 of them (``batch_axes``: the mesh axes carrying the batch), so that no
 collective moves the input.  A microbatch's gradients come out of
 DTensor's autograd partial over the batch axes; with ``accum_specs`` (the
-reference's ZeRO-2) each is reduce-scattered into an f32 accumulator
-sharded over 'data', and one gather at the update brings the sum to the
-parameters' placements; without, the sum is kept in the parameters'
+reference's ZeRO-2) each is reduce-scattered over 'data' into an f32
+accumulator on the pod mesh (``parallel.sharding.place``) and all-reduced
+over 'pod', and one gather over 'data' at the update brings the sum to
+the parameters' placements; without, the sum is kept in the parameters'
 placements (one all-reduce a leaf and microbatch, or FSDP's
-reduce-scatter).
+reduce-scatter and 'pod' all-reduce).
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ import torch
 
 from ..models.model import Model
 from ..parallel.sharding import (
-    batch_specs, is_dtensor, local_part, mesh_axes, plain_as_replicated,
-    to_placements,
+    batch_specs, flat_mesh, is_dtensor, local_part, mesh_axes, on_mesh,
+    place, placements_on, plain_as_replicated, reduce_to, to_placements,
 )
 from ..tree import leaves, rebuild
 from .optimizer import AdamWConfig, adamw_init, adamw_update
@@ -113,8 +114,9 @@ def shard_batch(batch: dict, mesh, batch_axes=None) -> dict:
 
 def grad_accumulator(params, tc: TrainConfig) -> list[torch.Tensor]:
     """Zeros in f32 for each parameter's gradient sum: a DTensor
-    parameter's placed by ``tc.accum_specs`` (ZeRO-2) where given, else
-    as the parameter."""
+    parameter's placed by ``tc.accum_specs`` (ZeRO-2, on the pod mesh
+    where a spec shards over 'data' alone) where given, else as the
+    parameter."""
     flat = leaves(params)
     if not is_dtensor(flat[0]):
         return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -123,30 +125,36 @@ def grad_accumulator(params, tc: TrainConfig) -> list[torch.Tensor]:
 
     specs = (leaves(tc.accum_specs) if tc.accum_specs is not None
              else [None] * len(flat))
-    return [dt.zeros(p.shape, dtype=torch.float32, device_mesh=p.device_mesh,
-                     placements=(p.placements if s is None else
-                                 to_placements(p.device_mesh, s)))
-            for p, s in zip(flat, specs)]
+    out = []
+    for p, s in zip(flat, specs):
+        mesh, pl = ((p.device_mesh, p.placements) if s is None
+                    else place(p.device_mesh, s))
+        out.append(dt.zeros(p.shape, dtype=torch.float32, device_mesh=mesh,
+                            placements=pl))
+    return out
 
 
 def accumulate(acc: list[torch.Tensor], grads) -> None:
-    """Adds one microbatch's gradients (in f32) into ``acc``, each brought
-    to its accumulator's placements first (a reduce-scatter or an
-    all-reduce of a partial DTensor gradient)."""
+    """Adds one microbatch's gradients (in f32) into ``acc``, each moved
+    to its accumulator's mesh and brought to its placements first (a
+    reduce-scatter or an all-reduce of a partial DTensor gradient, the
+    reduce-scatters first: ``reduce_to``)."""
     for a, g in zip(acc, leaves(grads)):
         g = g.float()
-        if is_dtensor(g) and g.placements != a.placements:
-            g = g.redistribute(a.device_mesh, a.placements)
+        if is_dtensor(g):
+            g = reduce_to(on_mesh(g, a.device_mesh), a.placements)
         a.add_(g)
 
 
 def placed_like(params, grads):
     """The gradient tree with each DTensor leaf brought to its parameter's
-    placements (the update's one gather, or a partial sum's all-reduce)."""
+    placements (the update's one gather, or a partial sum's all-reduce)
+    and mesh."""
     out = []
     for p, g in zip(leaves(params), leaves(grads)):
-        if is_dtensor(g) and g.placements != p.placements:
-            g = g.redistribute(p.device_mesh, p.placements)
+        if is_dtensor(g):
+            g = on_mesh(reduce_to(g, placements_on(
+                p.device_mesh, p.placements, g.device_mesh)), p.device_mesh)
         out.append(g)
     return rebuild(params, out)
 
@@ -165,8 +173,8 @@ def microbatch_step(model: Model, tc: TrainConfig, params, batch: dict,
     mb = batch if A == 1 else {k: _micro(v, B, A, i)
                                for k, v in batch.items()}
     first = leaves(params)[0]
-    if is_dtensor(first):
-        mb = shard_batch(mb, first.device_mesh, tc.batch_axes)
+    if is_dtensor(first):      # the batch lives on the step mesh
+        mb = shard_batch(mb, flat_mesh(first.device_mesh), tc.batch_axes)
     loss, metrics, grads = loss_and_grads(model, params, mb)
     if acc is None:
         return loss, metrics, grads

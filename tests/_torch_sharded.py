@@ -1,7 +1,8 @@
-"""The ranks of the port's multi-process CPU checks: one reduced granite
-train step (with accumulation) and one prefill, sharded by DTensor over a
-gloo process group.  Imports no JAX: ``torch.multiprocessing`` starts
-each rank in a fresh interpreter that imports this module."""
+"""The ranks of the port's multi-process CPU checks: one reduced train
+step (with accumulation) and one prefill, sharded by DTensor over a gloo
+process group: granite's, or the MoE's expert parallel.  Imports no JAX:
+``torch.multiprocessing`` starts each rank in a fresh interpreter that
+imports this module."""
 
 import torch
 import torch.distributed as dist
@@ -41,11 +42,14 @@ def rank_main(rank: int, world: int, shape: tuple, port: int, params,
         params = rebuild(params, [t.clone() for t in leaves(params)])
         tp = shape[-1]
         hooks = {}
+        data = shape[-2]
         if steps_kw["fsdp"]:
-            # every leaf big enough: FSDP over the batch axes, each layer
-            # gathered to its TP-only spec at use (launch/specs.py's hooks)
+            # every leaf big enough: FSDP over 'data' within a pod, each
+            # layer gathered to its TP-only spec at use (launch/specs.py's
+            # hooks)
             specs = param_specs(params, model_size=tp, fsdp_axis="data",
-                                fsdp_size=mesh.size(0), fsdp_min_size=1)
+                                fsdp_size=data,
+                                fsdp_min_size=steps_kw.get("fsdp_min", 1))
             hooks["layer_specs"] = map_specs(
                 lambda _, s: strip_axis(s, "data"), specs["layers"][0],
                 specs["layers"][0])
@@ -53,11 +57,11 @@ def rank_main(rank: int, world: int, shape: tuple, port: int, params,
         else:
             specs = param_specs(params, model_size=tp)
             accum_specs = param_specs(params, model_size=tp, fsdp_axis="data",
-                                      fsdp_size=mesh.size(0),
-                                      fsdp_min_size=1 << 20)
-        model = Model(cfg, device="cpu",
-                      act_spec=(axes if len(axes) > 1 else axes[0], None, None),
-                      **hooks)
+                                      fsdp_size=data, fsdp_min_size=1 << 20)
+        if cfg.moe is None:     # the MoE's activations are not pinned
+            hooks["act_spec"] = (axes if len(axes) > 1 else axes[0], None,
+                                 None)
+        model = Model(cfg, device="cpu", **hooks)
         sharded = shard_tree(params, mesh, specs)
         tc = TrainConfig(optimizer=AdamWConfig(), grad_accum=steps_kw["accum"],
                          batch_axes=axes, accum_specs=accum_specs)

@@ -53,7 +53,7 @@ def test_trace_job_runs_end_to_end(tmp_path):
 
 
 @pytest.mark.parametrize("arch,shape,names", [
-    ("qwen2-moe-a2.7b", "train_4k", "moe"),
+    ("deepseek-v2-lite-16b", "train_4k", "MLA"),
     ("mamba2-1.3b", "prefill_32k", "ssm"),
     ("granite-3-2b", "decode_32k", "decode"),
     ("jamba-1.5-large-398b", "long_500k", "decode"),

@@ -2,9 +2,9 @@
 against the JAX package's ``repro/launch/``: device coordinates, active
 parameters, the microbatch count, every cell's analytic cost and
 residency, the roofline given the reference's constants, ``build_cell``'s
-``meta`` for the dense family's train and prefill cells on both
+``meta`` for the dense and MoE families' train and prefill cells on both
 production meshes, the refusals, and the mapping of specs to DTensor
-placements.  The port's meshes live on a fake process group of the
+placements (FSDP's and ZeRO-2's "data" on the pod mesh).  The port's meshes live on a fake process group of the
 mesh's world size, as the dry run's do; the reference's production
 meshes need 512 host devices, so its cells are built in a subprocess."""
 
@@ -41,7 +41,10 @@ from repro_torch.launch.specs import (  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 DENSE = ("granite-3-2b", "glm4-9b", "codeqwen1.5-7b", "qwen2-72b")
-IN_SCOPE = [(a, s) for a in DENSE for s in ("train_4k", "prefill_32k")]
+#: the archs whose train and prefill cells shard: the dense family and
+#: the MoE without MLA
+SHARDED = (*DENSE, "qwen2-moe-a2.7b")
+IN_SCOPE = [(a, s) for a in SHARDED for s in ("train_4k", "prefill_32k")]
 MESHES = {"single": {"data": 16, "model": 16},
           "multi": {"pod": 2, "data": 16, "model": 16}}
 
@@ -188,9 +191,10 @@ def test_roofline_given_the_reference_constants(name):
 @pytest.mark.parametrize("tag", sorted(MESHES))
 def test_build_cell_meta_matches_the_reference(tag, reference_meta,
                                                fake_world):
-    """The dense family's train and prefill cells: the same ``meta``
-    (parameter counts, FSDP at qwen2-72b, the microbatch count, the
-    optimizer state's type, the mesh)."""
+    """The dense and MoE families' train and prefill cells: the same
+    ``meta`` (parameter counts, FSDP at qwen2-72b's and qwen2-moe's
+    training, the microbatch count, the optimizer state's type, the
+    mesh)."""
     fake_world(512 if tag == "multi" else 256)
     mesh = make_production_mesh(multi_pod=tag == "multi")
     for a, s in IN_SCOPE:
@@ -202,7 +206,7 @@ def test_build_cell_meta_matches_the_reference(tag, reference_meta,
 def test_cells_outside_the_scope_refuse_naming_family_or_shape(name):
     cfg = ARCHS[name]
     for shape in applicable_shapes(cfg):
-        if name in DENSE and shape.kind in ("train", "prefill"):
+        if name in SHARDED and shape.kind in ("train", "prefill"):
             check_cell(cfg, shape)
             continue
         with pytest.raises(NotImplementedError) as err:
@@ -210,23 +214,75 @@ def test_cells_outside_the_scope_refuse_naming_family_or_shape(name):
         msg = str(err.value)
         assert (shape.kind in msg if shape.kind not in ("train", "prefill")
                 else cfg.family in msg)
+        if cfg.mla and shape.kind in ("train", "prefill"):
+            assert "MLA" in msg
+
+
+def test_check_cell_admits_the_moe_without_mla():
+    """qwen2-moe's train and prefill cells are admitted and built expert
+    parallel; deepseek-v2-lite's (the MoE family with MLA) refuse naming
+    MLA, the hybrid's naming its family, and decode refuses by kind."""
+    moe, mla = ARCHS["qwen2-moe-a2.7b"], ARCHS["deepseek-v2-lite-16b"]
+    assert moe.family == mla.family == "moe" and mla.mla and not moe.mla
+    for s in ("train_4k", "prefill_32k"):
+        check_cell(moe, SHAPES[s])
+        with pytest.raises(NotImplementedError, match="MLA"):
+            check_cell(mla, SHAPES[s])
+        with pytest.raises(NotImplementedError, match="'hybrid'"):
+            check_cell(ARCHS["jamba-1.5-large-398b"], SHAPES[s])
+    with pytest.raises(NotImplementedError, match="decode"):
+        check_cell(moe, SHAPES["decode_32k"])
 
 
 def test_specs_map_to_placements_on_the_flattened_mesh(fake_world):
     """On the two-pod mesh the step's mesh is ('pod_data', 'model') over
-    the same ranks; the batch's ("pod", "data") and FSDP's "data" shard
-    over 'pod_data', "model" over 'model'."""
+    the same ranks; the batch's ("pod", "data") shards over 'pod_data',
+    "model" over 'model'.  FSDP's "data" names part of 'pod_data': it
+    has no placement there, and ``place`` puts its leaf on the pod mesh,
+    sharded over 'data' and replicated over 'pod', as the reference
+    shards it."""
     from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.parallel.sharding import to_placements
+    from repro_torch.parallel.sharding import place, to_placements
 
     fake_world(512)
-    mesh = step_mesh(make_production_mesh(multi_pod=True))
+    root = make_production_mesh(multi_pod=True)
+    mesh = step_mesh(root)
     assert mesh.mesh_dim_names == ("pod_data", "model")
     assert tuple(mesh.mesh.shape) == (32, 16)
     assert to_placements(mesh, (("pod", "data"), None, None)) == \
         (Shard(0), Replicate())
-    assert to_placements(mesh, ("data", "model")) == (Shard(0), Shard(1))
     assert to_placements(mesh, (None, "model")) == (Replicate(), Shard(1))
+    assert place(mesh, (None, "model")) == \
+        (mesh, (Replicate(), Shard(1)))
+    with pytest.raises(ValueError):
+        to_placements(mesh, ("data", "model"))
+    on, pl = place(mesh, ("data", "model"))
+    assert on is root and pl == (Replicate(), Shard(0), Shard(1))
     with pytest.raises(ValueError):
         to_placements(mesh, ("model", "model"))
+    # one pod: 'data' is a whole dim, and every leaf stays on the one mesh
+    fake_world(256)
+    single = make_production_mesh()
+    assert step_mesh(single) is single
+    assert place(single, ("data", "model")) == \
+        (single, (Shard(0), Shard(1)))
+
+
+def test_fsdp_threshold_is_a_module_constant(fake_world, monkeypatch):
+    """``build_cell`` reads ``FSDP_MIN_PARAMS`` (the reference's
+    ``fsdp_threshold_params``): granite's train cell runs FSDP when it is
+    lowered below granite's size, sized by 'data', not the pods."""
+    from repro_torch.launch import specs
+
+    fake_world(512)
+    mesh = make_production_mesh(multi_pod=True)
+    cell = build_cell(ARCHS["granite-3-2b"], SHAPES["train_4k"], mesh)
+    assert not cell.meta["fsdp"]
+    monkeypatch.setattr(specs, "FSDP_MIN_PARAMS", 0)
+    cell = build_cell(ARCHS["granite-3-2b"], SHAPES["train_4k"], mesh)
+    assert cell.meta["fsdp"]
+    # the embedding (49,155 x 2,048): vocab over 'model' does not divide,
+    # so the model dim stays whole and FSDP splits 2,048 by 'data' (16)
+    emb = cell.args[0]["embed"]
+    assert tuple(emb.shape) == (49155, 2048 // 16)

@@ -140,6 +140,36 @@ def test_combine_folds_in_ascending_expert_id():
     assert torch.equal(y, want)
 
 
+@pytest.mark.parametrize("E,m", [(60, 16), (8, 2), (8, 16), (60, 1)])
+def test_expert_split_is_dtensors_shard_split(E, m):
+    """A rank's experts under the sharded MoE are DTensor's ``Shard``
+    pieces of the expert axis: 60 over 16 is fifteen 4s and a 0."""
+    from torch.distributed.tensor import Shard
+
+    pieces, _ = Shard(0)._split_tensor(torch.arange(E), m, with_padding=False)
+    assert TMoE.expert_split(E, m) == [len(p) for p in pieces]
+    assert sum(TMoE.expert_split(E, m)) == E
+
+
+def test_partial_combines_add_to_the_whole():
+    """f32: the sharded MoE's combines, one over each rank's experts
+    (``first`` on), add to the unsharded combine within a rounding."""
+    _, tcfg, _, tp, _, tx = _layer_case("float32", "dropfree")
+    probs = torch.softmax((tx @ tp["router"]).float(), dim=-1)
+    w, idx = TMoE._route(probs, tcfg.moe.top_k)
+    E = tcfg.moe.num_experts
+    C = TMoE.capacity(tcfg, tx.shape[1])
+    buf, rank = TMoE._dispatch(tx, idx, C, E)
+    out = torch.randn(buf.shape, generator=torch.Generator().manual_seed(1))
+    whole = TMoE._combine(out, w, idx, rank, C)
+    counts = TMoE.expert_split(E, 3)
+    starts = np.cumsum([0] + counts[:-1])
+    parts = [TMoE._combine(out[f:f + n], w, idx, rank, C, int(f))
+             for f, n in zip(starts, counts)]
+    assert torch.equal(TMoE._combine(out, w, idx, rank, C, 0), whole)
+    torch.testing.assert_close(sum(parts), whole, rtol=1e-6, atol=1e-6)
+
+
 def test_capacity_is_the_reference_rule():
     _, tcfg = cfgs(NAME)
     for S in (1, 7, 64, 2176, 32768):

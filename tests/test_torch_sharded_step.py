@@ -7,8 +7,11 @@ unsharded port and the JAX package (``jax.value_and_grad`` through its
 train step, on the same numpy weights) within 1e-5 relative, with no
 all-gather in the step: no FSDP, kv heads that divide the model axis and
 ZeRO-2 accumulators that shard no leaf this small.  A third run shards
-every leaf by FSDP too."""
+every leaf by FSDP too, over 'data' within each pod.  Reduced qwen2-moe's
+expert-parallel step and prefill on (1, 2, 2) are held the same way:
+its experts' weights move by all-to-alls over 'model'."""
 
+import dataclasses
 import socket
 
 import numpy as np
@@ -48,11 +51,10 @@ def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-@pytest.fixture(scope="module")
-def unsharded():
+def _unsharded(name):
     """The same step and prefill in one process: the port's and the JAX
     package's."""
-    jm, jp, tm, tp = both_models("granite-3-2b")
+    jm, jp, tm, tp = both_models(name)
     batch = SyntheticDataset(vocab=tm.cfg.vocab, seq_len=32, global_batch=8,
                              seed=3).batch(0)
     tp0 = rebuild(tp, [t.clone() for t in leaves(tp)])
@@ -73,32 +75,71 @@ def unsharded():
                      "logits": np.asarray(jlogits)})
 
 
+@pytest.fixture(scope="module")
+def unsharded():
+    return _unsharded("granite-3-2b")
+
+
+@pytest.fixture(scope="module")
+def unsharded_moe():
+    return _unsharded("qwen2-moe-a2.7b")
+
+
+def _ranks(shape, fsdp, ref, cfg, tmp_path, **kw):
+    """The sharded step and prefill on ``shape``'s mesh; rank 0's record."""
+    world = int(np.prod(shape))
+    out = str(tmp_path / "rank0.pt")
+    mp.spawn(rank_main, nprocs=world, join=True,
+             args=(world, shape, _free_port(), ref["start"], ref["batch"],
+                   {"cfg": cfg, "accum": ACCUM, "fsdp": fsdp, **kw}, out))
+    return torch.load(out, weights_only=False)
+
+
+def _hold(got, ref, cfg):
+    """Loss, grad norm, every updated weight and the logits within RTOL
+    of the unsharded port and the JAX package."""
+    got_params = lm_params_to_numpy(cfg, rebuild(ref["start"], got["params"]))
+    for want in (ref["port"], ref["jax"]):
+        assert _rel(got["loss"], want["loss"]) <= RTOL
+        assert _rel(got["grad_norm"], want["grad_norm"]) <= RTOL
+        for a, b in zip(jax.tree.leaves(got_params),
+                        jax.tree.leaves(want["params"])):
+            assert _rel(a, b) <= RTOL
+        assert _rel(got["logits"], want["logits"]) <= RTOL
+
+
 @pytest.mark.parametrize("shape,fsdp", [((1, 2, 2), False),
                                         ((2, 2, 2), False),
                                         ((2, 2, 2), True)])
 def test_sharded_step_and_prefill_equal_unsharded_and_reference(
         shape, fsdp, unsharded, tmp_path):
-    """And with FSDP over the batch axes on every leaf (the qwen2-72b
-    cells' layout at a size where it can run): the same numbers, the
-    leaves gathered by all-gathers."""
-    world = int(np.prod(shape))
-    out = str(tmp_path / "rank0.pt")
-    cfg = unsharded["cfg"]
-    mp.spawn(rank_main, nprocs=world, join=True,
-             args=(world, shape, _free_port(), unsharded["start"],
-                   unsharded["batch"],
-                   {"cfg": cfg, "accum": ACCUM, "fsdp": fsdp}, out))
-    got = torch.load(out, weights_only=False)
-    got_params = lm_params_to_numpy(
-        cfg, rebuild(unsharded["start"], got["params"]))
-    for ref in (unsharded["port"], unsharded["jax"]):
-        assert _rel(got["loss"], ref["loss"]) <= RTOL
-        assert _rel(got["grad_norm"], ref["grad_norm"]) <= RTOL
-        for a, b in zip(jax.tree.leaves(got_params),
-                        jax.tree.leaves(ref["params"])):
-            assert _rel(a, b) <= RTOL
-        assert _rel(got["logits"], ref["logits"]) <= RTOL
+    """And with FSDP over 'data' on every leaf (the qwen2-72b cells'
+    layout at a size where it can run): the same numbers, the leaves
+    gathered by all-gathers."""
+    got = _ranks(shape, fsdp, unsharded, unsharded["cfg"], tmp_path)
+    _hold(got, unsharded, unsharded["cfg"])
     counts = got["counts"]
     gathers = [k for k in counts if "all_gather" in k]
     assert bool(gathers) == fsdp, counts
     assert any("all_reduce" in k for k in counts), counts
+
+
+@pytest.mark.parametrize("shape,fsdp", [((1, 2, 2), False),
+                                        ((2, 2, 2), True)])
+def test_expert_parallel_step_and_prefill_equal_unsharded_and_reference(
+        shape, fsdp, unsharded_moe, tmp_path):
+    """Reduced qwen2-moe, impl "ep": 4 experts a rank at full width, its
+    weights moved by all-to-alls; the partial combines added over 'model'
+    in another order than the unsharded sum's.  And on two pods with
+    FSDP over 'data' on every leaf of 2^13 elements or more (the
+    train_4k cells' layout; the q/k/v biases stay whole, where the
+    reference would shard their stacked layer axis): each layer's
+    experts gathered over 'data', then moved."""
+    ref = unsharded_moe
+    cfg = ref["cfg"]
+    ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep"))
+    got = _ranks(shape, fsdp, ref, ep, tmp_path, fsdp_min=1 << 13)
+    _hold(got, ref, cfg)
+    counts = got["counts"]
+    assert any("all_to_all" in k for k in counts), counts
+    assert bool([k for k in counts if "all_gather" in k]) == fsdp, counts
