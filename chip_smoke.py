@@ -4849,7 +4849,9 @@ def one_rank_gate(torch, arch: str = LAUNCH_ARCH) -> dict:
     from repro_torch.data import SyntheticDataset
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import Model, attention, moe
-    from repro_torch.parallel.sharding import param_specs, shard_tree
+    from repro_torch.parallel.sharding import (
+        fsdp_min_off_stack, param_specs, shard_tree,
+    )
     from repro_torch.train import TrainConfig, adamw_init, make_train_step
     from repro_torch.tree import leaves, rebuild
 
@@ -4869,7 +4871,7 @@ def one_rank_gate(torch, arch: str = LAUNCH_ARCH) -> dict:
     # stacked layer axis
     tc = TrainConfig(grad_accum=2, batch_axes=("data",), accum_specs=param_specs(
         params, model_size=1, fsdp_axis="data", fsdp_size=1,
-        fsdp_min_size=1 << 13 if cfg.moe else 1))
+        fsdp_min_size=fsdp_min_off_stack(params, model_size=1)))
     batch = SyntheticDataset(vocab=cfg.vocab, seq_len=LAUNCH_GATE_S,
                              global_batch=2, seed=1).batch(0)
     p_plain, _, m_plain = make_train_step(plain, TrainConfig(grad_accum=2))(

@@ -35,7 +35,7 @@ from typing import Callable
 import torch
 
 from ..core.hlo_flows import CollectiveOp, wire_and_operand
-from ..parallel.sharding import map_specs, place, pod_mesh
+from ..parallel.sharding import map_specs, place, root_mesh
 from ..tree import leaves, paths, rebuild
 
 #: mark events: a layer's forward and backward bounds, a gradient leaf,
@@ -90,8 +90,8 @@ def layer_mark(x: torch.Tensor, i: int, where: str) -> torch.Tensor:
 
 
 def _placed(tree, mesh, specs):
-    """Local tensors as DTensors on the step mesh ``mesh`` (or its pod
-    mesh, ``place``) placed by their specs."""
+    """Local tensors as DTensors on the step mesh ``mesh`` (or its root,
+    ``place``) placed by their specs."""
     from torch.distributed.tensor import DTensor
 
     return map_specs(lambda t, s: DTensor.from_local(
@@ -186,7 +186,7 @@ def trace(fn: Callable, args: tuple) -> torch.fx.GraphModule:
 class MeshGroups:
     """Process-group name -> every rank group of the mesh dim it spans
     (all of them, not only this rank's, as HLO replica groups list them),
-    over the step mesh's dims and its pod mesh's, or the whole world.  A
+    over the step mesh's dims and its root's, or the whole world.  A
     group is told by its ranks, not its name: DTensor's sharding cache
     keeps the first of equal meshes, so a trace may name the groups of an
     earlier mesh over the same ranks."""
@@ -196,7 +196,7 @@ class MeshGroups:
 
         world = dist.get_world_size()
         self.by_ranks = {tuple(range(world)): (tuple(range(world)),)}
-        for m in (mesh, pod_mesh(mesh)):
+        for m in (mesh, root_mesh(mesh)):
             for d in range(m.ndim):
                 rows = tuple(tuple(int(r) for r in row) for row in
                              m.mesh.movedim(d, -1).reshape(-1, m.size(d))

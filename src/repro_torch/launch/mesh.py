@@ -11,12 +11,12 @@ Topology convention (NVIDIA HGX H100):
   * multi-pod mesh (pod=2, data=16, model=16): the 'pod' axis crosses the
     DCN leaf-spine fabric, where the paper's ECMP analysis applies.
 
-The step runs on ``step_mesh``: the batch axes flattened into one mesh
-dim, so that a gradient reduction over ('pod', 'data') is one collective
+The step runs on ``step_mesh`` (``parallel.sharding``): the batch axes
+flattened into one mesh dim, so that a gradient reduction over ('pod', 'data') is one collective
 over the rank group XLA's replica groups name (ranks 0, 2, 4, 6 on
 (2, 2, 2)), not a pod stage and a data stage, which would put other ring
 edges on the DCN.  The leaves FSDP and ZeRO-2 shard over 'data' live on
-the production mesh itself, replicated over 'pod', as the reference
+the production mesh itself, its root, replicated over 'pod', as the reference
 shards them (``parallel.sharding.place``): their gathers and
 reduce-scatters run within a pod, over 'data', and their gradients add
 across the pods by an all-reduce over 'pod'.
@@ -24,7 +24,7 @@ across the pods by an all-reduce over 'pod'.
 
 from __future__ import annotations
 
-import math
+from ..parallel.sharding import step_mesh  # noqa: F401  (the step's mesh)
 
 # H100 SXM5 constants used by the roofline analysis (NVIDIA's data sheet)
 PEAK_FLOPS_BF16 = 989.4e12        # dense bf16 FLOP/s per GPU
@@ -80,25 +80,3 @@ def coords_of(ids: list[int], npods: int, chips_per_host: int = CHIPS_PER_HOST
 
 def batch_axes(mesh) -> tuple[str, ...]:
     return BATCH_AXES_MULTI if "pod" in mesh.mesh_dim_names else ("data",)
-
-
-def step_mesh(mesh):
-    """The 2-D ('data' or 'pod_data', 'model') mesh the step's DTensors
-    live on: the batch axes flattened C-order into one dim (the name
-    ``DeviceMesh._flatten`` gives), over the same ranks as ``mesh``, which
-    is registered as its pod mesh (``parallel.sharding.place``)."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    from ..parallel.sharding import register_pod_mesh
-
-    if mesh.ndim == 2:
-        return mesh
-    names = mesh.mesh_dim_names
-    if names[-1] != "model":
-        raise ValueError(f"the model axis must be the last, not {names}")
-    flat = "_".join(names[:-1])
-    ranks = mesh.mesh.reshape(math.prod(mesh.mesh.shape[:-1]),
-                              mesh.mesh.shape[-1])
-    out = DeviceMesh(mesh.device_type, ranks, mesh_dim_names=(flat, "model"))
-    register_pod_mesh(out, mesh)
-    return out

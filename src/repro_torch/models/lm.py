@@ -46,7 +46,9 @@ from torch.utils.checkpoint import (
 )
 
 from ..configs.base import ArchConfig
-from ..parallel.sharding import is_dtensor, to_placements, unshard
+from ..parallel.sharding import (
+    is_dtensor, step_mesh, to_placements, unshard,
+)
 from .attention import (
     cache_mask, cross_forward, gqa_forward, init_cross, init_gqa, init_mla,
     mla_forward, rotary_tables,
@@ -426,44 +428,47 @@ def run_layers_remat(block: Callable, x: torch.Tensor, layers: list,
     return x, auxs
 
 
-def _pin(x: torch.Tensor, spec, mesh=None) -> torch.Tensor:
+def _pin(x: torch.Tensor, spec) -> torch.Tensor:
     """The reference's ``with_sharding_constraint``: a DTensor ``x``
     redistributed to ``spec`` (its gradient comes back to x's own
-    placements); with ``mesh``, FSDP's gather of a leaf to the step mesh
-    (``unshard``); a plain tensor as it is."""
+    placements); a plain tensor as it is."""
     if spec is None or not is_dtensor(x):
         return x
-    pl = to_placements(x.device_mesh, spec)
-    if mesh is not None:
-        return unshard(x, pl, mesh)
-    return x.redistribute(x.device_mesh, pl)
+    return x.redistribute(x.device_mesh, to_placements(x.device_mesh, spec))
 
 
-def _pin_tree(tree, specs, mesh=None):
+def _gather(t: torch.Tensor, placements) -> torch.Tensor:
+    """FSDP's gather of a DTensor leaf to ``placements`` on its own mesh,
+    moved to the step mesh (``unshard``)."""
+    return unshard(t, placements, step_mesh(t.device_mesh))
+
+
+def _pin_tree(tree, specs):
     """FSDP's per-layer unshard: each DTensor leaf of one layer
     redistributed to its TP-only spec (``specs``: one layer's tree of
-    specs), which gathers it over 'data' at its use, and moved to the
-    step mesh ``mesh``."""
+    specs), which gathers it over 'data' at its use, on the step mesh."""
     if specs is None:
         return tree
     if isinstance(tree, dict):
-        return {k: _pin_tree(v, specs[k], mesh) for k, v in tree.items()}
+        return {k: _pin_tree(v, specs[k]) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_pin_tree(v, s, mesh) for v, s in zip(tree, specs)]
-    return _pin(tree, specs, mesh)
+        return [_pin_tree(v, s) for v, s in zip(tree, specs)]
+    if not is_dtensor(tree):
+        return tree
+    return _gather(tree, to_placements(tree.device_mesh, specs))
 
 
-def _tp_only(t: torch.Tensor, mesh) -> torch.Tensor:
+def _tp_only(t: torch.Tensor) -> torch.Tensor:
     """A DTensor leaf replicated over every mesh dim but 'model' (FSDP's
-    gather of a leaf outside the layers), on the step mesh ``mesh``; a
-    plain tensor as it is."""
+    gather of a leaf outside the layers), on the step mesh; a plain
+    tensor as it is."""
     if not is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate
 
     pl = tuple(p if name == "model" else Replicate()
                for name, p in zip(t.device_mesh.mesh_dim_names, t.placements))
-    return unshard(t, pl, t.device_mesh if mesh is None else mesh)
+    return _gather(t, pl)
 
 
 def layer_hooks(block: Callable, *, act_spec=None, layer_specs=None,
@@ -479,9 +484,7 @@ def layer_hooks(block: Callable, *, act_spec=None, layer_specs=None,
     def hooked(x, lp, i):
         if layer_mark is not None:
             x = layer_mark(x, i, "enter")
-        x = _pin(x, act_spec)
-        x, aux = block(x, _pin_tree(lp, layer_specs, x.device_mesh
-                                    if is_dtensor(x) else None), i)
+        x, aux = block(_pin(x, act_spec), _pin_tree(lp, layer_specs), i)
         if layer_mark is not None:
             x = layer_mark(x, i, "exit")
         return x, aux
@@ -619,11 +622,8 @@ def lm_forward(
     see ``layer_hooks``."""
     if layer_specs is not None:
         # FSDP: the leaves outside the layers (embedding, final norm, head)
-        # are gathered to their TP-only placements at use too, onto the
-        # batch's mesh
-        inputs = batch["tokens"] if "tokens" in batch else batch["embeds"]
-        mesh = inputs.device_mesh if is_dtensor(inputs) else None
-        params = {k: _tp_only(v, mesh) if isinstance(v, torch.Tensor) else v
+        # are gathered to their TP-only placements at use too
+        params = {k: _tp_only(v) if isinstance(v, torch.Tensor) else v
                   for k, v in params.items()}
     x = _residual(_embed(params, cfg, batch), batch, act_spec)
     S = x.shape[1]

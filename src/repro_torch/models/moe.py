@@ -113,8 +113,18 @@ def _combine(out: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     out: (E', B·C, D) the outputs of experts ``first`` to ``first + E'``;
     w, idx, rank: (B, T, k).  Each token's k weighted outputs (a dropped
     slot, or one of an expert not in ``out``, weighs 0) are summed in
-    ascending expert id, one rounding to out's type a step."""
+    ascending expert id, one rounding to out's type a step.
+
+    With no expert in ``out`` (a rank that holds none: 60 over 16 leaves
+    the last one none) the sum is zeros, read from one zero expert of
+    weight 0 set after ``out``: the same ops as every other rank's
+    combine, so that this rank's backward runs the experts' all-to-alls
+    too, and a checkpoint's recompute, which stops once the tensors the
+    backward saved are back, stops at the same collective on every
+    rank."""
     B, T, k = idx.shape
+    if out.shape[0] == 0:
+        out = torch.cat([out, out.new_zeros(1, *out.shape[1:])])
     E = out.shape[0]
     eid, perm = torch.sort(idx, dim=-1)                   # distinct ids
     rank = torch.gather(rank, 2, perm)
@@ -167,7 +177,9 @@ class _ToExperts(torch.autograd.Function):
     def backward(ctx, g):
         fdim, counts, r, group = ctx.args
         m, n = len(counts), counts[r]
-        g = g.unflatten(fdim, (m, -1)).movedim(fdim, 0).flatten(0, 1)
+        # the width's split written out: a rank of no experts has g empty
+        g = g.unflatten(fdim, (m, g.shape[fdim] // m)).movedim(fdim, 0) \
+            .flatten(0, 1)
         return _all_to_all(g, counts, [n] * m, group), None, None, None, None
 
 

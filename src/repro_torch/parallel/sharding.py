@@ -5,7 +5,7 @@ cache specs, with divisibility guards.  The port of
 A *spec* is the reference's ``PartitionSpec`` as a plain tuple: one entry
 per tensor dim, each ``None``, a mesh-axis name or a tuple of names.
 ``to_placements`` turns one into DTensor ``Shard``/``Replicate``
-placements on a mesh of the port's (``launch.mesh.step_mesh``).
+placements on a mesh of the port's (``step_mesh``).
 
 Baseline layout (as the reference's "what a production mesh does"):
   * batch over ('pod', 'data');
@@ -15,12 +15,12 @@ Baseline layout (as the reference's "what a production mesh does"):
   * optional FSDP: large leaves also sharded over 'data' on a non-model
     dim, within a pod: replicated over 'pod'.
 
-A step's DTensors live on two meshes over the same ranks
-(``launch.mesh.step_mesh``): the batch and the leaves that no spec
-shards over 'data' alone on the flattened ('pod_data', 'model') mesh, so
-that a reduction over the batch axes is one collective; the leaves that
-FSDP or ZeRO-2 shards over 'data' on the ('pod', 'data', 'model') mesh,
-replicated over 'pod' (``place``).  ``unshard`` gathers such a leaf and
+A step's DTensors live on two meshes over the same ranks: the batch and
+the leaves that no spec shards over 'data' alone on the flattened
+('pod_data', 'model') mesh (``step_mesh``), so that a reduction over the
+batch axes is one collective; the leaves that FSDP or ZeRO-2 shards over
+'data' on its root, the ('pod', 'data', 'model') mesh, replicated over
+'pod' (``place``).  ``unshard`` gathers such a leaf and
 moves it to the step mesh; ``on_mesh`` moves a gradient between the two
 without a collective.
 
@@ -187,6 +187,29 @@ def param_specs(params: Any, *, model_axis: str = "model", model_size: int,
     return _walk(params, spec_for)
 
 
+def fsdp_min_off_stack(params: Any, *, model_size: int, fsdp_size: int = 1,
+                       attention_shardable: bool = True) -> int:
+    """The least ``fsdp_min_size`` at which ``param_specs`` with FSDP
+    raises for no leaf of ``params``: one more than the largest stacked
+    leaf whose FSDP shard would land on a stacked layer axis (the MoE's
+    q/k/v biases at the reduced widths), or 1 where none would."""
+    least = 1
+
+    def look(path, stack, leaf):
+        nonlocal least
+        shape = (*stack, *tuple(leaf.shape))
+        spec = leaf_spec(_leaf_name(path), shape, model_size=model_size,
+                         fsdp_axis="data", fsdp_size=fsdp_size,
+                         fsdp_min_size=1,
+                         attention_shardable=attention_shardable)
+        if any(e is not None for e in spec[:len(stack)]):
+            least = max(least, math.prod(shape) + 1)
+        return leaf
+
+    _walk(params, look)
+    return least
+
+
 def batch_specs(batch_axes: tuple[str, ...] = ("pod", "data")) -> dict[str, Spec]:
     """Input specs by batch-entry name; batch dim over pod+data."""
     b = batch_axes if len(batch_axes) > 1 else batch_axes[0]
@@ -277,29 +300,38 @@ def mesh_axes(mesh) -> list[tuple[str, ...]]:
     return [tuple(n.split("_")) for n in mesh.mesh_dim_names]
 
 
-#: a mesh with flattened dims -> the mesh over the same ranks with each
-#: axis a dim of its own, and back (``launch.mesh.step_mesh`` registers
-#: the pair).  Keyed by mesh equality, not held on the mesh object:
-#: DTensor's sharding cache may hand an op's output an equal mesh, not
-#: the one registered
-_POD_MESH: dict = {}
-_FLAT_MESH: dict = {}
+def step_mesh(mesh):
+    """The 2-D ('data' or 'pod_data', 'model') mesh the step's batch and
+    whole leaves live on, over the same ranks as ``mesh``: a 2-D mesh
+    itself; on a 3-D ('pod', 'data', 'model') one, its batch axes
+    flattened C-order into one dim by ``DeviceMesh._flatten``, so that a
+    reduction over the batch axes is one collective, and the mesh keeps
+    ``mesh`` as its root (``root_mesh``).  Made once a root and kept on
+    it: a traced step asks again for its leaves' mesh, and slicing a
+    mesh there fails on torch 2.11, which slices with tensor ops."""
+    import warnings
+
+    if mesh.ndim == 2:
+        return mesh
+    made = getattr(mesh, "_step_mesh", None)
+    if made is not None:
+        return made
+    names = mesh.mesh_dim_names
+    if names[-1] != "model":
+        raise ValueError(f"the model axis must be the last, not {names}")
+    flat = "_".join(names[:-1])
+    mesh[names[:-1]]._flatten(flat)
+    with warnings.catch_warnings():
+        # torch asks callers to hold the flattened mesh: the root does
+        warnings.filterwarnings("ignore", "Slicing a flattened dim")
+        mesh._step_mesh = mesh[(flat, "model")]
+    return mesh._step_mesh
 
 
-def register_pod_mesh(flat, root) -> None:
-    """Records ``root`` as the mesh whose axes ``flat`` flattens."""
-    _POD_MESH[flat] = root
-    _FLAT_MESH[root] = flat
-
-
-def pod_mesh(mesh):
-    """The pod mesh registered for the step mesh ``mesh``, else ``mesh``."""
-    return _POD_MESH.get(mesh, mesh)
-
-
-def flat_mesh(mesh):
-    """The step mesh registered for the pod mesh ``mesh``, else ``mesh``."""
-    return _FLAT_MESH.get(mesh, mesh)
+def root_mesh(mesh):
+    """The mesh ``mesh`` was sliced from (``step_mesh``'s 3-D mesh), or
+    ``mesh`` itself."""
+    return mesh._get_root_mesh()
 
 
 def _entry_names(entry) -> tuple[str, ...]:
@@ -312,7 +344,7 @@ def to_placements(mesh, spec: Spec) -> tuple:
     An entry names every axis of one dim: on the two-pod step mesh
     ('pod_data', 'model') the batch's ("pod", "data") shards over
     'pod_data', and FSDP's "data" alone has no dim there (``place``
-    puts such a leaf on the pod mesh)."""
+    puts such a leaf on the root mesh)."""
     from torch.distributed.tensor import Replicate, Shard
 
     covers = mesh_axes(mesh)
@@ -338,18 +370,18 @@ def place(mesh, spec: Spec) -> tuple:
     """(the mesh, its placements) for a leaf of ``spec`` on the step mesh
     ``mesh``: ``mesh`` itself, unless an entry names some but not all of
     a flattened dim's axes (FSDP's and ZeRO-2's "data" on ('pod_data',
-    'model')): then the pod mesh registered for it, on which the leaf is
-    replicated over 'pod', as the reference shards it."""
+    'model')): then the root mesh, on which the leaf is replicated over
+    'pod', as the reference shards it."""
     covers = mesh_axes(mesh)
     part = any(set(_entry_names(e)) & set(c) and
                not set(c) <= set(_entry_names(e))
                for e in spec if e is not None for c in covers)
     if part:
-        if pod_mesh(mesh) is mesh:
+        if root_mesh(mesh) is mesh:
             raise ValueError(f"spec {spec} shards over part of a dim of "
-                             f"{mesh.mesh_dim_names}, and no pod mesh is "
-                             f"registered for it (launch.mesh.step_mesh)")
-        mesh = pod_mesh(mesh)
+                             f"{mesh.mesh_dim_names}, a mesh with no root "
+                             f"(step_mesh)")
+        mesh = root_mesh(mesh)
     return mesh, to_placements(mesh, spec)
 
 
@@ -404,7 +436,7 @@ def reduce_to(t: torch.Tensor, placements) -> torch.Tensor:
 
 
 class _Unshard(torch.autograd.Function):
-    """FSDP's gather: a pod mesh leaf redistributed to ``placements`` and
+    """FSDP's gather: a root mesh leaf redistributed to ``placements`` and
     moved to the step mesh; its gradient moves back and is reduced to
     the leaf's placements by ``reduce_to``."""
 
@@ -449,8 +481,8 @@ def local_part(t: torch.Tensor, mesh, placements) -> torch.Tensor:
 
 def shard_tree(tree: Any, mesh, specs: Any) -> Any:
     """Every whole tensor of ``tree`` (the same on every rank, as drawn
-    from one seed) as a DTensor on the step mesh ``mesh`` (or its pod
-    mesh, ``place``) placed by its spec."""
+    from one seed) as a DTensor on the step mesh ``mesh`` (or its root,
+    ``place``) placed by its spec."""
     from torch.distributed.tensor import DTensor
 
     def one(t, spec):

@@ -12,7 +12,7 @@ of them (``batch_axes``: the mesh axes carrying the batch), so that no
 collective moves the input.  A microbatch's gradients come out of
 DTensor's autograd partial over the batch axes; with ``accum_specs`` (the
 reference's ZeRO-2) each is reduce-scattered over 'data' into an f32
-accumulator on the pod mesh (``parallel.sharding.place``) and all-reduced
+accumulator on the root mesh (``parallel.sharding.place``) and all-reduced
 over 'pod', and one gather over 'data' at the update brings the sum to
 the parameters' placements; without, the sum is kept in the parameters'
 placements (one all-reduce a leaf and microbatch, or FSDP's
@@ -29,8 +29,9 @@ import torch
 
 from ..models.model import Model
 from ..parallel.sharding import (
-    batch_specs, flat_mesh, is_dtensor, local_part, mesh_axes, on_mesh,
-    place, placements_on, plain_as_replicated, reduce_to, to_placements,
+    batch_specs, is_dtensor, local_part, mesh_axes, on_mesh,
+    place, placements_on, plain_as_replicated, reduce_to, step_mesh,
+    to_placements,
 )
 from ..tree import leaves, rebuild
 from .optimizer import AdamWConfig, adamw_init, adamw_update
@@ -114,7 +115,7 @@ def shard_batch(batch: dict, mesh, batch_axes=None) -> dict:
 
 def grad_accumulator(params, tc: TrainConfig) -> list[torch.Tensor]:
     """Zeros in f32 for each parameter's gradient sum: a DTensor
-    parameter's placed by ``tc.accum_specs`` (ZeRO-2, on the pod mesh
+    parameter's placed by ``tc.accum_specs`` (ZeRO-2, on the root mesh
     where a spec shards over 'data' alone) where given, else as the
     parameter."""
     flat = leaves(params)
@@ -174,7 +175,7 @@ def microbatch_step(model: Model, tc: TrainConfig, params, batch: dict,
                                for k, v in batch.items()}
     first = leaves(params)[0]
     if is_dtensor(first):      # the batch lives on the step mesh
-        mb = shard_batch(mb, flat_mesh(first.device_mesh), tc.batch_axes)
+        mb = shard_batch(mb, step_mesh(first.device_mesh), tc.batch_axes)
     loss, metrics, grads = loss_and_grads(model, params, mb)
     if acc is None:
         return loss, metrics, grads

@@ -234,9 +234,14 @@ def one_thread():
 
 
 def cfgs(name, dtype="float32", **kw):
-    """(JAX config, port config): the reduced ``name`` in ``dtype``."""
+    """(JAX config, port config): the reduced ``name`` in ``dtype``; a
+    dict ``moe`` replaces those fields of each side's MoE config."""
+    moe = kw.pop("moe") if isinstance(kw.get("moe"), dict) else None
     j = dataclasses.replace(J_ARCHS[name].reduced(), dtype=dtype, **kw)
     t = dataclasses.replace(ARCHS[name].reduced(), dtype=dtype, **kw)
+    if moe:
+        j = dataclasses.replace(j, moe=dataclasses.replace(j.moe, **moe))
+        t = dataclasses.replace(t, moe=dataclasses.replace(t.moe, **moe))
     return j, t
 
 

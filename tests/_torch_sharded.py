@@ -24,7 +24,8 @@ def rank_main(rank: int, world: int, shape: tuple, port: int, params,
         from repro_torch.launch.mesh import batch_axes, step_mesh
         from repro_torch.models import Model
         from repro_torch.parallel.sharding import (
-            map_specs, param_specs, shard_tree, strip_axis,
+            fsdp_min_off_stack, map_specs, param_specs, shard_tree,
+            strip_axis,
         )
         from repro_torch.train import (
             AdamWConfig, TrainConfig, adamw_init, make_train_step,
@@ -44,12 +45,14 @@ def rank_main(rank: int, world: int, shape: tuple, port: int, params,
         hooks = {}
         data = shape[-2]
         if steps_kw["fsdp"]:
-            # every leaf big enough: FSDP over 'data' within a pod, each
+            # every leaf that can be: FSDP over 'data' within a pod, each
             # layer gathered to its TP-only spec at use (launch/specs.py's
-            # hooks)
+            # hooks); the leaves whose shard the reference puts on the
+            # stacked layer axis (the MoE's q/k/v biases) stay whole
             specs = param_specs(params, model_size=tp, fsdp_axis="data",
                                 fsdp_size=data,
-                                fsdp_min_size=steps_kw.get("fsdp_min", 1))
+                                fsdp_min_size=fsdp_min_off_stack(
+                                    params, model_size=tp, fsdp_size=data))
             hooks["layer_specs"] = map_specs(
                 lambda _, s: strip_axis(s, "data"), specs["layers"][0],
                 specs["layers"][0])

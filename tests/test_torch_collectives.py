@@ -309,6 +309,32 @@ def test_pod_cells_rank_groups_match_the_reference_hlo(pod_cell):
         assert not a2a
 
 
+def test_pod_cells_all_to_all_counts_against_the_reference(pod_cell):
+    """The expert weights' all-to-alls a step over the 'model' pairs,
+    counted with their multipliers.  The reference's compiled step runs
+    3 a layer and microbatch (one a weight) at each of the forward, the
+    remat group's recompute, the layer's own recompute and the backward:
+    12·L·A; its prefill 3·L.  The port runs the same program but for the
+    last layer of each remat group of G, whose part of the group's
+    recompute torch's non-reentrant checkpoint skips (it stops once the
+    tensors the backward saved are back): 3·A·(4·L − L/G).  Granite's
+    cells run none."""
+    (arch, kind, layout), ref, cell, ops, _ = pod_cell
+    L = cell.arch.num_layers
+    port = sum(op.multiplier for op in ops if op.kind == "all-to-all")
+    ref_n = sum(o[2] for o in ref["ops"] if o[0] == "all-to-all"
+                and frozenset(map(frozenset, o[1])) == MODEL)
+    if layout != "ep":
+        assert port == ref_n == 0
+    elif kind == "prefill":
+        assert port == ref_n == 3 * L
+    else:
+        A, G = cell.train.grad_accum, cell.model.remat.group_for(L)
+        assert (A, G) == (2, 2)
+        assert ref_n == 3 * A * 4 * L
+        assert port == 3 * A * (4 * L - L // G)
+
+
 def test_fsdp_and_zero2_shard_within_a_pod(pod_cell):
     """Granite's embedding is gathered and reduce-scattered over the
     'data' pairs only, never over a group that spans both pods, and its

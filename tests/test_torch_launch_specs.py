@@ -4,7 +4,7 @@ parameters, the microbatch count, every cell's analytic cost and
 residency, the roofline given the reference's constants, ``build_cell``'s
 ``meta`` for the dense and MoE families' train and prefill cells on both
 production meshes, the refusals, and the mapping of specs to DTensor
-placements (FSDP's and ZeRO-2's "data" on the pod mesh).  The port's meshes live on a fake process group of the
+placements (FSDP's and ZeRO-2's "data" on the root mesh).  The port's meshes live on a fake process group of the
 mesh's world size, as the dry run's do; the reference's production
 meshes need 512 host devices, so its cells are built in a subprocess."""
 
@@ -238,18 +238,22 @@ def test_specs_map_to_placements_on_the_flattened_mesh(fake_world):
     """On the two-pod mesh the step's mesh is ('pod_data', 'model') over
     the same ranks; the batch's ("pod", "data") shards over 'pod_data',
     "model" over 'model'.  FSDP's "data" names part of 'pod_data': it
-    has no placement there, and ``place`` puts its leaf on the pod mesh,
-    sharded over 'data' and replicated over 'pod', as the reference
-    shards it."""
+    has no placement there, and ``place`` puts its leaf on the root
+    mesh the step mesh was flattened from, sharded over 'data' and
+    replicated over 'pod', as the reference shards it.  The root keeps
+    the step mesh: asking again, as the traced step does for its leaves,
+    gives the same mesh."""
     from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.parallel.sharding import place, to_placements
+    from repro_torch.parallel.sharding import place, root_mesh, to_placements
 
     fake_world(512)
     root = make_production_mesh(multi_pod=True)
     mesh = step_mesh(root)
     assert mesh.mesh_dim_names == ("pod_data", "model")
     assert tuple(mesh.mesh.shape) == (32, 16)
+    assert root_mesh(mesh) is root and root_mesh(root) is root
+    assert step_mesh(root) is mesh
     assert to_placements(mesh, (("pod", "data"), None, None)) == \
         (Shard(0), Replicate())
     assert to_placements(mesh, (None, "model")) == (Replicate(), Shard(1))

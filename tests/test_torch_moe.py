@@ -170,6 +170,35 @@ def test_partial_combines_add_to_the_whole():
     torch.testing.assert_close(sum(parts), whole, rtol=1e-6, atol=1e-6)
 
 
+def test_a_rank_of_no_experts_adds_zeros():
+    """8 experts over 16 ranks leave half the ranks none: their combines
+    are zeros, still taken from their empty expert outputs (whose
+    gradient, empty, flows back), and every rank's combine adds to the
+    whole."""
+    _, tcfg, _, tp, _, tx = _layer_case("float32", "dropfree")
+    probs = torch.softmax((tx @ tp["router"]).float(), dim=-1)
+    w, idx = TMoE._route(probs, tcfg.moe.top_k)
+    E = tcfg.moe.num_experts
+    C = TMoE.capacity(tcfg, tx.shape[1])
+    buf, rank = TMoE._dispatch(tx, idx, C, E)
+    out = torch.randn(buf.shape, generator=torch.Generator().manual_seed(2),
+                      requires_grad=True)
+    counts = TMoE.expert_split(E, 16)
+    assert counts == [1] * 8 + [0] * 8
+    starts = np.cumsum([0] + counts[:-1])
+    parts = [TMoE._combine(out[f:f + n], w, idx, rank, C, int(f))
+             for f, n in zip(starts, counts)]
+    for y in parts[8:]:
+        assert y.shape == tx.shape and not y.any()
+    total = sum(parts)
+    torch.testing.assert_close(total, TMoE._combine(out, w, idx, rank, C),
+                               rtol=1e-6, atol=1e-6)
+    empty = out[E:E]
+    y = TMoE._combine(empty, w, idx, rank, C, E)
+    (grad,) = torch.autograd.grad(y.sum(), empty)
+    assert grad.shape == (0, *out.shape[1:])
+
+
 def test_capacity_is_the_reference_rule():
     _, tcfg = cfgs(NAME)
     for S in (1, 7, 64, 2176, 32768):

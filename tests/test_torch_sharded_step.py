@@ -51,10 +51,10 @@ def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _unsharded(name):
+def _unsharded(name, **moe):
     """The same step and prefill in one process: the port's and the JAX
-    package's."""
-    jm, jp, tm, tp = both_models(name)
+    package's (``moe``: fields of the MoE config replaced)."""
+    jm, jp, tm, tp = both_models(name, moe=moe)
     batch = SyntheticDataset(vocab=tm.cfg.vocab, seq_len=32, global_batch=8,
                              seed=3).batch(0)
     tp0 = rebuild(tp, [t.clone() for t in leaves(tp)])
@@ -83,6 +83,13 @@ def unsharded():
 @pytest.fixture(scope="module")
 def unsharded_moe():
     return _unsharded("qwen2-moe-a2.7b")
+
+
+@pytest.fixture(scope="module")
+def unsharded_moe_five():
+    """Reduced qwen2-moe with 5 experts, which split over 4 'model' ranks
+    as 2, 2, 1 and 0."""
+    return _unsharded("qwen2-moe-a2.7b", num_experts=5)
 
 
 def _ranks(shape, fsdp, ref, cfg, tmp_path, **kw):
@@ -131,15 +138,33 @@ def test_expert_parallel_step_and_prefill_equal_unsharded_and_reference(
     """Reduced qwen2-moe, impl "ep": 4 experts a rank at full width, its
     weights moved by all-to-alls; the partial combines added over 'model'
     in another order than the unsharded sum's.  And on two pods with
-    FSDP over 'data' on every leaf of 2^13 elements or more (the
-    train_4k cells' layout; the q/k/v biases stay whole, where the
-    reference would shard their stacked layer axis): each layer's
-    experts gathered over 'data', then moved."""
+    FSDP over 'data' on every leaf but the q/k/v biases (the train_4k
+    cells' layout; the biases stay whole, where the reference would
+    shard their stacked layer axis): each layer's experts gathered over
+    'data', then moved."""
     ref = unsharded_moe
     cfg = ref["cfg"]
     ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep"))
-    got = _ranks(shape, fsdp, ref, ep, tmp_path, fsdp_min=1 << 13)
+    got = _ranks(shape, fsdp, ref, ep, tmp_path)
     _hold(got, ref, cfg)
     counts = got["counts"]
     assert any("all_to_all" in k for k in counts), counts
     assert bool([k for k in counts if "all_gather" in k]) == fsdp, counts
+
+
+def test_expert_parallel_step_with_a_rank_of_no_experts(unsharded_moe_five,
+                                                        tmp_path):
+    """5 experts over 4 'model' ranks split 2, 2, 1, 0, as 60 over 16
+    leaves the last rank none: that rank adds zeros to the combine and
+    takes part in every all-to-all, forward and backward.  Loss, grad
+    norm, every updated weight and the logits as the unsharded port's and
+    the JAX package's."""
+    from repro_torch.models.moe import expert_split
+
+    ref = unsharded_moe_five
+    cfg = ref["cfg"]
+    assert expert_split(cfg.moe.num_experts, 4) == [2, 2, 1, 0]
+    ep = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl="ep"))
+    got = _ranks((1, 4), False, ref, ep, tmp_path)
+    _hold(got, ref, cfg)
+    assert any("all_to_all" in k for k in got["counts"]), got["counts"]

@@ -23,7 +23,8 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.launch.specs import fake_params  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
-    batch_specs, cache_partition_specs, param_specs, strip_axis,
+    batch_specs, cache_partition_specs, fsdp_min_off_stack, param_specs,
+    strip_axis,
 )
 from repro_torch.models.lm import cache_specs  # noqa: E402
 from repro_torch.tree import paths  # noqa: E402
@@ -143,3 +144,20 @@ def test_fsdp_on_the_stacked_axis_raises_naming_the_leaf():
     with pytest.raises(NotImplementedError, match="layers/0/w_gate"):
         param_specs(tree, model_size=1, fsdp_axis="data", fsdp_size=8,
                     fsdp_min_size=1)
+
+
+@pytest.mark.parametrize("name", ["granite-3-2b", "qwen2-moe-a2.7b"])
+def test_fsdp_min_off_stack_is_the_least_size_that_does_not_raise(name):
+    """Reduced granite shards every leaf from 1 element; reduced
+    qwen2-moe's q/k/v biases (4 layers x 128) would land on the stacked
+    axis, so the least threshold is one past their 512 elements, and one
+    less raises naming a bias."""
+    params = fake_params(Model(ARCHS[name].reduced(), device="cpu"))[0]
+    kw = dict(model_size=2, fsdp_size=2)
+    least = fsdp_min_off_stack(params, **kw)
+    assert least == (513 if name == "qwen2-moe-a2.7b" else 1)
+    param_specs(params, fsdp_axis="data", fsdp_min_size=least, **kw)
+    if least > 1:
+        with pytest.raises(NotImplementedError, match="/b[qkv]"):
+            param_specs(params, fsdp_axis="data", fsdp_min_size=least - 1,
+                        **kw)
